@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (snvc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the check
-    python3 chip_smoke.py --profile    # also profile one flagship request
+    python3 chip_smoke.py --profile    # also profile one request of each path
 
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name; nvidia-smi's name and power limit;
@@ -12,12 +12,26 @@ Phases, each printing one line with its elapsed seconds:
   4. K2      - the large-tap 3D conv kernel against its plain version for
                the three flagship convs and two ragged shapes, with kernel
                / plain / F.conv3d times and the tensor-core bound;
-  5. serving - a flagship RefineRunner (hrnet-w32, 32x192x192 grid, 4
+  5. K3      - the plane-sweep cost volume kernel against its plain
+               version (small shapes with shared and per-sample shift
+               tables, shifts of 0, integer, fractional and past the row;
+               the detect shape with a [2, 64] table), with kernel / plain
+               times and the memory bound;
+  6. K4      - the frustum -> voxel kernel against its plain version (small
+               and detect shapes), with kernel / plain / F.grid_sample
+               times and the memory bound;
+  7. serving - a flagship RefineRunner (hrnet-w32, 32x192x192 grid, 4
                instances, bf16, seeded random weights) answers one warm-up
                and three requests; the launch counters must show K1 once
                and K2 three times per request; a small model's outputs on
                the card must agree with the same model on the CPU
-               (phase "reference").
+               (phase "reference");
+  8. detect  - a full-width DetectRunner (StereoConfig(): reslike-det-small,
+               384x1248 pair, 64 planes, 288x300x20 BEV grid, bf16, seeded
+               random weights) answers one warm-up and three requests; the
+               counters must show K3 and K4 once per request and K1 / K2
+               not at all; a tiny StereoNet on the card must agree with
+               the same weights on the CPU (phase "stereo_reference").
 Then a {"kernels": [...]} line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
@@ -36,11 +50,35 @@ import torch
 import torch.nn.functional as F
 
 from snvc_tpu_torch import _build
-from snvc_tpu_torch.config import flagship_vernier_config, tiny_vernier_config
+from snvc_tpu_torch.config import (
+    StereoConfig,
+    flagship_vernier_config,
+    tiny_stereo_config,
+    tiny_vernier_config,
+)
+from snvc_tpu_torch.data.stereo import normalize_images, synthetic_stereo_request
 from snvc_tpu_torch.data.synthetic import synthetic_batch_arrays
+from snvc_tpu_torch.geometry.calib import Calibration
+from snvc_tpu_torch.inference.detect import DetectRunner
 from snvc_tpu_torch.inference.refine import RefineRunner
+from snvc_tpu_torch.models.stereonet import (
+    StereoNet,
+    _bev_axes,
+    depth_hypotheses,
+    plane_shifts,
+)
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, conv3d_pertap
+from snvc_tpu_torch.ops.cost_volume import (
+    plane_sweep_shifted,
+    plane_sweep_volume_k3,
+)
+from snvc_tpu_torch.ops.frustum import (
+    _project_uv,
+    frustum_tables,
+    frustum_to_voxel_k4,
+    frustum_to_voxel_separable,
+)
 from snvc_tpu_torch.ops.grid_sample import sample_stereo_voxel
 from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample
 
@@ -227,10 +265,162 @@ def check_k2(gen, dev) -> dict:
     return dict(max_abs_err=max_err, **tot)
 
 
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def assert_within_ulps(label, got, want, ulps=2):
+    """|got - want| <= ``ulps`` bf16 ulp of the largest |want|."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= ulps * bf16_ulp(scale), \
+        f"{label}: max err {err} > {ulps} bf16 ulp of {scale}"
+    return err
+
+
+# ---------------------------------------------------------------- K3 ----
+def k3_edge_table(N, D, W, gen):
+    """[N, D] shifts: the first row random in [0, W), the rest the edge
+    cases 0, integers, fractions, the last column, and past the row."""
+    edge = torch.tensor([0.0, 1.0, 2.5, 7.25, W - 1.0, W - 0.5, W + 0.0,
+                         W + 5.5, 3 * W + 0.25], dtype=torch.float32)
+    t = torch.rand((N, D), generator=gen) * W
+    for n in range(1, N):
+        t[n, :len(edge)] = edge[: D]
+    return t
+
+
+def check_k3(gen, dev) -> dict:
+    t = time.perf_counter()
+    # small shapes, f32 and bf16, shared [D] and per-sample [N, D] tables
+    for dtype in (torch.float32, torch.bfloat16):
+        lf = torch.randn((2, 8, 24, 16), generator=gen).to(dev, dtype)
+        rf = torch.randn((2, 8, 24, 16), generator=gen).to(dev, dtype)
+        for shifts in (k3_edge_table(2, 9, 24, gen)[1],
+                       k3_edge_table(2, 9, 24, gen)):
+            s = shifts.to(dev)
+            assert_within_ulps(f"K3 small {dtype} {tuple(s.shape)}",
+                               plane_sweep_volume_k3(lf, rf, s),
+                               plane_sweep_shifted(lf, rf, s))
+    # detect shape: [N, 96, 312, 32] bf16 features, 64 planes; a [2, 64]
+    # table whose second row holds the edge cases
+    cfg = StereoConfig()
+    H, W = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    C = 32
+    lf = torch.randn((2, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    rf = torch.randn((2, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    table = k3_edge_table(2, cfg.num_depths, W, gen).to(dev)
+    err = assert_within_ulps("K3 detect [2, D]",
+                             plane_sweep_volume_k3(lf, rf, table),
+                             plane_sweep_shifted(lf, rf, table))
+    # the request's own shift table, one sample
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
+    depths = torch.from_numpy(depth_hypotheses(cfg)).to(dev)
+    shifts = plane_shifts(Pl, Pr, depths)
+    l1, r1 = lf[:1].contiguous(), rf[:1].contiguous()
+    got = plane_sweep_volume_k3(l1, r1, shifts)
+    err = max(err, assert_within_ulps("K3 detect", got,
+                                      plane_sweep_shifted(l1, r1, shifts)))
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: plane_sweep_volume_k3(l1, r1, shifts), 20)
+    plain_ms = cuda_ms(lambda: plane_sweep_shifted(l1, r1, shifts), 3)
+    # f32 lerp of the right half: 2 multiplies and an add per element
+    bound_ms = max(nbytes(l1, r1, shifts, got) / PEAK_BYTES,
+                   1.5 * got.numel() / PEAK_F32_FLOPS) * 1e3
+    phase("K3", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          library_ms="none")
+    # no single PyTorch call builds a plane-sweep volume (a gather, a lerp
+    # and a concat at least): library_ms is null
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=None)
+
+
+# ---------------------------------------------------------------- K4 ----
+def k4_tables(depths, zs, xs, ys, dev):
+    d0, fd = frustum_tables(depths, zs)
+    return [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            for a, dt in ((d0, np.int32), (fd, np.float32),
+                          (zs, np.float32), (xs, np.float32),
+                          (ys, np.float32))]
+
+
+def check_k4(gen, dev) -> dict:
+    t = time.perf_counter()
+    # small shape, both dtypes: depths past both ends, columns outside
+    depths = np.linspace(4.0, 30.0, 6).astype(np.float32)
+    zs = (4.0 + (np.arange(10) + 0.5) * 2.0).astype(np.float32)
+    zs[0], zs[-1] = 2.5, 34.0
+    xs = (-6.0 + (np.arange(12) + 0.5)).astype(np.float32)
+    ys = (-1.0 + (np.arange(4) + 0.5) * 0.8).astype(np.float32)
+    P = torch.tensor([[80.0, 0, 48.0, 2.0], [0, 80.0, 32.0, -0.3],
+                      [0, 0, 1, 0.005]]).repeat(2, 1, 1)
+    P[1, 0, 3] += 0.5
+    P = P.to(dev)
+    tabs = k4_tables(depths, zs, xs, ys, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        vol = torch.randn((2, 6, 16, 24, 16), generator=gen).to(dev, dtype)
+        assert_within_ulps(f"K4 small {dtype}",
+                           frustum_to_voxel_k4(vol, P, *tabs, 4),
+                           frustum_to_voxel_separable(vol, P, *tabs, 4))
+    # detect shape: [1, 64, 96, 312, 32] bf16 planes -> 288 x 300 x 20
+    cfg = StereoConfig()
+    D, C = cfg.num_depths, 32
+    Hf, Wf = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    depths = depth_hypotheses(cfg)
+    tabs = k4_tables(depths, *_bev_axes(cfg), dev)
+    vol = torch.randn((1, D, Hf, Wf, C), generator=gen).to(dev, torch.bfloat16)
+    P = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    got = frustum_to_voxel_k4(vol, P, *tabs, 4)
+    err = assert_within_ulps("K4 detect", got,
+                             frustum_to_voxel_separable(vol, P, *tabs, 4))
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: frustum_to_voxel_k4(vol, P, *tabs, 4), 20)
+    plain_ms = cuda_ms(lambda: frustum_to_voxel_separable(vol, P, *tabs, 4),
+                       3)
+    # library: one trilinear F.grid_sample over the 5-D volume with
+    # align_corners=True and a (u, v, d) grid, timed only
+    u, v = _project_uv(P, tabs[2], tabs[3], tabs[4], 4)  # [1,nz,nx], [1,nz,ny]
+    d = tabs[0].float() + tabs[1]
+    nz, nx, ny = u.shape[1], u.shape[2], v.shape[2]
+    grid = torch.stack([
+        (2 * u / (Wf - 1) - 1)[..., None].expand(1, nz, nx, ny),
+        (2 * v / (Hf - 1) - 1)[:, :, None, :].expand(1, nz, nx, ny),
+        (2 * d / (D - 1) - 1)[None, :, None, None].expand(1, nz, nx, ny),
+    ], dim=-1).to(torch.bfloat16)
+    vt = vol.permute(0, 4, 1, 2, 3)
+    library_ms = cuda_ms(lambda: F.grid_sample(
+        vt, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        3)
+    # bytes: the output, and each depth plane the tables use, read once;
+    # f32 operations per output element: 4 (row, column) taps of a depth
+    # lerp (3) and a weighted add (2), then 2 weighted adds over u (4)
+    planes = len(set(tabs[0].tolist()) | {i + 1 for i in tabs[0].tolist()})
+    read = planes * Hf * Wf * C * vol.element_size()
+    bound_ms = max((read + nbytes(got)) / PEAK_BYTES,
+                   24.0 * got.numel() / PEAK_F32_FLOPS) * 1e3
+    phase("K4", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", planes=planes)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=library_ms)
+
+
 # ----------------------------------------------------------- serving ----
+KERNELS = dict(K1=stereo_voxel_sample, K2=conv3d_large_tap,
+               K3=plane_sweep_volume_k3, K4=frustum_to_voxel_k4)
+
+
 def reset_counts():
-    stereo_voxel_sample.launches = 0
-    conv3d_large_tap.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
 
 
 def check_serving(dev, profile: bool = False) -> dict:
@@ -261,26 +451,26 @@ def check_serving(dev, profile: bool = False) -> dict:
             if k != "keep":
                 arr = v if isinstance(v, np.ndarray) else v.cpu().numpy()
                 assert np.isfinite(arr).all(), f"{k} is not finite"
-    counts = dict(K1=stereo_voxel_sample.launches,
-                  K2=conv3d_large_tap.launches)
+    counts = read_counts()
     n = len(batches)
-    assert counts == dict(K1=n, K2=3 * n), f"launch counts {counts}"
+    assert counts == dict(K1=n, K2=3 * n, K3=0, K4=0), \
+        f"launch counts {counts}"
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     med = sorted(times)[len(times) // 2]
     phase("serving", t, request_ms=",".join(f"{v:.1f}" for v in times),
           inst_per_s=f"{I / (med / 1e3):.2f}", peak_mem_gb=f"{peak_gb:.2f}",
           launches=json.dumps(counts).replace(" ", ""))
     if profile:
-        profile_request(runner, batches[0])
+        profile_request(lambda: runner.step(batches[0]))
     del runner, model
     torch.cuda.empty_cache()
     return dict(counts=counts, request_ms=times)
 
 
-def profile_request(runner, batch) -> None:
-    """torch.profiler over one flagship request: device time by kernel
-    (the 40 largest) and the device's busy share of the request's wall
-    time.  Only device (kernel) events are summed: the operator-level
+def profile_request(request) -> None:
+    """torch.profiler over one request (``request()``): device time by
+    kernel (the 40 largest) and the device's busy share of the request's
+    wall time.  Only device (kernel) events are summed: the operator-level
     rows report the same device time again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -289,7 +479,7 @@ def profile_request(runner, batch) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_req = time.perf_counter()
-        runner.step(batch)
+        request()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t_req) * 1e3
     rows = []
@@ -349,6 +539,100 @@ def check_reference(dev) -> None:
     phase("reference", t, **fields)
 
 
+# ------------------------------------------------------------ detect ----
+def check_detect(dev, profile: bool = False) -> dict:
+    """A full-width StereoConfig() DetectRunner: one warm-up and three
+    requests, each timed on the host clock around a synchronized forward."""
+    t = time.perf_counter()
+    cfg = StereoConfig()
+    model = StereoNet(cfg, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    runner = DetectRunner(model, cfg, device=dev)
+    runner.forward(synthetic_stereo_request(cfg, seed=100))  # warm-up
+    torch.cuda.synchronize()
+    requests = [synthetic_stereo_request(cfg, seed=s) for s in (1, 2, 3)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, n_valid = [], []
+    mb = runner.max_boxes
+    for r in requests:
+        t_req = time.perf_counter()
+        boxes, scores, classes, valid = runner.forward(r)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_req) * 1e3)
+        for name, v, shape in (("boxes", boxes, (1, mb, 7)),
+                               ("scores", scores, (1, mb)),
+                               ("classes", classes, (1, mb)),
+                               ("valid", valid, (1, mb))):
+            assert tuple(v.shape) == shape, f"{name}: {tuple(v.shape)}"
+        assert bool(torch.isfinite(boxes).all()), "boxes are not finite"
+        assert bool(torch.isfinite(scores[valid]).all()), \
+            "scores of valid proposals are not finite"
+        n_valid.append(int(valid.sum()))
+    counts = read_counts()
+    n = len(requests)
+    assert counts == dict(K1=0, K2=0, K3=n, K4=n), f"launch counts {counts}"
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = sorted(times)[len(times) // 2]
+    phase("detect", t, request_ms=",".join(f"{v:.1f}" for v in times),
+          median_ms=f"{med:.1f}", pairs_per_s=f"{1e3 / med:.2f}",
+          peak_mem_gb=f"{peak_gb:.2f}", valid=",".join(map(str, n_valid)),
+          launches=json.dumps(counts).replace(" ", ""))
+    if profile:
+        profile_request(lambda: runner.forward(requests[0]))
+    del runner, model
+    torch.cuda.empty_cache()
+    return dict(counts=counts, request_ms=times)
+
+
+def check_stereo_reference(dev) -> None:
+    """tiny_stereo_config in bf16 on the card (K3, K4) against the same
+    weights in float32 on the CPU (their plain versions).  TF32 is off for
+    cuDNN convolutions and matmuls and the float32 matmul precision is
+    "highest", so the card's float32 work is float32.  The bound is the
+    rule of phase "reference": within three times the CPU's own bf16 drift
+    from its float32 run, plus 1 % of the output's scale."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    small = tiny_stereo_config()
+    req = synthetic_stereo_request(small, seed=7)
+    keys = ("depth", "cls", "reg", "centerness")
+
+    def run(cfg, device):
+        model = StereoNet(cfg, device=device,
+                          generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            b = {k: torch.from_numpy(req[k]).to(device)
+                 for k in ("images_left", "images_right", "P_left",
+                           "P_right")}
+            out = model(normalize_images(b["images_left"]),
+                        normalize_images(b["images_right"]),
+                        b["P_left"], b["P_right"])
+        return {k: out[k].float().cpu().numpy() for k in keys}
+
+    bf16 = small.replace(compute_dtype="bfloat16")
+    ref = run(small, "cpu")
+    cpu_bf16 = run(bf16, "cpu")
+    reset_counts()
+    got = run(bf16, dev)
+    counts = read_counts()
+    assert counts == dict(K1=0, K2=0, K3=1, K4=1), f"launch counts {counts}"
+    fields = {}
+    for k in keys:
+        scale = max(float(np.abs(ref[k]).max()), 1e-6)
+        err = float(np.abs(got[k] - ref[k]).max()) / scale
+        drift = float(np.abs(cpu_bf16[k] - ref[k]).max()) / scale
+        assert np.isfinite(got[k]).all(), f"tiny stereo {k} not finite"
+        assert err <= 3.0 * drift + 0.01, \
+            f"tiny stereo {k}: card rel err {err:.4f}, cpu bf16 {drift:.4f}"
+        fields[f"{k}_rel_err"] = f"{err:.4f}"
+        fields[f"{k}_cpu_bf16_rel_err"] = f"{drift:.4f}"
+    phase("stereo_reference", t, tf32="off", matmul_precision="highest",
+          **fields)
+
+
 def main() -> int:
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -371,11 +655,16 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     gen = torch.Generator().manual_seed(0)
+    profile = "--profile" in sys.argv
     with torch.inference_mode():
         k1 = check_k1(gen, dev)
         k2 = check_k2(gen, dev)
-        serving = check_serving(dev, profile="--profile" in sys.argv)
+        k3 = check_k3(gen, dev)
+        k4 = check_k4(gen, dev)
+        serving = check_serving(dev, profile=profile)
         check_reference(dev)
+        detect = check_detect(dev, profile=profile)
+        check_stereo_reference(dev)
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",
@@ -386,6 +675,14 @@ def main() -> int:
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:236",
              launches=serving["counts"]["K2"], bound_by="operations", **k2),
+        dict(name="plane_sweep_volume", route="cuda",
+             source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
+             replaces="snvc_tpu/ops/cost_volume.py:119",
+             launches=detect["counts"]["K3"], bound_by="bytes", **k3),
+        dict(name="frustum_to_voxel", route="cuda",
+             source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
+             replaces="snvc_tpu/ops/frustum_pallas.py:125",
+             launches=detect["counts"]["K4"], bound_by="bytes", **k4),
     ]
     print(f"[total] {time.perf_counter() - T0:.2f}s")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by its
 own ``nvcc`` process (all started together) into
 ``build/snvc_tpu_torch/lib<name>_<hash>.so`` beside the package, where the
-hash covers the source and the flags; ``ctypes`` loads the result.  No
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags;
+``ctypes`` loads the result.  No
 PyTorch headers are included, so a build takes seconds.  Nothing here runs
 at import time: the first kernel call builds what is missing.
 """
@@ -37,6 +38,13 @@ ENTRY_POINTS = {
     "snvc_conv3d_large_tap": (
         "conv3d_large_tap",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "snvc_plane_sweep_volume": (
+        "plane_sweep_volume",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "snvc_frustum_to_voxel": (
+        "frustum_to_voxel",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _I, _P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in ENTRY_POINTS.values()))
 
@@ -55,8 +63,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 

@@ -1,5 +1,5 @@
 """Typed configuration for the port (copy of the fields of
-snvc_tpu/config.py:116-230 that the serving slice reads).
+snvc_tpu/config.py:116-230 and :264-348 that the serving slices read).
 
 Frozen dataclasses, as in the JAX package; nothing here imports JAX or
 snvc_tpu.
@@ -144,3 +144,72 @@ def flagship_vernier_config(**overrides) -> VernierConfig:
     )
     base.update(overrides)
     return VernierConfig(**base)
+
+
+@dataclass(frozen=True)
+class StereoConfig:
+    """Global stereo detector config (the fields of the JAX StereoConfig
+    that the detection serving path reads, with the same defaults: the
+    full-width model ``bench.py --model stereo`` serves)."""
+
+    backbone: str = "reslike-det-small"
+    gn: bool = True
+    branch: bool = True  # SPP branches
+    plane_sweep_volume: bool = True
+    cat_img_feature: bool = True
+    rpn3d_enable: bool = True
+    rpn_convdim: int = 64
+    # depth hypotheses for the plane sweep
+    num_depths: int = 64
+    min_depth: float = 2.0
+    max_depth: float = 59.6
+    # scene voxel / BEV grid (camera rect frame)
+    x_min: float = -30.0
+    x_max: float = 30.0
+    y_min: float = -1.0
+    y_max: float = 3.0
+    z_min: float = 2.0
+    z_max: float = 59.6
+    voxel_x: float = 0.2
+    voxel_y: float = 0.2
+    voxel_z: float = 0.2
+    # RPN head
+    num_classes: int = 1
+    num_angles: int = 2
+    anchors_y: Tuple[float, ...] = (1.65,)
+    num_hourglasses: int = 1
+    depth_offset: bool = False
+    input_size: Tuple[int, int] = (384, 1248)
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def bev_size(self) -> Tuple[int, int]:
+        nz = int(round((self.z_max - self.z_min) / self.voxel_z))
+        nx = int(round((self.x_max - self.x_min) / self.voxel_x))
+        return nz, nx
+
+    @property
+    def ny(self) -> int:
+        return int(round((self.y_max - self.y_min) / self.voxel_y))
+
+    def replace(self, **kw) -> "StereoConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def tiny_stereo_config(**overrides) -> StereoConfig:
+    """Small stereo config for tests and CPU runs (JAX tiny_stereo_config)."""
+    base = dict(
+        backbone="reslike50-det-tiny",
+        num_depths=16,
+        input_size=(64, 128),
+        x_min=-8.0,
+        x_max=8.0,
+        z_min=2.0,
+        z_max=18.0,
+        voxel_x=0.5,
+        voxel_y=1.0,
+        voxel_z=0.5,
+        compute_dtype="float32",
+    )
+    base.update(overrides)
+    return StereoConfig(**base)

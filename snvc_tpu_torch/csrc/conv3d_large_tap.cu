@@ -29,6 +29,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -224,10 +226,6 @@ int snvc_conv3d_large_tap(const void* x, const void* w, void* out, int N,
       static_cast<const __nv_bfloat16*>(w),
       static_cast<__nv_bfloat16*>(out), g);
   return (int)cudaGetLastError();
-}
-
-const char* snvc_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

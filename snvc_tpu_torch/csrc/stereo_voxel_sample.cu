@@ -18,48 +18,11 @@
 // so the output stream is coalesced; the feature maps (256 KB per view and
 // instance) stay in L1/L2 for the gathers.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-template <typename T>
-struct Vec;  // 16 bytes of channels
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* v) {
-    float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
+using snvc::Vec;
 
 template <typename T>
 __global__ void stereo_voxel_sample_kernel(
@@ -144,10 +107,6 @@ int snvc_stereo_voxel_sample(const void* lf, const void* rf, const void* gl,
   if (dtype == 1)
     return (int)launch<float>(lf, rf, gl, gr, out, N, P, Hf, Wf, C, sx, sy, s);
   return (int)cudaErrorInvalidValue;
-}
-
-const char* snvc_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

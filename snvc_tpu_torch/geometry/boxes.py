@@ -1,5 +1,5 @@
 """3D box part geometry (the part of snvc_tpu/geometry/boxes.py the serving
-path uses).  Boxes are [h, w, l, x, y, z, ry], bottom-centered, rect frame."""
+paths use).  Boxes are [h, w, l, x, y, z, ry], bottom-centered, rect frame."""
 
 from __future__ import annotations
 
@@ -28,3 +28,8 @@ def box_parts_cam(box3d) -> np.ndarray:
     pts = np.stack([l * PART_X, h * PART_Y, w * PART_Z], axis=-1)
     rotated = np.einsum("...ij,...nj->...ni", rot_y(box3d[..., 6]), pts)
     return rotated + box3d[..., None, 3:6]
+
+
+def box_corners_cam(box3d) -> np.ndarray:
+    """Only the 8 corners, [..., 8, 3]."""
+    return box_parts_cam(box3d)[..., 1:, :]

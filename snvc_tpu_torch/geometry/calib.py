@@ -1,5 +1,6 @@
 """KITTI camera calibration (the part of snvc_tpu/geometry/calib.py the
-serving path uses): the default stereo pair and rect -> image projection."""
+serving paths use): the default stereo pair, rect -> image projection and
+the egocentric -> allocentric angle."""
 
 from __future__ import annotations
 
@@ -34,3 +35,10 @@ class Calibration:
 
     def as_array(self) -> np.ndarray:
         return self.P.astype(np.float32)
+
+
+def ry_to_alpha(x: float, z: float, ry: float) -> float:
+    """Egocentric -> allocentric angle in [-pi, pi]
+    (reference: tools/inference_agnostic.py:337-344)."""
+    a = ry - np.arctan2(-z, x) - 0.5 * np.pi
+    return float((a + np.pi) % (2 * np.pi) - np.pi)

@@ -1,0 +1,164 @@
+"""Global-model serving: stereo pair -> StereoNet -> proposals (port of
+snvc_tpu/inference/detect.py: ``corners24_to_box3d``,
+``decode_proposals``, ``DetectRunner.forward`` and
+``proposals_to_kitti``).
+
+One request runs ``StereoEncoder`` (2D features of both views),
+``StereoHead`` (cost volume K3, 3D stack, frustum resample K4, BEV head)
+and ``decode_proposals`` (scores, corner decode, a top pool, rotated NMS,
+top-k), all on the runner's device.  ``DetectRunner.run`` (the pipelined
+loop over a KITTI dataset) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from snvc_tpu_torch.config import StereoConfig
+from snvc_tpu_torch.data.stereo import normalize_images
+from snvc_tpu_torch.geometry import boxes as gbox
+from snvc_tpu_torch.inference.kitti_writer import instance_line
+from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
+from snvc_tpu_torch.ops.nms import rotated_nms_bev, top_k_boxes
+from snvc_tpu_torch.ops.rotated_iou import bev_from_box3d
+from snvc_tpu_torch.utils.device import resolve_device
+
+
+def corners24_to_box3d(corners):
+    """[..., 24] corner coordinates (offsets + anchor) -> box3d [..., 7].
+
+    Bottom 4 corners then top 4; each dimension and the heading average
+    the four parallel edges (the heading as a vector sum, wrap-safe)."""
+    c = corners.reshape(corners.shape[:-1] + (8, 3))
+    bottom, top = c[..., :4, :], c[..., 4:, :]
+    center_xz = c[..., [0, 2]].mean(dim=-2)
+    y_bottom = bottom[..., 1].mean(dim=-1)
+    h = (bottom[..., 1] - top[..., 1]).mean(dim=-1)
+    e_l = ((c[..., 0, :] - c[..., 3, :]) + (c[..., 1, :] - c[..., 2, :])
+           + (c[..., 4, :] - c[..., 7, :]) + (c[..., 5, :] - c[..., 6, :]))
+    e_w = ((c[..., 0, :] - c[..., 1, :]) + (c[..., 3, :] - c[..., 2, :])
+           + (c[..., 4, :] - c[..., 5, :]) + (c[..., 7, :] - c[..., 6, :]))
+    length = torch.linalg.norm(e_l[..., [0, 2]], dim=-1) / 4.0
+    width = torch.linalg.norm(e_w[..., [0, 2]], dim=-1) / 4.0
+    ry = torch.atan2(-e_l[..., 2], e_l[..., 0])
+    return torch.stack([h, width, length, center_xz[..., 0], y_bottom,
+                        center_xz[..., 1], ry], dim=-1)
+
+
+def decode_proposals(outputs: Mapping, cfg: StereoConfig,
+                     max_boxes: int = 128, score_threshold: float = 0.1,
+                     nms_iou: float = 0.25,
+                     locations: Optional[torch.Tensor] = None):
+    """RPN outputs of a batch -> padded proposal sets: boxes3d
+    [N, max_boxes, 7], scores [N, max_boxes], classes [N, max_boxes]
+    (int32 class slots) and valid [N, max_boxes].  ``locations`` are the
+    BEV anchors ``bev_locations(cfg)`` on the outputs' device (made here
+    when not given)."""
+    A, K = cfg.num_angles, cfg.num_classes
+    cls_all = outputs["cls"]
+    dev = cls_all.device
+    if locations is None:
+        locations = torch.from_numpy(bev_locations(cfg)).to(dev)
+    L = locations.shape[0]
+    anchors_y = torch.tensor(cfg.anchors_y, dtype=torch.float32,
+                             device=dev).expand(K)
+    anchor3d = torch.stack([locations[:, 0:1].expand(L, K),
+                            anchors_y[None, :].expand(L, K),
+                            locations[:, 1:2].expand(L, K)], dim=-1)
+    anchor24 = anchor3d.repeat(1, 1, 8)[:, None]  # [L, 1, K, 24]
+    kidx = torch.arange(K, dtype=torch.int32, device=dev).repeat(L * A)
+    pool = min(4 * max_boxes, L * A * K)
+    res = []
+    for cls, reg, ctr in zip(cls_all, outputs["reg"], outputs["centerness"]):
+        score = (torch.sigmoid(cls.reshape(L, A, K))
+                 * torch.sigmoid(ctr.reshape(L, A))[..., None]).reshape(-1)
+        corners = reg.reshape(L, A, K, 24) + anchor24
+        boxes = corners24_to_box3d(corners).reshape(L * A * K, 7)
+        idx = torch.argsort(-score, stable=True)[:pool]
+        bsel, ssel, ksel = boxes[idx], score[idx], kidx[idx]
+        keep = rotated_nms_bev(bev_from_box3d(bsel), ssel,
+                               ssel > score_threshold, nms_iou)
+        b, s, v = top_k_boxes(bsel, ssel, keep, max_boxes)
+        kk = top_k_boxes(ksel, ssel, keep, max_boxes)[0]
+        res.append((b, s, kk, v))
+    return tuple(torch.stack(t) for t in zip(*res))
+
+
+_BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right")
+
+
+class DetectRunner:
+    """Serves the global model on ``device`` (default "cuda", which raises
+    without a GPU): ``forward`` takes one request (the arrays of
+    ``StereoBatch.arrays()``) and returns the padded proposals as tensors
+    on the device.  The model is moved to that device."""
+
+    def __init__(self, model: StereoNet, cfg: StereoConfig,
+                 max_boxes: int = 8, score_threshold: float = 0.02,
+                 nms_iou: float = 0.25, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = model.to(self.device).eval()
+        self.max_boxes = max_boxes
+        self.score_threshold = score_threshold
+        self.nms_iou = nms_iou
+        self.locations = torch.from_numpy(bev_locations(cfg)).to(self.device)
+
+    def _to_device(self, arrays: Mapping) -> Dict[str, torch.Tensor]:
+        Pl, Pr = (np.asarray(arrays[k], np.float64)
+                  for k in ("P_left", "P_right"))
+        for k, P in (("P_left", Pl), ("P_right", Pr)):
+            # the frustum resample (K4) takes the rectified form only
+            if np.any(P[:, 2, :2] != 0):
+                raise ValueError(f"{k} must be rectified (P[:, 2, :2] == 0)")
+        # the plane sweep (K3) takes shifts fu*B/z/4 >= 0; checked here on
+        # the host copy, so the card is not asked for the sign of its table
+        fu = Pl[:, 0, 0]
+        baseline = Pr[:, 0, 3] / -Pr[:, 0, 0] - Pl[:, 0, 3] / -Pl[:, 0, 0]
+        if not np.all(fu * baseline >= 0):
+            raise ValueError("P_left/P_right give a negative disparity "
+                             "(fu * baseline < 0): the plane-sweep shifts "
+                             "must be >= 0")
+        return {k: torch.as_tensor(np.asarray(arrays[k])).to(self.device)
+                for k in _BATCH_KEYS}
+
+    def forward(self, batch_arrays: Mapping
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+        """One request -> (boxes3d [N, max_boxes, 7], scores, classes,
+        valid), on the device."""
+        with torch.inference_mode():
+            b = self._to_device(batch_arrays)
+            out = self.model(normalize_images(b["images_left"]),
+                             normalize_images(b["images_right"]),
+                             b["P_left"].float(), b["P_right"].float())
+            return decode_proposals(
+                out, self.cfg, max_boxes=self.max_boxes,
+                score_threshold=self.score_threshold, nms_iou=self.nms_iou,
+                locations=self.locations)
+
+
+def proposals_to_kitti(boxes3d: np.ndarray, scores: np.ndarray,
+                       valid: np.ndarray, calib, image_hw=(375, 1242),
+                       cls_name: str = "Car", classes: np.ndarray = None,
+                       class_names=None):
+    """Decoded proposals of one frame (numpy) -> KITTI label lines with
+    the projected 2D boxes.  With ``classes`` and ``class_names`` each
+    line carries its class; otherwise every line is ``cls_name``."""
+    lines = []
+    H, W = image_hw
+    for i, (b, s, v) in enumerate(zip(boxes3d, scores, valid)):
+        if not v or not np.isfinite(s):
+            continue
+        uv = calib.rect_to_image(gbox.box_corners_cam(b))
+        box2d = np.array([uv[:, 0].min(), uv[:, 1].min(), uv[:, 0].max(),
+                          uv[:, 1].max()])
+        box2d = np.clip(box2d, 0, [W - 1, H - 1, W - 1, H - 1])
+        name = cls_name
+        if classes is not None and class_names is not None:
+            name = class_names[int(classes[i])]
+        lines.append(instance_line(b, box2d, float(s), name))
+    return lines

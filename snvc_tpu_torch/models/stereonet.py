@@ -1,0 +1,279 @@
+"""Global main-scale stereo detector ``StereoNet`` (port of
+snvc_tpu/models/stereonet.py), inference only.
+
+  stereo pair -> StereoEncoder (one StereoFeatureNet shared by both views)
+              -> plane-sweep cost volume over the depth hypotheses (K3)
+              -> 3D conv stack + hourglasses -> softmax depth expectation
+              -> frustum -> BEV voxel resample (K4)
+              -> BEV conv head (+ the RPN image feature projected to BEV)
+              -> cls / reg / centerness maps.
+
+Layouts as in JAX: images NHWC, cost volume [N, D, H/4, W/4, 2C], voxels
+[N, nz, nx, ny, C] collapsed to BEV channels-last [N, nz, nx, ny*C].
+Children carry the Flax names (``encoder``, ``head``,
+``StereoFeatureNet_0``, ``ConvNorm3d_i``, ``Hourglass_i``, ``Conv3d_i``,
+``ConvNorm_i``, ``Conv_i``), so JAX variables load by path.
+
+The K4 resample assumes a rectified projection (P[:, 2, :2] == 0, true of
+every KITTI P2/P3); the caller checks its host copy (``DetectRunner``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from snvc_tpu_torch.config import StereoConfig
+from snvc_tpu_torch.models.layers import (
+    Conv3d,
+    ConvNorm,
+    ConvNorm3d,
+    Hourglass,
+    conv2d_nhwc,
+    init_weights,
+)
+from snvc_tpu_torch.models.stereo_backbone import _VARIANTS, StereoFeatureNet
+from snvc_tpu_torch.ops.cost_volume import build_cost_volume
+from snvc_tpu_torch.ops.frustum import _hat, frustum_tables, frustum_to_voxel_k4
+from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
+
+
+def depth_hypotheses(cfg: StereoConfig) -> np.ndarray:
+    """Uniform depth planes in [min_depth, max_depth], float32."""
+    return np.linspace(cfg.min_depth, cfg.max_depth, cfg.num_depths).astype(
+        np.float32)
+
+
+def _bev_axes(cfg: StereoConfig):
+    """BEV cell centers (zs, xs, ys) in float64."""
+    nz, nx = cfg.bev_size
+    zs = cfg.z_min + (np.arange(nz) + 0.5) * cfg.voxel_z
+    xs = cfg.x_min + (np.arange(nx) + 0.5) * cfg.voxel_x
+    ys = cfg.y_min + (np.arange(cfg.ny) + 0.5) * cfg.voxel_y
+    return zs, xs, ys
+
+
+def voxel_grid_centers(cfg: StereoConfig) -> np.ndarray:
+    """Rect-frame voxel centers [Z*X*Y, 3], BEV-major (z, x, y) ravel."""
+    zs, xs, ys = _bev_axes(cfg)
+    gz, gx, gy = np.meshgrid(zs, xs, ys, indexing="ij")
+    return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
+
+
+def bev_locations(cfg: StereoConfig) -> np.ndarray:
+    """BEV anchor locations [Z*X, 2] (x, z)."""
+    zs, xs, _ = _bev_axes(cfg)
+    gz, gx = np.meshgrid(zs, xs, indexing="ij")
+    return np.stack([gx, gz], axis=-1).reshape(-1, 2).astype(np.float32)
+
+
+def plane_shifts(P_left, P_right, depths):
+    """Per-sample disparity of each depth plane in feature pixels, [N, D]
+    float32: f * B / z / 4, with the baseline B = b_x(right) - b_x(left)
+    and b_x = P[0, 3] / (-f)."""
+    Pl, Pr = P_left.float(), P_right.float()
+    fu = Pl[:, 0, 0]
+    baseline = Pr[:, 0, 3] / (-Pr[:, 0, 0]) - Pl[:, 0, 3] / (-Pl[:, 0, 0])
+    return ((fu[:, None] * baseline[:, None] / depths[None, :]) / 4.0
+            ).contiguous()
+
+
+class StereoEncoder(nn.Module):
+    """One ``StereoFeatureNet`` over both views -> (lf, rf, rpn_img)."""
+
+    def __init__(self, cfg: StereoConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg.compute_dtype)
+        self.StereoFeatureNet_0 = StereoFeatureNet(
+            backbone=cfg.backbone, gn=cfg.gn, branch=cfg.branch,
+            plane_sweep=cfg.plane_sweep_volume,
+            rpn_feature=cfg.rpn3d_enable and cfg.cat_img_feature,
+            rpn_convdim=cfg.rpn_convdim)
+
+    def forward(self, left, right):
+        net = self.StereoFeatureNet_0
+        lf, rpn_img = net(left.to(self.dtype))
+        rf, _ = net(right.to(self.dtype))
+        return lf, rf, rpn_img
+
+
+def frustum_img_to_bev(img_feat, P_mat, cfg: StereoConfig):
+    """Sample the RPN image feature [N, Hf, Wf, C] at each BEV cell's
+    anchor-height point (bilinear, zeros outside) -> [N, nz, nx, C].
+
+    For a rectified P the image row depends on the BEV row only and the
+    column on (row, x), so the sample is two hat-weight einsums in
+    float32.  The cell centers are made in float32 on the feature's
+    device, as the JAX function makes them in numpy float32."""
+    nz, nx = cfg.bev_size
+    dev = img_feat.device
+    zs = cfg.z_min + (torch.arange(nz, dtype=torch.float32, device=dev)
+                      + 0.5) * cfg.voxel_z
+    xs = cfg.x_min + (torch.arange(nx, dtype=torch.float32, device=dev)
+                      + 0.5) * cfg.voxel_x
+    y = float(cfg.anchors_y[0])
+    out = []
+    for f, P in zip(img_feat, P_mat.float()):
+        Hf, Wf = f.shape[0], f.shape[1]
+        w = zs + P[2, 3]
+        u = (P[0, 0] * xs[None, :] + P[0, 2] * zs[:, None] + P[0, 3]) \
+            / w[:, None] / 4.0
+        v = (P[1, 1] * y + P[1, 2] * zs + P[1, 3]) / w / 4.0
+        t = torch.einsum("zh,hwc->zwc", _hat(v, Hf), f.float())
+        out.append(torch.einsum("zxw,zwc->zxc", _hat(u, Wf), t).to(f.dtype))
+    return torch.stack(out)
+
+
+class StereoHead(nn.Module):
+    """Cost volume -> 3D stack -> depth regression + BEV RPN head."""
+
+    def __init__(self, cfg: StereoConfig):
+        super().__init__()
+        nz, nx = cfg.bev_size
+        for name, v in (("num_depths", cfg.num_depths),
+                        ("BEV nz ((z_max-z_min)/voxel_z)", nz),
+                        ("BEV nx ((x_max-x_min)/voxel_x)", nx)):
+            _check_div4(name, v)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg.compute_dtype)
+        cv = _VARIANTS[cfg.backbone][4][1]  # cost-volume feature channels
+        g = 32
+        self.ConvNorm3d_0 = ConvNorm3d(2 * cv, 32, 3, gn=cfg.gn, groups=g)
+        self.ConvNorm3d_1 = ConvNorm3d(32, 32, 3, gn=cfg.gn, groups=g)
+        nh = max(1, cfg.num_hourglasses)
+        for i in range(nh):
+            self.add_module(f"Hourglass_{i}", Hourglass(32, 3, cfg.gn))
+            self.add_module(f"Conv3d_{i}", Conv3d(32, 1, (3, 3, 3)))
+        self._n_hg = nh
+        if cfg.depth_offset:
+            self.add_module(f"Conv3d_{nh}", Conv3d(32, 1, (3, 3, 3)))
+        depths = depth_hypotheses(cfg)
+        self.register_buffer("depths", torch.from_numpy(depths),
+                             persistent=False)
+        if cfg.rpn3d_enable:
+            zs, xs, ys = _bev_axes(cfg)
+            d0, fd = frustum_tables(depths, zs)
+            for name, a in (("bev_d0", d0), ("bev_fd", fd),
+                            ("bev_zs", zs.astype(np.float32)),
+                            ("bev_xs", xs.astype(np.float32)),
+                            ("bev_ys", ys.astype(np.float32))):
+                self.register_buffer(name, torch.from_numpy(a),
+                                     persistent=False)
+            self.ConvNorm_0 = ConvNorm(cfg.ny * 32, 64, 3, gn=cfg.gn,
+                                       groups=g)
+            self.cat_img = cfg.cat_img_feature
+            if self.cat_img:
+                self.ConvNorm_1 = ConvNorm(64 + cfg.rpn_convdim, 64, 3,
+                                           gn=cfg.gn, groups=g)
+            self.add_module(f"Hourglass_{nh}", Hourglass(64, 2, cfg.gn))
+            A, K = cfg.num_angles, cfg.num_classes
+            self.Conv_0 = nn.Conv2d(64, A * K, 3, padding=1)
+            self.Conv_1 = nn.Conv2d(64, A * K * 24, 3, padding=1)
+            self.Conv_2 = nn.Conv2d(64, A, 3, padding=1)
+
+    def forward(self, lf, rf, rpn_img, P_left, P_right) -> Dict:
+        cfg = self.cfg
+        for name, v in (("feature height (input_size[0]/4)", lf.shape[1]),
+                        ("feature width (input_size[1]/4)", lf.shape[2])):
+            _check_div4(name, v)
+        depths = self.depths
+        Pl = P_left.float()
+        vol = build_cost_volume(lf, rf, plane_shifts(Pl, P_right, depths), 1)
+
+        base = F.relu(self.ConvNorm3d_0(vol))
+        base = F.relu(self.ConvNorm3d_1(base))
+        vol_i, pre1, post1 = base, None, None
+        cost, costs = None, []
+        for i in range(self._n_hg):
+            hg = getattr(self, f"Hourglass_{i}")
+            hg_out, pre_i, post_i = hg(vol_i, pre1, post1)
+            if i == 0:
+                pre1, post1 = pre_i, post_i
+            vol_i = base + hg_out
+            c = getattr(self, f"Conv3d_{i}")(vol_i)[..., 0].float()
+            cost = c if cost is None else cost + c  # [N, D, Hf, Wf]
+            costs.append(cost)
+        vol = vol_i
+
+        depth_offset = None
+        if cfg.depth_offset:
+            depth_offset = getattr(self, f"Conv3d_{self._n_hg}")(vol)[
+                ..., 0].float()
+
+        def expectation(c, off=None):
+            p = torch.softmax(c, dim=1)
+            lvl = depths[None, :, None, None]
+            if off is not None:
+                lvl = lvl + off
+            return p, (p * lvl).sum(dim=1)
+
+        prob, depth = expectation(cost, depth_offset)
+        out = {"depth": depth, "depth_prob": prob, "depth_levels": depths}
+        if depth_offset is not None:
+            out["depth_offset"] = depth_offset
+        out["depth_preds"] = tuple(
+            expectation(c)[1] for c in costs[:-1]) + (depth,)
+
+        if cfg.rpn3d_enable:
+            nz, nx = cfg.bev_size
+            voxels = frustum_to_voxel_k4(
+                vol.contiguous(), Pl.contiguous(), self.bev_d0, self.bev_fd,
+                self.bev_zs, self.bev_xs, self.bev_ys, 4)
+            C = voxels.shape[-1]
+            bev = voxels.reshape(-1, nz, nx, cfg.ny * C).to(self.dtype)
+            bev = F.relu(self.ConvNorm_0(bev))
+            if self.cat_img and rpn_img is not None:
+                img_bev = frustum_img_to_bev(rpn_img, Pl, cfg)
+                bev = torch.cat([bev, img_bev.to(self.dtype)], dim=-1)
+                bev = F.relu(self.ConvNorm_1(bev))
+            hg2, _, _ = getattr(self, f"Hourglass_{self._n_hg}")(bev)
+            bev = bev + hg2
+            out["cls"] = conv2d_nhwc(bev, self.Conv_0).float()
+            out["reg"] = conv2d_nhwc(bev, self.Conv_1).float()
+            out["centerness"] = conv2d_nhwc(bev, self.Conv_2).float()
+        return out
+
+
+def _check_div4(name: str, v: int) -> None:
+    """The two-level hourglasses (stride-2 down twice, deconv up twice)
+    round-trip only sizes divisible by 4."""
+    if v % 4 != 0:
+        raise ValueError(
+            f"StereoConfig: {name} = {v} must be divisible by 4 "
+            "(two-level hourglass down/up round-trip)")
+
+
+class StereoNet(nn.Module):
+    """Encoder + head (JAX StereoNet).  ``device`` defaults to "cuda" and
+    raises without a GPU; ``generator`` seeds the weights.
+
+    forward(left, right, P_left, P_right): left/right [N, H, W, 3]
+    normalized images, P_* [N, 3, 4].  Returns depth [N, H/4, W/4],
+    depth_prob [N, D, H/4, W/4], cls [N, Z, X, A*K], reg [N, Z, X, A*K*24],
+    centerness [N, Z, X, A] (float32), and depth_levels / depth_preds."""
+
+    def __init__(self, cfg: StereoConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = StereoEncoder(cfg)
+        self.head = StereoHead(cfg)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights(self, generator)
+        self.to(dev)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, left, right, P_left, P_right):
+        lf, rf, rpn_img = self.encoder(left, right)
+        return self.head(lf, rf, rpn_img, P_left, P_right)

@@ -1,0 +1,171 @@
+"""Plane-sweep stereo cost volume (port of snvc_tpu/ops/cost_volume.py),
+and kernel K3.
+
+For each depth plane d the volume concatenates the left features with the
+right features read at x - shift[d] (linear in x, zeros outside):
+[N, H, W, C] x2 -> [N, D, H', W', 2C], depth-major NDHWC.
+
+  * ``plane_sweep_volume`` / ``_plane_sweep_xla_any``: the JAX package's
+    gather form, any ``downsample``, shared [D] or per-sample [N, D]
+    shifts.
+  * ``plane_sweep_shifted``: the plain version of K3, the contract of
+    the Pallas kernel ``_psv_kernel`` (snvc_tpu/ops/cost_volume.py:119, via
+    ``_psv_pallas_fwd``), downsample 1:
+        out[..., C:] = fs * right[x - ks - 1] + (1 - fs) * right[x - ks],
+    ks = floor(s), fs = s - ks, computed in float32 and rounded once.
+  * ``plane_sweep_volume_k3``: the wrapper of the CUDA kernel
+    (csrc/plane_sweep_volume.cu).  A CPU tensor goes to
+    ``plane_sweep_shifted``; a CUDA tensor goes to the kernel or raises.
+
+The Pallas kernel streams the right features through VMEM as two dynamic
+W-slices per (sample, plane, 128 lanes), in float32, and the left half is
+concatenated by a separate XLA pass.  The CUDA kernel writes both halves
+in one pass: one thread per (n, d, h, x, 16 bytes of the 2C output
+channels), so neighbouring threads store neighbouring 16-byte groups and
+the 2C-channel row of a voxel goes out as one coalesced run.  The right
+row (n, h) that a plane reads is 20 KB at the serving shape and stays in
+L1/L2.
+
+Bound: bytes.  At the serving shape ([1, 96, 312, 32] bf16 features, 64
+planes) the kernel writes the 245.4 MB volume and reads 3.8 MB, ~0.074 ms
+at 3.35 TB/s.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def plane_sweep_volume(left, right, shifts, downsample: int = 1):
+    """Gather form (JAX ``plane_sweep_volume``): left/right [N, H, W, C];
+    shifts [D] float disparities (>= 0).  Returns [N, D, H//ds, W//ds, 2C].
+    The taps are weighted in the features' dtype, as in JAX."""
+    N, H, W, C = left.shape
+    ds = downsample
+    Ho, Wo = H // ds, W // ds
+    xs = torch.arange(Wo, dtype=shifts.dtype, device=shifts.device) * ds
+    x_src = xs[None, :] - shifts[:, None]  # [D, Wo]
+    x0 = torch.floor(x_src)
+    frac = (x_src - x0).to(left.dtype)
+    x0i = x0.to(torch.int64)
+
+    def tap(xi):
+        valid = ((xi >= 0) & (xi < W)).to(left.dtype)
+        g = right[:, :, xi.clamp(0, W - 1)]  # [N, H, D, Wo, C]
+        return g * valid[None, None, :, :, None]
+
+    r = tap(x0i) * (1.0 - frac)[None, None, :, :, None] \
+        + tap(x0i + 1) * frac[None, None, :, :, None]
+    r = r[:, ::ds].movedim(2, 1)  # [N, D, Ho, Wo, C]
+    lt = left[:, ::ds, ::ds][:, None].expand(r.shape)
+    return torch.cat([lt, r], dim=-1)
+
+
+def _plane_sweep_xla_any(left, right, shifts, downsample: int = 1):
+    """Gather form for a shared [D] or a per-sample [N, D] shift table."""
+    if shifts.ndim == 2:
+        return torch.cat([
+            plane_sweep_volume(left[i:i + 1], right[i:i + 1], shifts[i],
+                               downsample)
+            for i in range(left.shape[0])])
+    return plane_sweep_volume(left, right, shifts, downsample)
+
+
+def _shift_table(shifts, N: int):
+    if shifts.ndim == 1:
+        return shifts[None].expand(N, -1)
+    if shifts.ndim != 2 or shifts.shape[0] != N:
+        raise ValueError(f"shifts must be [D] or [{N}, D], got "
+                         f"{tuple(shifts.shape)}")
+    return shifts
+
+
+def plane_sweep_shifted(left, right, shifts):
+    """Plain version of K3 (the Pallas kernel's contract), downsample 1.
+
+    left/right [N, H, W, C]; shifts [D] or [N, D] float32, >= 0.  The right
+    half is lerped in float32 and rounded once to the features' dtype;
+    taps left of column 0 are zero.  Returns [N, D, H, W, 2C]."""
+    N, H, W, C = left.shape
+    s = _shift_table(shifts, N).float()
+    D = s.shape[1]
+    ks = torch.floor(s)
+    fs = s - ks
+    x = torch.arange(W, device=left.device)
+    # ks >= 0 keeps every tap at or left of x; column -1 of the padded row
+    # (index 0) is the zero that every tap further left reads
+    ksi = ks.clamp(max=W + 1).to(torch.int64)[..., None]  # [N, D, 1]
+    i0 = (x - ksi - 1).clamp(min=-1) + 1
+    i1 = (x - ksi).clamp(min=-1) + 1
+    rpad = F.pad(right.float(), (0, 0, 1, 0))  # [N, H, W + 1, C]
+    n = torch.arange(N, device=left.device)[:, None, None]
+    a = rpad[n, :, i0].permute(0, 1, 3, 2, 4)  # [N, D, H, W, C]
+    b = rpad[n, :, i1].permute(0, 1, 3, 2, 4)
+    fs = fs[..., None, None, None]
+    r = (a * fs + b * (1.0 - fs)).to(left.dtype)
+    lt = left[:, None].expand(N, D, H, W, C)
+    return torch.cat([lt, r], dim=-1)
+
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def plane_sweep_volume_k3(left, right, shifts):
+    """Kernel K3: [N, H, W, C] x2, shifts [D] or [N, D] float32 (>= 0) ->
+    [N, D, H, W, 2C].  See module docstring.  A negative shift in a host
+    table raises.  A CUDA table is not read back to check it: the caller
+    that holds the values on the host checks them (``DetectRunner`` does,
+    from P), and the kernel zeroes every tap outside [0, W), so a negative
+    shift reads nothing out of bounds."""
+    if not shifts.is_cuda and bool((shifts < 0).any()):
+        raise ValueError("plane-sweep shifts must be >= 0")
+    if not left.is_cuda:
+        return plane_sweep_shifted(left, right, shifts)
+    dt = left.dtype
+    if dt not in _DTYPES or right.dtype != dt:
+        raise TypeError(f"plane_sweep_volume_k3 takes bf16 or f32 features, "
+                        f"got {dt}/{right.dtype}")
+    if shifts.dtype != torch.float32:
+        raise TypeError(f"shifts must be float32, got {shifts.dtype}")
+    if left.ndim != 4 or right.shape != left.shape:
+        raise ValueError(f"left {tuple(left.shape)} and right "
+                         f"{tuple(right.shape)} must be equal [N, H, W, C]")
+    N, H, W, C = left.shape
+    table = _shift_table(shifts, N)
+    if not all(t.is_cuda and t.device == left.device
+               for t in (right, shifts)):
+        raise ValueError("left, right and shifts must lie on one CUDA device")
+    if not (left.is_contiguous() and right.is_contiguous()
+            and shifts.is_contiguous()):
+        raise ValueError("left, right and shifts must be contiguous")
+    vec = 8 if dt == torch.bfloat16 else 4  # 16-byte channel groups
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec}")
+    D = table.shape[1]
+    out = torch.empty((N, D, H, W, 2 * C), dtype=dt, device=left.device)
+    from snvc_tpu_torch._build import error_string, load_library
+
+    lib = load_library("plane_sweep_volume")
+    stream = torch.cuda.current_stream(left.device).cuda_stream
+    err = lib.snvc_plane_sweep_volume(
+        left.data_ptr(), right.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+        N, D, H, W, C, 0 if shifts.ndim == 1 else D, _DTYPES[dt], stream)
+    if err != 0:
+        raise RuntimeError(f"plane_sweep_volume launch failed: "
+                           f"{error_string(lib, err)}")
+    plane_sweep_volume_k3.launches += 1
+    return out
+
+
+plane_sweep_volume_k3.launches = 0
+
+
+def build_cost_volume(left, right, shifts, downsample: int = 1):
+    """Dispatcher (JAX ``build_cost_volume``; the reference API asserts
+    shift >= 0).  Downsample 1 goes to ``plane_sweep_volume_k3``: kernel K3
+    on a CUDA tensor, its plain version on a CPU tensor.  Any other
+    downsample takes the gather form."""
+    if downsample == 1:
+        return plane_sweep_volume_k3(left, right, shifts)
+    return _plane_sweep_xla_any(left, right, shifts, downsample)

@@ -1,0 +1,159 @@
+"""The port's plane-sweep cost volume (snvc_tpu_torch/ops/cost_volume.py)
+against the JAX package: the gather form against ``plane_sweep_volume`` /
+``_plane_sweep_xla_any``, and the plain version of kernel K3
+(``plane_sweep_shifted``) against both the gather form and the Pallas
+kernel run by the Pallas interpreter (``_psv_pallas_fwd(interpret=True)``),
+with shared [D] and per-sample [N, D] shift tables.  The shifts reuse the
+edge cases of tests/test_cost_volume.py: zero, integer, fractional, and
+shifts that push taps off the left edge or past the whole row.
+
+Float32.  The gather form rounds x - s before the floor, the kernel
+contract splits s itself, so the two differ by an ulp of the column index
+(W <= 32 here: ~4e-6 per unit of feature); atol 1e-5 as the JAX tests use.
+The kernel's wrapper on a CPU tensor is the plain version and leaves its
+launch counter alone; a CUDA test compares the kernel with its plain
+version on a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snvc_tpu.ops.cost_volume import (
+    _plane_sweep_xla_any as jax_any,
+    _psv_pallas_fwd,
+    plane_sweep_volume as jax_psv,
+)
+from snvc_tpu_torch.ops.cost_volume import (
+    _plane_sweep_xla_any,
+    build_cost_volume,
+    plane_sweep_shifted,
+    plane_sweep_volume,
+    plane_sweep_volume_k3,
+)
+
+SHARED = np.array([0.0, 1.0, 2.5, 7.25, 21.9], np.float32)
+
+
+def _features(seed, N=2, H=8, W=24, C=16):
+    rng = np.random.default_rng(seed)
+    left = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    right = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    return left, right
+
+
+def _per_sample(seed, N, W, past_row=True):
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(0.0, W - 2, size=(N, 4)).astype(np.float32)
+    s[0, 0] = 0.0
+    s[-1, 1] = 3.0  # integer
+    if past_row:  # the right half is all zeros
+        s[-1, 2] = W + 5.5
+    return s
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.asarray(a)) for a in arrays)
+
+
+@pytest.mark.parametrize("downsample", [1, 2])
+def test_gather_form_matches_jax(downsample):
+    left, right = _features(0)
+    want = np.asarray(jax_psv(left, right, jnp.asarray(SHARED), downsample))
+    got = plane_sweep_volume(*_t(left, right, SHARED), downsample).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_gather_form_per_sample_matches_jax():
+    left, right = _features(1, N=3)
+    shifts = _per_sample(1, 3, 24)
+    want = np.asarray(jax_any(left, right, jnp.asarray(shifts), 1))
+    got = _plane_sweep_xla_any(*_t(left, right, shifts), 1).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k3_plain_matches_pallas_interpret(per_sample):
+    """The Pallas kernel pads the row by W zeros, so its shifts stay below
+    W (a larger one slices outside its buffer)."""
+    left, right = _features(2, N=3)
+    shifts = _per_sample(2, 3, 24, past_row=False) if per_sample else SHARED
+    want = np.asarray(_psv_pallas_fwd(jnp.asarray(left), jnp.asarray(right),
+                                      jnp.asarray(shifts), interpret=True))
+    got = plane_sweep_shifted(*_t(left, right, shifts)).numpy()
+    assert got.shape == want.shape == (3, shifts.shape[-1], 8, 24, 32)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k3_plain_matches_gather_form(per_sample):
+    left, right = _features(3, N=3)
+    shifts = _per_sample(3, 3, 24) if per_sample else SHARED
+    want = np.asarray(jax_any(left, right, jnp.asarray(shifts), 1))
+    got = plane_sweep_shifted(*_t(left, right, shifts)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_k3_plain_rounds_once_in_bf16():
+    """bf16 features: the right half is lerped in float32 from the bf16
+    taps and rounded once, the left half is copied bit for bit."""
+    left, right = _features(4)
+    lt, rt = (t.bfloat16() for t in _t(left, right))
+    s = torch.from_numpy(SHARED)
+    got = plane_sweep_shifted(lt, rt, s)
+    assert got.dtype == torch.bfloat16
+    want = plane_sweep_shifted(lt.float(), rt.float(), s).bfloat16()
+    assert torch.equal(got, want)
+
+
+def test_k3_wrapper_on_cpu_is_plain_and_uncounted():
+    left, right = _features(5)
+    shifts = _per_sample(5, 2, 24)
+    before = plane_sweep_volume_k3.launches
+    got = plane_sweep_volume_k3(*_t(left, right, shifts))
+    assert torch.equal(got, plane_sweep_shifted(*_t(left, right, shifts)))
+    assert torch.equal(build_cost_volume(*_t(left, right, shifts), 1), got)
+    assert plane_sweep_volume_k3.launches == before
+
+
+def test_k3_rejects_negative_shift():
+    left, right = _features(6)
+    with pytest.raises(ValueError, match=">= 0"):
+        plane_sweep_volume_k3(*_t(left, right,
+                                  np.array([0.5, -1.0], np.float32)))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k3_kernel_matches_plain_on_card(cuda_device, dtype, per_sample):
+    left, right = _features(7, N=2)
+    shifts = _per_sample(7, 2, 24) if per_sample else SHARED
+    lt, rt, st = (t.to(cuda_device) for t in _t(left, right, shifts))
+    lt, rt = lt.to(dtype), rt.to(dtype)
+    got = plane_sweep_volume_k3(lt, rt, st)
+    want = plane_sweep_shifted(lt, rt, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k3_kernel_negative_shift_reads_in_bounds(cuda_device):
+    """A CUDA table is not read back for its sign; the kernel zeroes taps
+    right of the row as well, matching the gather form's zeros outside."""
+    left, right = _features(8, N=2)
+    shifts = np.array([-0.5, -3.25, -30.0, 1.5], np.float32)
+    lt, rt, st = (t.to(cuda_device) for t in _t(left, right, shifts))
+    got = plane_sweep_volume_k3(lt, rt, st)
+    want = plane_sweep_volume(lt, rt, st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

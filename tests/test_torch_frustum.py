@@ -1,0 +1,154 @@
+"""The port's frustum -> voxel resample (snvc_tpu_torch/ops/frustum.py)
+against the JAX package, at the shapes of tests/test_stereonet.py:63-96:
+the gather form against ``frustum_to_voxel``, and the plain version of
+kernel K4 (``frustum_to_voxel_separable``) against both ``frustum_to_voxel``
+and the Pallas kernels run by the Pallas interpreter
+(``frustum_to_voxel_pallas`` and ``_v2``, ``interpret=True``).
+
+Float32.  The gather form projects the voxel centers with a matmul, the
+separable forms with per-axis products, and the Pallas kernels sum their
+hat matmuls in another order, so the samples differ by float32 rounding of
+the coordinates times the volume's gradient: atol 2e-4, as the JAX test of
+the two uses.  The kernel's wrapper on a CPU tensor is the plain version and
+leaves its launch counter alone; a CUDA test compares the kernel with its
+plain version on a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snvc_tpu.ops.frustum import depth_plane_coords as jax_depth_coords
+from snvc_tpu.ops.frustum import frustum_to_voxel as jax_f2v
+from snvc_tpu.ops.frustum_pallas import (
+    frustum_to_voxel_pallas,
+    frustum_to_voxel_pallas_v2,
+)
+from snvc_tpu_torch.ops.frustum import (
+    depth_plane_coords,
+    frustum_tables,
+    frustum_to_voxel,
+    frustum_to_voxel_k4,
+    frustum_to_voxel_separable,
+)
+
+P_TEST = np.array([[80.0, 0, 48.0, 2.0], [0, 80.0, 32.0, -0.3],
+                   [0, 0, 1, 0.005]], np.float32)
+
+
+def _case(seed, N=1):
+    """Volume [N, 6, 16, 24, 8] and a 10 x 12 x 4 BEV grid whose depths
+    run past both ends of the planes (clamped) and whose columns fall
+    partly outside the image (zeros)."""
+    rng = np.random.default_rng(seed)
+    D, Hf, Wf, C = 6, 16, 24, 8
+    depths = np.linspace(4.0, 30.0, D).astype(np.float32)
+    zs = (4.0 + (np.arange(10) + 0.5) * 2.0).astype(np.float32)
+    zs[0], zs[-1] = 2.5, 34.0
+    xs = (-6.0 + (np.arange(12) + 0.5) * 1.0).astype(np.float32)
+    ys = (-1.0 + (np.arange(4) + 0.5) * 0.8).astype(np.float32)
+    vol = rng.standard_normal((N, D, Hf, Wf, C)).astype(np.float32)
+    P = np.tile(P_TEST[None], (N, 1, 1))
+    P[1:, 0, 3] += 0.5  # per-sample calibration
+    return vol, P, depths, zs, xs, ys
+
+
+def _centers(zs, xs, ys):
+    gz, gx, gy = np.meshgrid(zs, xs, ys, indexing="ij")
+    return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
+
+
+def _separable(vol, P, depths, zs, xs, ys):
+    d0, fd = frustum_tables(depths, zs)
+    args = (vol, P, d0, fd, zs, xs, ys)
+    return frustum_to_voxel_separable(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in args), 4)
+
+
+def test_depth_plane_coords_matches_jax():
+    depths = np.array([2.0, 4.0, 6.0, 8.0], np.float32)
+    z = np.array([0.5, 2.0, 5.0, 7.99, 8.0, 100.0], np.float32)
+    want = np.asarray(jax_depth_coords(jnp.asarray(z), jnp.asarray(depths)))
+    got = depth_plane_coords(torch.from_numpy(z),
+                             torch.from_numpy(depths)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_gather_form_matches_jax():
+    vol, P, depths, zs, xs, ys = _case(0, N=2)
+    c = _centers(zs, xs, ys)
+    want = np.asarray(jax_f2v(jnp.asarray(vol), jnp.asarray(P),
+                              jnp.asarray(depths), jnp.asarray(c), 4))
+    got = frustum_to_voxel(*(torch.from_numpy(a) for a in
+                             (vol, P, depths, c)), 4).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_tables_match_the_pallas_wrapper():
+    """d0 / fd as frustum_pallas.py:88-91 builds them (clamped at both
+    ends of the planes)."""
+    _, _, depths, zs, _, _ = _case(1)
+    d0, fd = frustum_tables(depths, zs)
+    D = len(depths)
+    want_d0 = np.clip(np.searchsorted(depths, zs, side="right") - 1, 0, D - 2)
+    assert d0.dtype == np.int32 and fd.dtype == np.float32
+    np.testing.assert_array_equal(d0, want_d0)
+    assert fd[0] == 0.0 and fd[-1] == 1.0 and ((fd >= 0) & (fd <= 1)).all()
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_k4_plain_matches_jax_gather(N):
+    vol, P, depths, zs, xs, ys = _case(2, N)
+    want = np.asarray(jax_f2v(
+        jnp.asarray(vol), jnp.asarray(P), jnp.asarray(depths),
+        jnp.asarray(_centers(zs, xs, ys)), 4)).reshape(N, 10, 12, 4, 8)
+    got = _separable(vol, P, depths, zs, xs, ys).numpy()
+    assert got.shape == (N, 10, 12, 4, 8)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("version", [frustum_to_voxel_pallas,
+                                     frustum_to_voxel_pallas_v2])
+def test_k4_plain_matches_pallas_interpret(version):
+    vol, P, depths, zs, xs, ys = _case(3, N=2)
+    want = np.asarray(version(jnp.asarray(vol), jnp.asarray(P), depths, zs,
+                              xs, ys, 4, interpret=True))
+    got = _separable(vol, P, depths, zs, xs, ys).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+def test_k4_wrapper_on_cpu_is_plain_and_uncounted():
+    vol, P, depths, zs, xs, ys = _case(4, N=2)
+    d0, fd = frustum_tables(depths, zs)
+    args = [torch.from_numpy(a) for a in (vol, P, d0, fd, zs, xs, ys)]
+    before = frustum_to_voxel_k4.launches
+    got = frustum_to_voxel_k4(*args, 4)
+    assert torch.equal(got, frustum_to_voxel_separable(*args, 4))
+    assert frustum_to_voxel_k4.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Both sum the same 8 taps in float32 in the same order and round
+    once; the plain version's einsums may fuse a multiply-add.  bf16: two
+    ulp at the largest value; float32: four (each of the two hat sums
+    may round once differently)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vol, P, depths, zs, xs, ys = _case(5, N=2)
+    d0, fd = frustum_tables(depths, zs)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (vol, P, d0, fd, zs, xs, ys)]
+    args[0] = args[0].to(dtype)
+    got = frustum_to_voxel_k4(*args, 4).float()
+    want = frustum_to_voxel_separable(*args, 4).float()
+    tol = 4 * 2.0 ** -23 if dtype == torch.float32 else 2 * 2.0 ** -7
+    assert bool(((got - want).abs() <= tol * want.abs().max()).all())

@@ -136,11 +136,26 @@ def test_large_tap_eligibility():
 
 def test_build_keys_libraries_by_source():
     paths = {name: _build.library_path(name) for name in _build.LIBRARIES}
-    assert set(_build.LIBRARIES) == {"stereo_voxel_sample", "conv3d_large_tap"}
+    assert set(_build.LIBRARIES) == {"stereo_voxel_sample", "conv3d_large_tap",
+                                     "plane_sweep_volume", "frustum_to_voxel"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
         assert _build.library_path(name) == path  # stable
+
+
+def test_build_key_covers_shared_header(tmp_path, monkeypatch):
+    """An edit to csrc/common.cuh rebuilds every library that includes it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.LIBRARIES}
+    with open(csrc / "common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    for name in _build.LIBRARIES:
+        assert _build.library_path(name) != before[name]
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
