@@ -35,9 +35,15 @@ ENTRY_POINTS = {
     "snvc_stereo_voxel_sample": (
         "stereo_voxel_sample",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "snvc_stereo_voxel_sample_bwd": (
+        "stereo_voxel_sample",
+        [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P]),
     "snvc_conv3d_large_tap": (
         "conv3d_large_tap",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "snvc_conv3d_weight_grad": (
+        "conv3d_weight_grad",
+        [_P] * 4 + [_I] * 11 + [_P]),
     "snvc_plane_sweep_volume": (
         "plane_sweep_volume",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -1,5 +1,6 @@
 """Typed configuration for the port (copy of the fields of
-snvc_tpu/config.py:116-230 and :264-348 that the serving slices read).
+snvc_tpu/config.py:116-230, :264-348 and :351-359 that the serving slices
+and Vernier training read).
 
 Frozen dataclasses, as in the JAX package; nothing here imports JAX or
 snvc_tpu.
@@ -76,11 +77,17 @@ class VernierConfig:
     use_bbox_head: bool = False
     use_part_reg_head: bool = False
     feature_aggregation: str = "concat"
+    # NCF heatmap loss: "mse" or "mse_weighted" (models/losses.py)
+    ncf_loss: str = "mse"
     # --- instance grid: (nh, nw, nl) samples along (height, width, length)
     grid_resolution: Tuple[int, int, int] = (16, 96, 96)
     x_range: Tuple[float, float] = (-2.4, 2.4)
     y_range: Tuple[float, float] = (-1.0, 1.0)
     z_range: Tuple[float, float] = (-2.4, 2.4)
+    # --- training targets (ops/assemble.make_targets) ---
+    sigma: int = 2  # gaussian radius (voxels) of the part heatmaps
+    ncf_subvoxel: bool = False  # draw at fractional voxel coordinates
+    grid_type: str = "2D"  # only the BEV ("2D") targets are ported
     # --- ROI cropping ---
     resolution: Tuple[int, int] = (256, 256)  # (height, width) of the ROI
     roi_enlarge: float = 1.1
@@ -95,8 +102,9 @@ class VernierConfig:
     filter_max: float = 2.0
     # --- numerics ---
     compute_dtype: str = "bfloat16"
-    # only names the 3D hourglass's parameters as the JAX model does (its
-    # nn.remat wrapper prefixes "Checkpoint"); the port does not remat
+    # rematerialize the 3D hourglass in training (torch.utils.checkpoint);
+    # also names its parameters as the JAX model does (its nn.remat
+    # wrapper prefixes "Checkpoint")
     remat: bool = True
 
     @property
@@ -124,6 +132,7 @@ def tiny_vernier_config(**overrides) -> VernierConfig:
         resolution=(64, 64),
         gn_groups=4,
         max_instances=2,
+        sigma=1,
         compute_dtype="float32",
         remat=False,
     )
@@ -144,6 +153,19 @@ def flagship_vernier_config(**overrides) -> VernierConfig:
     )
     base.update(overrides)
     return VernierConfig(**base)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and loss weights of Vernier training (JAX TrainConfig)."""
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 500
+    total_steps: int = 80000
+    occupancy_weight: float = 1.0
+    coordinate_weight: float = 0.1
+    grad_clip: float = 10.0
 
 
 @dataclass(frozen=True)

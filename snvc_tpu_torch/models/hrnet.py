@@ -1,7 +1,8 @@
 """HRNet 2D backbone, NHWC (port of snvc_tpu/models/hrnet.py, head_type
 "default": the highest-resolution branch at stride 4).
 
-BatchNorm runs in inference mode on the converted running statistics.
+BatchNorm follows the module's mode: running statistics in eval mode, batch
+statistics (and flax's running-average update) in train mode.
 All 3x3 convs pad (1, 1) explicitly, as the JAX modules do (hrnet.py:47).
 """
 

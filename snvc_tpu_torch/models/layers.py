@@ -18,6 +18,7 @@ in ``ConvNorm`` and ``Conv3d`` (JAX layers.py:115, :303), torch
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Tuple
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, large_tap_eligible
+from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3, k3_eligible
 
 
 def _norm_groups(requested: int, channels: int) -> int:
@@ -103,22 +105,59 @@ class FastGroupNorm(nn.Module):
         return (xf * a.reshape(shape) + b.reshape(shape)).to(x.dtype)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis, reading running
-    statistics (flax ``nn.BatchNorm(use_running_average=True)``)."""
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """The BatchNorms inside ``module`` keep their running statistics while
+    this is open: the recompute of a rematerialized block must not update
+    them twice."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stats_frozen = False
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last (channel) axis with flax semantics
+    (``nn.BatchNorm(momentum=0.9)``, JAX hrnet.py:44).
+
+    Eval mode reads the running statistics.  Train mode normalizes with
+    the batch's float32 mean and biased variance E[x^2] - E[x]^2 (clamped
+    at 0) and moves the running statistics by ``r = 0.9 r + 0.1 batch``,
+    the variance biased too (``F.batch_norm`` would store the unbiased
+    one)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.stats_frozen = False  # see frozen_batch_stats
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        a = torch.rsqrt(self.running_var + self.eps) * self.weight
-        b = self.bias - self.running_mean * a
-        return (x.float() * a + b).to(x.dtype)
+        if not self.training:
+            a = torch.rsqrt(self.running_var + self.eps) * self.weight
+            b = self.bias - self.running_mean * a
+            return (x.float() * a + b).to(x.dtype)
+        red = tuple(range(x.ndim - 1))
+        xf = x.float()
+        mean = xf.mean(red)
+        var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
+        if not self.stats_frozen:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 class Norm(nn.Module):
@@ -159,25 +198,35 @@ class Conv3d(nn.Module):
 
     Semantics of the JAX per-tap formulation: torch-symmetric padding
     ``(k-1)//2*dilation`` on every axis, float32 accumulation across taps.
-    Stride-1 convs with odd kernels and kd >= 5 (the head's conv1_k7,
+    bf16 stride-1 convs with odd kernels and kd >= 5 (the head's conv1_k7,
     conv2_k5 and conv3_k5_d2) go to ``conv3d_large_tap`` — the hand CUDA
     kernel K2 on a CUDA tensor, its plain per-tap version on the CPU.
-    Every other shape is one ``F.conv3d`` with the same padding.
+    With ``pallas="auto"`` (JAX layers.py:182; default "never"), bf16
+    k3x3x3 stride-1 convs go to ``conv3d_k3`` (K5).  Every other conv,
+    float32 ones included, is one ``F.conv3d`` with the same padding.
     The weight has torch's layout [O, I, kd, kh, kw]."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3, 3),
-                 stride=(1, 1, 1), dilation: int = 1, use_bias: bool = False):
+                 stride=(1, 1, 1), dilation: int = 1, use_bias: bool = False,
+                 pallas: str = "never"):
         super().__init__()
+        if pallas not in ("never", "auto"):
+            raise ValueError(f"pallas must be 'never' or 'auto', got {pallas!r}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
         self.dilation = dilation
+        self.pallas = pallas
         self.weight = nn.Parameter(torch.empty(features, cin, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
         dt = x.dtype
         w = self.weight.to(dt)
-        if large_tap_eligible(self.kernel, self.stride):
+        if self.pallas == "auto" and k3_eligible(self.kernel, self.stride,
+                                                 self.dilation, dt):
+            out = conv3d_k3(x.contiguous(),
+                            w.permute(2, 3, 4, 1, 0).contiguous())
+        elif large_tap_eligible(self.kernel, self.stride, dt):
             out = conv3d_large_tap(
                 x.contiguous(), w.permute(2, 3, 4, 1, 0).contiguous(),
                 self.dilation)

@@ -11,15 +11,23 @@ and the head's conv1_k7 / conv2_k5 / conv3_k5_d2 run through
 Child names follow the Flax modules (``ConvNorm3d_0`` ...), see
 models/layers.py.  The ``3D``, ``BEV`` and ``BEV_type2`` heads are not
 ported yet and raise ``NotImplementedError``.
+
+The module's mode is the JAX ``train`` flag: in train mode BatchNorm uses
+batch statistics (over both views stacked, as the encoder runs one HRNet
+pass over both) and, with ``cfg.remat``, the 3D hourglass is
+rematerialized in the backward (``torch.utils.checkpoint``), as JAX's
+``nn.remat`` does (vernier.py:188-202).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from snvc_tpu_torch.config import VernierConfig
 from snvc_tpu_torch.models.fc_model import FCModel
@@ -32,6 +40,7 @@ from snvc_tpu_torch.models.layers import (
     HourglassDeep,
     avg_pool_height,
     conv2d_nhwc,
+    frozen_batch_stats,
     init_weights,
 )
 from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample
@@ -153,9 +162,17 @@ class VernierHead(nn.Module):
         x = F.relu(self.ConvNorm3d_3(x)) + x
         hg3 = getattr(self, self._hg3)
         if isinstance(hg3, HourglassDeep):
-            x = hg3(x) + x
+            run_hg3 = hg3
         else:
-            x = hg3(x, None, None)[0] + x
+            def run_hg3(t):
+                return hg3(t, None, None)[0]
+        if cfg.remat and self.training and torch.is_grad_enabled():
+            # the recompute must not move BatchNorm's running statistics
+            x = checkpoint(run_hg3, x, use_reentrant=False,
+                           context_fn=lambda: (contextlib.nullcontext(),
+                                               frozen_batch_stats(hg3))) + x
+        else:
+            x = run_hg3(x) + x
 
         occ = F.relu(self.ConvNorm3d_4(x))
         occ = torch.sigmoid(self.Conv3d_0(occ))  # [N, nh, nw, nl, 1]

@@ -1,8 +1,30 @@
-"""NCF heatmap decoding (port of the serving part of snvc_tpu/ops/heatmaps.py)."""
+"""NCF heatmap targets and decoding (port of snvc_tpu/ops/heatmaps.py:
+``bev_part_heatmaps`` for training, the decoders for serving)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def bev_part_heatmaps(centers_xz, grid_wl, sigma, quantize: bool = True):
+    """Gaussian BEV heatmaps of the parts (JAX heatmaps.py:15).
+
+    centers_xz [N, P, 2]: part positions in voxel index units (x along nw,
+    z along nl); grid_wl = (nw, nl).  Returns [N, P, nl, nw] float32 (rows
+    along length, columns along width), zero outside 3 sigma per axis.
+    ``quantize`` floors the centers first, as the reference's integer
+    blits do."""
+    nw, nl = grid_wl
+    c = torch.floor(centers_xz) if quantize else centers_xz
+    cx = c[..., 0][..., None, None]
+    cz = c[..., 1][..., None, None]
+    xs = torch.arange(nw, dtype=torch.float32, device=c.device)[None, :]
+    zs = torch.arange(nl, dtype=torch.float32, device=c.device)[:, None]
+    dx2 = (xs - cx) ** 2
+    dz2 = (zs - cz) ** 2
+    g = torch.exp(-(dx2 + dz2) / (2.0 * float(sigma) ** 2))
+    r2 = float((3 * sigma) ** 2)
+    return torch.where((dx2 <= r2) & (dz2 <= r2), g, torch.zeros_like(g))
 
 
 def hard_argmax_2d(heatmaps):

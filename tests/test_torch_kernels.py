@@ -127,16 +127,20 @@ def test_k2_wrapper_on_cpu_is_plain_and_uncounted():
 
 
 def test_large_tap_eligibility():
-    assert large_tap_eligible((7, 7, 7), (1, 1, 1))
-    assert large_tap_eligible((5, 3, 7), (1, 1, 1))
-    assert not large_tap_eligible((3, 3, 3), (1, 1, 1))
-    assert not large_tap_eligible((5, 5, 5), (2, 1, 1))
-    assert not large_tap_eligible((6, 5, 5), (1, 1, 1))
+    bf16 = torch.bfloat16
+    assert large_tap_eligible((7, 7, 7), (1, 1, 1), bf16)
+    assert large_tap_eligible((5, 3, 7), (1, 1, 1), bf16)
+    assert not large_tap_eligible((3, 3, 3), (1, 1, 1), bf16)
+    assert not large_tap_eligible((5, 5, 5), (2, 1, 1), bf16)
+    assert not large_tap_eligible((6, 5, 5), (1, 1, 1), bf16)
+    # the kernel takes bf16 only: a float32 conv goes to F.conv3d
+    assert not large_tap_eligible((7, 7, 7), (1, 1, 1), torch.float32)
 
 
 def test_build_keys_libraries_by_source():
     paths = {name: _build.library_path(name) for name in _build.LIBRARIES}
     assert set(_build.LIBRARIES) == {"stereo_voxel_sample", "conv3d_large_tap",
+                                     "conv3d_weight_grad",
                                      "plane_sweep_volume", "frustum_to_voxel"}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
