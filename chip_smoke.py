@@ -6,13 +6,17 @@
 
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name; nvidia-smi's name and power limit;
-  2. build   - nvcc builds every CUDA kernel of the serving path;
+  2. build   - nvcc builds every CUDA kernel, and each kernel's ptxas
+               registers and spills are printed (the two wgmma conv
+               kernels must spill nothing and keep their wgmma
+               unserialized);
   3. K1      - the stereo voxel sampler kernel against its plain version
                (small and flagship shapes), with kernel / plain /
                F.grid_sample times and the memory bound;
   4. K2      - the large-tap 3D conv kernel against its plain version for
                the three flagship convs and two ragged shapes, with kernel
-               / plain / F.conv3d times and the tensor-core bound;
+               / plain / F.conv3d times, TFLOP/s and the share of the
+               tensor-core bound per conv;
   5. K3      - the plane-sweep cost volume kernel against its plain
                version (small shapes with shared and per-sample shift
                tables, shifts of 0, integer, fractional and past the row;
@@ -41,10 +45,13 @@ Phases, each printing one line with its elapsed seconds:
                weight-gradient kernel) of the three prelude convs at the
                training shape and of two ragged shapes, against the
                per-tap conv's float32 autograd, with kernel / plain /
-               cuDNN (torch.nn.grad) times and the tensor-core bound;
+               cuDNN (torch.nn.grad) times, TFLOP/s and the share of the
+               tensor-core bound per conv;
  11. K5      - the k3 conv (the K2 kernel at a 3x3x3 tap) forward and
                backward against the plain version at a stereo 3D-stack
-               shape and at the JAX tests' [1, 4, 8, 16, 128] -> 32;
+               shape and at the JAX tests' [1, 4, 8, 16, 128] -> 32, with
+               F.conv3d / conv3d_input / conv3d_weight times beside the
+               forward, dx and dw;
  12. train_reference - one training step of a small float32 model on the
                card against the same step on the CPU (losses, every
                gradient, BatchNorm statistics, parameters after the next
@@ -65,6 +72,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -153,6 +161,43 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill bytes, ptxas performance notes) of each
+    kernel in an ``nvcc -Xptxas -v`` log; template kernels keep their
+    arguments (``conv3d_large_tap_kernel<32,1,1,7>``)."""
+    out, fn, spills, notes = [], "?", 0, {}
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn, spills = short_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"\((C75\d\d)\).*function '(\S+)'", ln)
+        if m:
+            notes.setdefault(short_name(m.group(2)), []).append(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append([fn, int(m.group(1)), spills])
+    return [(f, r, sp, notes.get(f, [])) for f, r, sp in out]
+
+
+def short_name(mangled: str) -> str:
+    """``_ZN..23conv3d_large_tap_kernelILi32ELi1ELi1ELi7EEEv..`` ->
+    ``conv3d_large_tap_kernel<32,1,1,7>`` (Itanium names: a length, then
+    the identifier)."""
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        end = m.end() + int(m.group(1))
+        name = mangled[m.end():end]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+            if args:
+                name += "<" + ",".join(re.findall(r"Li(-?\d+)E",
+                                                  args.group(1))) + ">"
+            return name
+    return mangled
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -306,7 +351,8 @@ def check_k2(gen, dev) -> dict:
             fields.update(kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
                           library_ms=f"{library_ms:.3f}",
                           bound_ms=f"{bound_ms:.3f}",
-                          tflops=f"{flops / ms / 1e9:.1f}")
+                          tflops=f"{flops / ms / 1e9:.1f}",
+                          pct_of_bound=f"{100 * bound_ms / ms:.1f}")
         phase(f"K2 {name}", tc, **fields)
         del x, w
         torch.cuda.empty_cache()
@@ -860,7 +906,9 @@ def check_k2_bwd(gen, dev) -> dict:
                                f"{k}_plain_ms": f"{plain_ms:.3f}",
                                f"{k}_cudnn_ms": f"{library_ms:.3f}",
                                f"{k}_bound_ms": f"{bound_ms:.3f}",
-                               f"{k}_tflops": f"{flops / ms / 1e9:.1f}"})
+                               f"{k}_tflops": f"{flops / ms / 1e9:.1f}",
+                               f"{k}_pct_of_bound":
+                                   f"{100 * bound_ms / ms:.1f}"})
         phase(f"K2_bwd {name}", tc, **fields)
         del x, w, g
         torch.cuda.empty_cache()
@@ -901,15 +949,25 @@ def check_k5(gen, dev) -> dict:
         ms = cuda_ms(lambda: conv3d_k3(x, w), 5)
         plain_ms = cuda_ms(lambda: conv3d_pertap(x, w, 1), 3)
         library_ms = cuda_ms(lambda: F.conv3d(xt, wt, None, 1, 1), 3)
+        gt = g.permute(0, 4, 1, 2, 3)
         dx_ms = cuda_ms(lambda: conv3d_input_grad(g, w, 1), 5)
         dw_ms = cuda_ms(lambda: conv3d_weight_grad(x, g, (3, 3, 3), 1), 5)
+        dx_library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(
+            xt.shape, wt, gt, 1, 1), 3)
+        dw_library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+            xt, wt.shape, gt, 1, 1), 3)
+        # forward, dx and dw each read two of x, w, g and write the third
         bound_ms = max(flops / PEAK_BF16_FLOPS,
                        (nbytes(x, w) + nbytes(g)) / PEAK_BYTES) * 1e3
         phase(f"K5 {name}", tc, max_abs_err=f"{err:.3e}",
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
               cudnn_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-              dx_ms=f"{dx_ms:.4f}", dw_ms=f"{dw_ms:.4f}",
-              tflops=f"{flops / ms / 1e9:.1f}")
+              tflops=f"{flops / ms / 1e9:.1f}",
+              pct_of_bound=f"{100 * bound_ms / ms:.1f}",
+              dx_ms=f"{dx_ms:.4f}", dx_cudnn_ms=f"{dx_library_ms:.4f}",
+              dx_tflops=f"{flops / dx_ms / 1e9:.1f}",
+              dw_ms=f"{dw_ms:.4f}", dw_cudnn_ms=f"{dw_library_ms:.4f}",
+              dw_tflops=f"{flops / dw_ms / 1e9:.1f}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, library_ms=library_ms)
         del x, w, g
@@ -1084,12 +1142,14 @@ def main() -> int:
 
     t = time.perf_counter()
     secs = _build.build()
-    ptxas = [ln.strip() for lib in _build.LIBRARIES
-             for ln in _build.build_log(lib).splitlines()
-             if "registers" in ln or "spill" in ln]
     phase("build", t, build_s=f"{secs:.2f}")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+    for lib in _build.LIBRARIES:
+        for fn, regs, spills, notes in ptxas_report(_build.build_log(lib)):
+            print(f"  ptxas: {lib} {fn} registers={regs} spill_bytes={spills}"
+                  + "".join(f" NOTE {n}" for n in notes))
+            # the two wgmma conv kernels: no spills, no serialized wgmma
+            if lib in ("conv3d_large_tap", "conv3d_weight_grad"):
+                assert spills == 0 and not notes, f"ptxas: {lib} {fn}"
 
     gen = torch.Generator().manual_seed(0)
     profile = "--profile" in sys.argv

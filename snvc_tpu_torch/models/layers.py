@@ -226,7 +226,8 @@ class Conv3d(nn.Module):
                                                  self.dilation, dt):
             out = conv3d_k3(x.contiguous(),
                             w.permute(2, 3, 4, 1, 0).contiguous())
-        elif large_tap_eligible(self.kernel, self.stride, dt):
+        elif large_tap_eligible(self.kernel, self.stride, dt,
+                                self.dilation):
             out = conv3d_large_tap(
                 x.contiguous(), w.permute(2, 3, 4, 1, 0).contiguous(),
                 self.dilation)

@@ -244,8 +244,15 @@ def test_k1_backward_kernel_matches_plain_on_card(cuda_device, dtype):
         assert bool((err <= tol * b.abs() + 1e-4 * b.abs().max()).all())
 
 
+CARD_CASES = CONV_CASES + [
+    ((1, 6, 12, 40, 64), (7, 7, 7), 1, 32),   # conv1_k7: dx is 32 -> 64
+    ((1, 6, 20, 100, 32), (5, 5, 5), 2, 32),  # W off the tiles, dilation 2
+    ((2, 9, 10, 70, 40), (5, 3, 7), 2, 24),   # the smoke run's ragged case
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,kernel,dil,feats", CONV_CASES)
+@pytest.mark.parametrize("shape,kernel,dil,feats", CARD_CASES)
 def test_k2_backward_kernels_match_plain_on_card(cuda_device, shape, kernel,
                                                  dil, feats):
     torch.backends.cudnn.allow_tf32 = False
@@ -263,11 +270,22 @@ def test_k2_backward_kernels_match_plain_on_card(cuda_device, shape, kernel,
 
 
 @pytest.mark.cuda
-def test_k5_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("shape,feats", [
+    ((1, 4, 8, 16, 128), 32),   # the JAX tests' shape
+    ((1, 4, 8, 16, 32), 64),    # F 64 from C 32
+    ((1, 5, 9, 70, 64), 32),    # W off the 32 / 64 tiles
+])
+def test_k5_kernel_matches_plain_on_card(cuda_device, shape, feats):
     torch.backends.cudnn.allow_tf32 = False
-    x, w, _ = _conv(6, (1, 4, 8, 16, 128), (3, 3, 3), 32)
-    xt, wt = (torch.from_numpy(a).to(cuda_device).bfloat16() for a in (x, w))
-    got = conv3d_k3(xt, wt).float()
-    ref = conv3d_pertap(xt.float(), wt.float(), 1)
-    assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs()
-                 + 1e-3 * ref.abs().max()).all())
+    x, w, g = _conv(6, shape, (3, 3, 3), feats)
+    xt, wt, gt = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                  for a in (x, w, g))
+    for got, ref in (
+            (conv3d_k3(xt, wt), conv3d_pertap(xt.float(), wt.float(), 1)),
+            (conv3d_input_grad(gt, wt, 1),
+             conv3d_pertap(gt.float(), flip_weight(wt.float()), 1)),
+            (conv3d_weight_grad(xt, gt, (3, 3, 3), 1),
+             conv3d_weight_grad_plain(xt.float(), gt.float(), (3, 3, 3), 1))):
+        err = (got.float() - ref).abs()
+        assert bool((err <= 2.0 ** -7 * ref.abs()
+                     + 1e-3 * ref.abs().max()).all())

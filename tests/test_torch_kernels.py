@@ -190,12 +190,22 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, dtype):
     assert bool(((got - want).abs() <= tol * want.abs() + 1e-5).all())
 
 
+K2_CARD_CASES = [  # shape, kernel, dilation, features
+    ((1, 9, 10, 70, 40), (5, 3, 7), 2, 24),   # ragged C, F and W, dilation 2
+    ((1, 8, 12, 40, 32), (7, 7, 7), 1, 64),   # F 64 from C 32 (conv1's dx)
+    ((1, 6, 20, 100, 32), (5, 5, 5), 2, 32),  # W off the 32 / 64 tiles
+    ((2, 5, 17, 33, 12), (5, 5, 5), 1, 10),   # C, F padded to 16
+]
+
+
 @pytest.mark.cuda
-def test_k2_kernel_matches_plain_on_card(cuda_device):
-    x, w = _k2_inputs(5, (1, 9, 10, 70, 40), (5, 3, 7), 24)
+@pytest.mark.parametrize("shape,kernel,dil,feats", K2_CARD_CASES)
+def test_k2_kernel_matches_plain_on_card(cuda_device, shape, kernel, dil,
+                                         feats):
+    x, w = _k2_inputs(5, shape, kernel, feats)
     xt, wt = (t.to(cuda_device) for t in _torch(x, w))
-    got = conv3d_large_tap(xt.bfloat16(), wt.bfloat16(), 2).float()
+    got = conv3d_large_tap(xt.bfloat16(), wt.bfloat16(), dil).float()
     torch.backends.cudnn.allow_tf32 = False
-    ref = conv3d_pertap(xt.bfloat16().float(), wt.bfloat16().float(), 2)
+    ref = conv3d_pertap(xt.bfloat16().float(), wt.bfloat16().float(), dil)
     tol = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
     assert bool(((got - ref).abs() <= tol).all())
