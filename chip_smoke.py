@@ -11,8 +11,10 @@ Phases, each printing one line with its elapsed seconds:
                kernels must spill nothing and keep their wgmma
                unserialized);
   3. K1      - the stereo voxel sampler kernel against its plain version
-               (small and flagship shapes), with kernel / plain /
-               F.grid_sample times and the memory bound;
+               (small shapes; the flagship shape at uniform random
+               projections and at a seeded flagship batch's own), with
+               kernel (the path's projections; kernel_ms_random beside it)
+               / plain / F.grid_sample times and the memory bound;
   4. K2      - the large-tap 3D conv kernel against its plain version for
                the three flagship convs and two ragged shapes, with kernel
                / plain / F.conv3d times, TFLOP/s and the share of the
@@ -38,9 +40,12 @@ Phases, each printing one line with its elapsed seconds:
                not at all; a tiny StereoNet on the card must agree with
                the same weights on the CPU (phase "stereo_reference");
   9. K1_bwd  - the sampler's backward kernel against its plain version
-               (small shapes with the grid gradient, the training shape),
-               with kernel / plain / F.grid_sample-backward times and the
-               memory bound;
+               (small shapes with the grid gradient; the training shape at a
+               seeded batch's projections, and with every point of an
+               instance on one 2x2 tap patch, float32 and bf16), with
+               kernel (the batch's projections, no grid gradient; the one-
+               patch time beside it) / plain / F.grid_sample-backward times
+               and the memory bound;
  10. K2_bwd  - dx (the K2 kernel on flipped weights) and dw (the split-K
                weight-gradient kernel) of the three prelude convs at the
                training shape and of two ragged shapes, against the
@@ -240,6 +245,18 @@ def k1_case(gen, N, Hf, Wf, C, grid, roi, dtype, dev):
     return lf, rf, gl, gr
 
 
+def batch_projections(cfg, seed, dev):
+    """The [N, P, 2] ROI-pixel projections of both views that the path
+    computes for one seeded synthetic batch (assemble_instances): ordered
+    along the grid and clustered on the object, unlike k1_case's."""
+    b = batch_to_device(synthetic_batch_arrays(cfg, seed=seed), dev)
+    gl, gr = assemble_instances(
+        b["images_left"], b["images_right"], b["image_idx"], b["trans_l"],
+        b["trans_r"], b["samples"], b["P_left"], b["P_right"],
+        torch.from_numpy(make_grid_local(cfg)).to(dev), cfg)[2:]
+    return gl.float().contiguous(), gr.float().contiguous()
+
+
 def check_k1(gen, dev) -> dict:
     t = time.perf_counter()
     # small shape, f32 and bf16
@@ -253,17 +270,26 @@ def check_k1(gen, dev) -> dict:
         # one bf16 ulp (2^-7 relative) through a different fma order
         assert bool((err <= tol * want.abs() + 1e-5).all()), \
             f"K1 small {dtype}: max err {err.max().item()}"
-    # flagship shape: [4, 64, 64, 32] bf16 features, 32x192x192 grid
-    grid, roi = (32, 192, 192), (256, 256)
-    lf, rf, gl, gr = k1_case(gen, 4, 64, 64, 32, grid, roi, torch.bfloat16,
-                             dev)
-    got = stereo_voxel_sample(lf, rf, gl, gr, roi, grid)
-    want = sample_stereo_voxel(lf, rf, gl, gr, roi, grid)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5).all()), \
-        f"K1 flagship: max err {err.max().item()}"
-    max_err = err.max().item()
+    # flagship shape: [4, 64, 64, 32] bf16 features, 32x192x192 grid, at
+    # uniform random projections and at the path's own (a seeded flagship
+    # batch); the path's are the kernel's reported time
+    cfg = flagship_vernier_config()
+    grid, roi = cfg.grid_resolution, cfg.resolution
+    lf, rf, rgl, rgr = k1_case(gen, cfg.max_instances, 64, 64, 32, grid, roi,
+                               torch.bfloat16, dev)
+    gl, gr = batch_projections(cfg, 0, dev)
+    max_err = 0.0
+    for label, pl, pr in (("random", rgl, rgr), ("path", gl, gr)):
+        got = stereo_voxel_sample(lf, rf, pl, pr, roi, grid)
+        want = sample_stereo_voxel(lf, rf, pl, pr, roi, grid)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5).all()), \
+            f"K1 flagship {label}: max err {err.max().item()}"
+        max_err = max(max_err, err.max().item())
+        del want
+    ms_random = cuda_ms(lambda: stereo_voxel_sample(lf, rf, rgl, rgr, roi,
+                                                    grid), 20)
     ms = cuda_ms(lambda: stereo_voxel_sample(lf, rf, gl, gr, roi, grid), 20)
     plain_ms = cuda_ms(lambda: sample_stereo_voxel(lf, rf, gl, gr, roi,
                                                    grid), 3)
@@ -284,8 +310,8 @@ def check_k1(gen, dev) -> dict:
     bound_ms = max(nbytes(lf, rf, gl, gr, got) / PEAK_BYTES,
                    8.0 * got.numel() / PEAK_F32_FLOPS) * 1e3
     phase("K1", t, max_abs_err=f"{max_err:.3e}", kernel_ms=f"{ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}")
+          kernel_ms_random=f"{ms_random:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, library_ms=library_ms)
 
@@ -571,8 +597,8 @@ def check_serving(dev, profile: bool = False) -> dict:
 
 def profile_request(request) -> None:
     """torch.profiler over one request (``request()``): device time by
-    kernel (the 40 largest) and the device's busy share of the request's
-    wall time.  Only device (kernel) events are summed: the operator-level
+    kernel (the 40 largest, and every one of the port's own) and the
+    device's busy share of the request's wall time.  Only device (kernel) events are summed: the operator-level
     rows report the same device time again, and a user annotation on the
     device (the optimizer's ``Optimizer.step#AdamW.step``) spans its
     kernels and the gaps between them."""
@@ -600,8 +626,11 @@ def profile_request(request) -> None:
              f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
              f"{sum(r[1] for r in rows)} kernel launches",
              "device_ms  calls  kernel"]
-    lines += [f"{ms:9.3f}  {n:5d}  {key[:110]}" for ms, n, key in rows]
-    for ln in lines[:42]:
+    # the 40 largest rows, and every row of the port's own kernels
+    own = ("stereo_voxel_sample", "conv3d_", "plane_sweep", "frustum_to")
+    lines += [f"{ms:9.3f}  {n:5d}  {key[:110]}" for i, (ms, n, key)
+              in enumerate(rows) if i < 40 or any(k in key for k in own)]
+    for ln in lines:
         print(f"  profile: {ln}")
     phase("profile", t, wall_ms=f"{wall_ms:.2f}", busy_ms=f"{busy_ms:.2f}")
 
@@ -765,33 +794,43 @@ def check_k1_bwd(gen, dev) -> dict:
             assert_k1_grad(f"K1_bwd small {dtype} {name}", a, b,
                            rel if name[1] != "g" else 1e-5)
     # training shape: [8, 64, 64, 32] bf16 features, 16x96x96 grid, and the
-    # projections of a training batch (where they cluster, the atomics
+    # projections of a training batch (where they cluster, the adds
     # contend: uniform random points would understate the time)
     cfg = VernierConfig()
     N, grid = cfg.max_instances, cfg.grid_resolution
     roi = cfg.resolution
-    lf, rf, _, _ = k1_case(gen, N, 64, 64, 32, (1, 1, 1), roi,
-                           torch.bfloat16, dev)
-    b = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
-    gl, gr = assemble_instances(
-        b["images_left"], b["images_right"], b["image_idx"], b["trans_l"],
-        b["trans_r"], b["samples"], b["P_left"], b["P_right"],
-        torch.from_numpy(make_grid_local(cfg)).to(dev), cfg)[2:]
-    gl, gr = gl.contiguous(), gr.contiguous()
-    g = torch.randn((N,) + grid + (64,), generator=gen).to(dev,
-                                                           torch.bfloat16)
-    got = stereo_voxel_sample_bwd(lf, rf, gl, gr, g, roi)
-    want = sample_stereo_voxel_bwd(lf.float(), rf.float(), gl, gr, g.float(),
-                                   roi)
-    torch.cuda.synchronize()
+    P = math.prod(grid)
+    gl, gr = batch_projections(cfg, 0, dev)
     max_err = 0.0
-    for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"), got,
-                          want):
-        e = assert_k1_grad(f"K1_bwd train {name}", a, b,
-                           2.0 ** -7 if name[1] != "g" else 1e-5)
-        if name[1] != "g":
-            max_err = max(max_err, e)
-    del got, want
+    for dtype in (torch.float32, torch.bfloat16):
+        lf, rf, _, _ = k1_case(gen, N, 64, 64, 32, (1, 1, 1), roi, dtype,
+                               dev)
+        g = torch.randn((N,) + grid + (64,), generator=gen).to(dev, dtype)
+        # worst contention: every point of an instance inside one 2x2 tap
+        # patch (its own random patch, random fractions inside it)
+        cell = torch.randint(0, 63, (N, 1, 2), generator=gen).float()
+        frac = torch.rand((N, P, 2), generator=gen) * 0.9 + 0.05
+        patch = ((cell + frac + 0.5) * (roi[1] / 64)).to(dev)
+        for label, pl, pr in (("one_patch", patch, patch.flip(0)),
+                              ("train", gl, gr)):
+            if label == "train" and dtype == torch.float32:
+                continue  # f32 at the training projections: the small cases
+            got = stereo_voxel_sample_bwd(lf, rf, pl.contiguous(),
+                                          pr.contiguous(), g, roi)
+            want = sample_stereo_voxel_bwd(lf.float(), rf.float(), pl, pr,
+                                           g.float(), roi)
+            torch.cuda.synchronize()
+            rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"),
+                                  got, want):
+                e = assert_k1_grad(f"K1_bwd {label} {dtype} {name}", a, b,
+                                   rel if name[1] != "g" else 1e-5)
+                if name[1] != "g":
+                    max_err = max(max_err, e)
+            del got, want
+    patch = patch.contiguous()
+    ms_one_patch = cuda_ms(lambda: stereo_voxel_sample_bwd(
+        lf, rf, patch, patch, g, roi, need_grid=False), 5)
     # timed as training runs it: no grid gradient
     ms = cuda_ms(lambda: stereo_voxel_sample_bwd(lf, rf, gl, gr, g, roi,
                                                  need_grid=False), 20)
@@ -816,6 +855,7 @@ def check_k1_bwd(gen, dev) -> dict:
     bound_ms = max(nbytes(g, gl, gr, lf, rf) / PEAK_BYTES,
                    8.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
     phase("K1_bwd", t, max_abs_err=f"{max_err:.3e}", kernel_ms=f"{ms:.4f}",
+          kernel_ms_one_patch=f"{ms_one_patch:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,

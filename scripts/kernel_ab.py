@@ -1,7 +1,8 @@
-"""A/B timing of the port's conv kernels (K2 forward, its dx and dw, K5)
-between two trees of this repository, in turns on one NVIDIA GPU.
+"""A/B timing of the port's kernels (K1 forward and backward, K2 forward,
+its dx and dw, K5) between two trees of this repository, in turns on one
+NVIDIA GPU.
 
-    python3 scripts/conv_ab.py --parent DIR [--rounds 2]
+    python3 scripts/kernel_ab.py --parent DIR [--rounds 2]
 
 DIR holds another tree of the repository (e.g. unpacked by ``git archive
 <commit>``).  The script runs itself once per tree and turn -- parent,
@@ -13,9 +14,14 @@ that tree's kernels and times, at the main paths' shapes:
   K2 dw    conv3d_weight_grad of the same;
   K5       forward, dx and dw of the stereo stack's first conv
            ([1, 64, 96, 312, 64] -> 32, 3x3x3);
+  K1 fwd   the flagship sampler ([4, 64, 64, 32] bf16 features, 32x192x192
+           grid) at the path's projections (a seeded flagship batch through
+           assemble_instances) and at uniform random ones;
+  K1 bwd   the training sampler's backward ([8, 64, 64, 32], 16x96x96, a
+           seeded VernierConfig() batch's projections, no grid gradient);
 
 and the one PyTorch call that computes each (F.conv3d, torch.nn.grad.
-conv3d_input / conv3d_weight).  Each run prints one JSON line; the last
+conv3d_input / conv3d_weight, F.grid_sample forward / backward).  Each run prints one JSON line; the last
 lines are the medians per tree and the change / parent ratios.  Times are
 CUDA-event means over a few launches after a warm-up, on the same seeded
 inputs in every run.
@@ -73,7 +79,8 @@ def time_tree(tree: Path) -> dict:
     from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3
 
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve())
-    _build.build(("conv3d_large_tap", "conv3d_weight_grad"))
+    _build.build(("conv3d_large_tap", "conv3d_weight_grad",
+                  "stereo_voxel_sample"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     torch.backends.cudnn.allow_tf32 = False
@@ -124,10 +131,84 @@ def time_tree(tree: Path) -> dict:
             lambda: torch.nn.grad.conv3d_input(xt.shape, wt, gt, 1, 1), 5)
         out["K5 dw library"] = cuda_ms(
             lambda: torch.nn.grad.conv3d_weight(xt, wt.shape, gt, 1, 1), 5)
+    out.update(time_k1(dev, gen))
     for part in ("fwd", "dx", "dw"):
         for suffix in ("", " library"):
             out[f"{part} total{suffix}"] = sum(
                 out[f"{part} {c[0]}{suffix}"] for c in CONVS)
+    return out
+
+
+def k1_projections(cfg, dev):
+    """Both views' [N, P, 2] projections of a seeded synthetic batch, as
+    the path computes them."""
+    import torch
+
+    from snvc_tpu_torch.data.synthetic import synthetic_batch_arrays
+    from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
+    from snvc_tpu_torch.training.train import batch_to_device
+
+    b = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
+    gl, gr = assemble_instances(
+        b["images_left"], b["images_right"], b["image_idx"], b["trans_l"],
+        b["trans_r"], b["samples"], b["P_left"], b["P_right"],
+        torch.from_numpy(make_grid_local(cfg)).to(dev), cfg)[2:]
+    return gl.float().contiguous(), gr.float().contiguous()
+
+
+def time_k1(dev, gen) -> dict:
+    """Milliseconds of the K1 wrappers and their F.grid_sample calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from snvc_tpu_torch.config import VernierConfig, flagship_vernier_config
+    from snvc_tpu_torch.ops.stereo_sample_cuda import (
+        stereo_voxel_sample,
+        stereo_voxel_sample_bwd,
+    )
+
+    def features(N):
+        return [torch.randn((N, 64, 64, 32), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2)]
+
+    def normalized(g, roi):
+        scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=dev)
+        return (g * scale - 1.0)[:, None].to(torch.bfloat16)
+
+    out = {}
+    cfg = flagship_vernier_config()
+    grid, roi, N = cfg.grid_resolution, cfg.resolution, cfg.max_instances
+    P = grid[0] * grid[1] * grid[2]
+    with torch.inference_mode():
+        lf, rf = features(N)
+        lft, rft = lf.permute(0, 3, 1, 2), rf.permute(0, 3, 1, 2)
+        rnd = [torch.rand((N, P, 2), generator=gen).to(dev) * 1.125 * roi[1]
+               - 0.0625 * roi[1] for _ in range(2)]
+        for label, (gl, gr) in (("path", k1_projections(cfg, dev)),
+                                ("random", rnd)):
+            out[f"K1 fwd {label}"] = cuda_ms(
+                lambda: stereo_voxel_sample(lf, rf, gl, gr, roi, grid), 20)
+            ngl, ngr = normalized(gl, roi), normalized(gr, roi)
+            out[f"K1 fwd {label} library"] = cuda_ms(lambda: torch.cat(
+                [F.grid_sample(lft, ngl, align_corners=False),
+                 F.grid_sample(rft, ngr, align_corners=False)], 1), 5)
+        del lf, rf, lft, rft, rnd
+    cfg = VernierConfig()
+    grid, roi, N = cfg.grid_resolution, cfg.resolution, cfg.max_instances
+    lf, rf = features(N)
+    gl, gr = k1_projections(cfg, dev)
+    g = torch.randn((N,) + grid + (64,), generator=gen).to(dev,
+                                                           torch.bfloat16)
+    out["K1 bwd"] = cuda_ms(lambda: stereo_voxel_sample_bwd(
+        lf, rf, gl, gr, g, roi, need_grid=False), 20)
+    leaves = [f.detach().requires_grad_() for f in (lf, rf)]
+    outs = [F.grid_sample(leaf.permute(0, 3, 1, 2), normalized(gp, roi),
+                          align_corners=False)
+            for leaf, gp in zip(leaves, (gl, gr))]
+    gouts = [half.reshape(N, 1, -1, 32).permute(0, 3, 1, 2)
+             for half in (g[..., :32], g[..., 32:])]
+    out["K1 bwd library"] = cuda_ms(lambda: torch.autograd.grad(
+        outs, leaves, gouts, retain_graph=True), 5)
     return out
 
 
@@ -142,7 +223,7 @@ def main() -> int:
         import torch
 
         if not torch.cuda.is_available():
-            print("conv_ab: needs an NVIDIA GPU", file=sys.stderr)
+            print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
             return 1
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

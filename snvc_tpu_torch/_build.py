@@ -37,7 +37,7 @@ ENTRY_POINTS = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "snvc_stereo_voxel_sample_bwd": (
         "stereo_voxel_sample",
-        [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P]),
+        [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P]),
     "snvc_conv3d_large_tap": (
         "conv3d_large_tap",
         [_P, _P, _P] + [_I] * 12 + [_P]),

@@ -1,28 +1,37 @@
-"""Kernel K1: the stereo voxel sampler as a hand-written CUDA gather.
+"""Kernel K1: the stereo voxel sampler as hand-written CUDA.
 
 Replaces the Pallas kernel of snvc_tpu/ops/grid_sample_pallas.py
 (``_sample_stereo_voxel_impl`` -> ``full_call`` / ``banded_call``,
 :217 and :281), which builds a hat-weighted interpolation matrix and runs
 it on the TPU's matrix unit because the TPU has no hardware gather.  The
-H100 has one, so the CUDA kernel (csrc/stereo_voxel_sample.cu) is a plain
-gather: one thread per (point, view, 8-channel group).
+H100 has one, so the forward (csrc/stereo_voxel_sample.cu) is a plain
+gather: one thread per (view, 16 bytes of channels) of four points, the
+threads of a point side by side, the instance from the grid's second
+axis.
 
-Bound: memory.  Per flagship request it reads two [4, 64, 64, 32] bf16
-feature maps and two [4, 1.18M, 2] f32 projection arrays and writes the
-[4, 32, 192, 192, 64] bf16 voxel, ~0.68 GB; the gathers themselves hit
-L1/L2 (each feature map is 256 KB).  The design writes each point's 2C
-channels as 16-byte stores from neighbouring threads, so the output
-stream is fully coalesced.
+Forward bound: bytes.  Per flagship request it reads two [4, 64, 64, 32]
+bf16 feature maps and two [4, 1.18M, 2] f32 projection arrays and writes
+the [4, 32, 192, 192, 64] bf16 voxel, ~0.68 GB; each point's 2C channels
+go out as neighbouring 16-byte stores, so the output stream is fully
+coalesced, and no thread divides to find its point.
 
 Backward (``StereoVoxelSample``, a ``torch.autograd.Function``; JAX takes
 the VJP of ``ops/grid_sample.sample_stereo_voxel`` through XLA,
-grid_sample_pallas.py:329-342): the same kernel library's
-``snvc_stereo_voxel_sample_bwd`` scatters each voxel's gradient into
-float32 copies of both feature maps with atomicAdd (bound: memory and
-atomic contention; ~36 adds land on each pixel-tap at the training shape)
-and, when either projection grid needs it, gives the grids' gradient.
-In training the grids come from the samples, the projection matrices and
-the crop affines, which are not parameters, so it is skipped there.
+grid_sample_pallas.py:329-342): ``snvc_stereo_voxel_sample_bwd`` scatters
+each voxel's gradient into the feature maps' gradient.  At the training
+shape ~144 adds land on each of 2.1M float32 addresses, so the scatter
+runs in shared memory: a block owns one (instance, view, channel slice)
+of the map gradient; walkers of a few lanes (two channels a lane) take
+contiguous runs of points along the grid axis that moves the projection
+least and add a tap cell's sums once the run leaves the cell; the point
+range is split over the blocks of a thread-block cluster, and the
+cluster sums its partial maps through distributed shared memory and
+writes them in the feature dtype (``k1_bwd_tiling`` picks the slice and
+the split).  Bound: bytes, the 151 MB output gradient, read once.  When
+either projection grid needs it, it also gives the grids' gradient.  In
+training the grids come from the samples, the projection matrices and
+the crop affines, which are not parameters, so that part is skipped
+there.
 
 Each wrapper sends a CPU tensor to its plain version (ops/grid_sample.py)
 and a CUDA tensor to its kernel, or raises.
@@ -31,15 +40,64 @@ and a CUDA tensor to its kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+from snvc_tpu_torch.ops.conv3d_fold import SMEM_LIMIT
 from snvc_tpu_torch.ops.grid_sample import (
     sample_stereo_voxel,
     sample_stereo_voxel_bwd,
 )
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+# an H100 SM's shared memory (228 KB, 1 KB of it reserved per resident
+# block); a block's is SMEM_LIMIT (227 KB)
+SMEM_PER_SM = 233472
+BWD_THREADS = 1024  # threads of a backward block (the kernel's kBwdThreads)
+BWD_SLICES = (8, 4, 2, 1)  # the kernel's instantiated channel slices
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+class K1BwdTiling(NamedTuple):
+    """The backward kernel's launch: ``slice`` channels per block (its
+    float32 map in ``smem`` bytes of shared memory), ``splits`` blocks per
+    cluster, each scattering 1/splits of the points, ``blocks`` in all."""
+    slice: int
+    splits: int
+    smem: int
+    blocks: int
+
+
+def channel_stride(HW: int, cs: int) -> int:
+    """Float32 words between two channels of the backward's shared map:
+    HW rounded up to 32 / cs (mod 32), so that the cs channels of one pixel
+    lie on cs banks (the kernel's channel_stride)."""
+    return HW if cs == 1 else HW + (32 // cs - HW) % 32
+
+
+def k1_bwd_tiling(N: int, Hf: int, Wf: int, C: int,
+                  sms: int = 132) -> K1BwdTiling:
+    """The widest channel slice (8, 4, 2 or 1, dividing C) whose float32
+    [slice, Hf * Wf] map (channel-major, padded: ``channel_stride``) and
+    the 16 bytes of the walk order fit a block's shared memory, and as
+    many point splits (at most 8, a cluster) as keep every block of the
+    grid resident at once on ``sms`` SMs.  Raises ValueError when even
+    one channel's map does not fit."""
+    for cs in BWD_SLICES:
+        smem = cs * channel_stride(Hf * Wf, cs) * 4 + 16  # + the walk order
+        if C % cs == 0 and smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(
+            f"stereo_voxel_sample_bwd: a float32 {Hf}x{Wf} feature map "
+            f"({Hf * Wf * 4} bytes a channel) exceeds a block's "
+            f"{SMEM_LIMIT} bytes of shared memory")
+    per_sm = min(2048 // BWD_THREADS, SMEM_PER_SM // (smem + 1024))
+    units = N * 2 * (C // cs)
+    splits = max(1, min(MAX_CLUSTER, sms * per_sm // max(units, 1)))
+    return K1BwdTiling(cs, splits, smem, units * splits)
 
 
 def _check(t, name, dtype, ndim):
@@ -122,13 +180,20 @@ def stereo_voxel_sample_bwd(left_feat, right_feat, grid_proj_left,
     P = grid_proj_left.shape[1]
     _check_all(left_feat, right_feat, grid_proj_left, grid_proj_right, P)
     dt = left_feat.dtype
+    # the grid's [nh, nw, nl] from a [N, nh, nw, nl, 2C] gradient (the
+    # kernel walks l or w fastest); a flat [N, P, 2C] one walks in order
+    nw, nl = gvox.shape[2:4] if gvox.ndim == 5 else (1, P)
     gvox = gvox.to(dt).contiguous()
-    if gvox.numel() != N * P * 2 * C or gvox.device != left_feat.device:
+    if (gvox.numel() != N * P * 2 * C or P % (nw * nl)
+            or gvox.device != left_feat.device):
         raise ValueError(f"gradient {tuple(gvox.shape)} does not match the "
                          f"[{N}, {P}, {2 * C}] voxel")
     dev = left_feat.device
-    dl = torch.zeros((N, Hf, Wf, C), dtype=torch.float32, device=dev)
-    dr = torch.zeros_like(dl)
+    t = k1_bwd_tiling(
+        N, Hf, Wf, C,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    dl = torch.empty((N, Hf, Wf, C), dtype=dt, device=dev)
+    dr = torch.empty_like(dl)
     dpl = dpr = None
     if need_grid:
         dpl = torch.zeros((N, P, 2), dtype=torch.float32, device=dev)
@@ -143,14 +208,14 @@ def stereo_voxel_sample_bwd(left_feat, right_feat, grid_proj_left,
         grid_proj_left.data_ptr(), grid_proj_right.data_ptr(),
         gvox.data_ptr(), dl.data_ptr(), dr.data_ptr(),
         None if dpl is None else dpl.data_ptr(),
-        None if dpr is None else dpr.data_ptr(), N, P, Hf, Wf, C,
-        ctypes.c_float(2.0 / W), ctypes.c_float(2.0 / H), _DTYPES[dt],
-        stream)
+        None if dpr is None else dpr.data_ptr(), N, P, nw, nl, Hf, Wf, C,
+        t.slice, t.splits, ctypes.c_float(2.0 / W), ctypes.c_float(2.0 / H),
+        _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"stereo_voxel_sample_bwd launch failed: "
                            f"{error_string(lib, err)}")
     stereo_voxel_sample_bwd.launches += 1
-    return dl.to(dt), dr.to(dt), dpl, dpr
+    return dl, dr, dpl, dpr
 
 
 class StereoVoxelSample(torch.autograd.Function):

@@ -26,7 +26,10 @@ import torch
 from snvc_tpu.ops.conv3d_fold_pallas import conv3d_pertap_xla
 from snvc_tpu.ops.conv3d_pallas import conv3d_xla
 from snvc_tpu.ops.grid_sample import sample_stereo_voxel as jax_sample
+from snvc_tpu_torch.config import VernierConfig
+from snvc_tpu_torch.data.synthetic import synthetic_batch_arrays
 from snvc_tpu_torch.models.layers import Conv3d
+from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
 from snvc_tpu_torch.ops.conv3d_fold import (
     conv3d_input_grad,
     conv3d_large_tap,
@@ -42,6 +45,7 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample,
     stereo_voxel_sample_bwd,
 )
+from snvc_tpu_torch.training.train import batch_to_device
 
 
 def _close(got, want, rel=1e-4):
@@ -242,6 +246,63 @@ def test_k1_backward_kernel_matches_plain_on_card(cuda_device, dtype):
     for a, b in zip(got, want):
         err = (a.float() - b).abs()
         assert bool((err <= tol * b.abs() + 1e-4 * b.abs().max()).all())
+
+
+def _k1_training_case(dev, case):
+    """The training shape's K1 backward operands on the card: [8, 64, 64,
+    32] features and a [8, 16, 96, 96, 64] gradient, at a seeded
+    VernierConfig() batch's projections ("train") or with every point of
+    an instance inside one 2x2 tap patch ("one_patch": the adds' worst
+    contention)."""
+    cfg = VernierConfig()
+    N, grid, roi = cfg.max_instances, cfg.grid_resolution, cfg.resolution
+    P = grid[0] * grid[1] * grid[2]
+    rng = np.random.default_rng(8)
+    if case == "train":
+        b = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
+        gl, gr = assemble_instances(
+            b["images_left"], b["images_right"], b["image_idx"], b["trans_l"],
+            b["trans_r"], b["samples"], b["P_left"], b["P_right"],
+            torch.from_numpy(make_grid_local(cfg)).to(dev), cfg)[2:]
+        gl, gr = gl.float().contiguous(), gr.float().contiguous()
+    else:
+        cells = rng.integers(0, 63, (2, N, 1, 2))
+        gl, gr = (torch.from_numpy(((c + rng.uniform(0.05, 0.95, (N, P, 2))
+                                     + 0.5) * roi[1] / 64).astype(np.float32))
+                  .to(dev) for c in cells)
+    lf, rf = (torch.from_numpy(rng.standard_normal((N, 64, 64, 32),
+                                                   dtype=np.float32)).to(dev)
+              for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((N,) + grid + (64,),
+                                             dtype=np.float32)).to(dev)
+    return lf, rf, gl, gr, g, roi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    ("train", torch.bfloat16), ("one_patch", torch.bfloat16),
+    ("one_patch", torch.float32)])
+def test_k1_backward_kernel_at_training_shape_on_card(cuda_device, case,
+                                                      dtype):
+    lf, rf, gl, gr, g, roi = _k1_training_case(cuda_device, case)
+    lf, rf, g = lf.to(dtype), rf.to(dtype), g.to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for need_grid in (False, True):
+        got = stereo_voxel_sample_bwd(lf, rf, gl, gr, g, roi,
+                                      need_grid=need_grid)
+        want = sample_stereo_voxel_bwd(lf.float(), rf.float(), gl, gr,
+                                       g.float(), roi, need_grid=need_grid)
+        for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"), got,
+                              want):
+            if b is None:
+                assert a is None
+                continue
+            assert a.dtype == (dtype if name[1] != "g" else torch.float32)
+            rel = tol if name[1] != "g" else 1e-5
+            err = (a.float() - b).abs()
+            assert bool((err <= rel * b.abs()
+                         + 1e-4 * b.abs().max()).all()), \
+                f"{name}: max err {err.max().item()}"
 
 
 CARD_CASES = CONV_CASES + [

@@ -2,7 +2,8 @@
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``flax``, ``optax``, ``orbax`` and ``snvc_tpu``, then imports every module
-of ``snvc_tpu_torch`` and ``chip_smoke`` (without running it).  Two more
+of ``snvc_tpu_torch``, ``chip_smoke`` and the scripts that time its
+kernels (without running them).  Two more
 cases run ``chip_smoke.py`` where it must fail: with CUDA hidden, and
 alone in a directory that holds nothing else of the repo.
 """
@@ -40,6 +41,8 @@ mods = ["snvc_tpu_torch"] + [
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (imported, not run)
+sys.path.insert(0, "scripts")
+import k1_variants, kernel_ab  # noqa: E401,F401  (imported, not run)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("imported", len(mods))
