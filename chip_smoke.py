@@ -9,7 +9,7 @@ Phases, each printing one line with its elapsed seconds:
   2. build   - nvcc builds every CUDA kernel, and each kernel's ptxas
                registers and spills are printed (the two wgmma conv
                kernels must spill nothing and keep their wgmma
-               unserialized);
+               unserialized; K3 and K4 must spill nothing);
   3. K1      - the stereo voxel sampler kernel against its plain version
                (small shapes; the flagship shape at uniform random
                projections and at a seeded flagship batch's own), with
@@ -1187,8 +1187,10 @@ def main() -> int:
         for fn, regs, spills, notes in ptxas_report(_build.build_log(lib)):
             print(f"  ptxas: {lib} {fn} registers={regs} spill_bytes={spills}"
                   + "".join(f" NOTE {n}" for n in notes))
-            # the two wgmma conv kernels: no spills, no serialized wgmma
-            if lib in ("conv3d_large_tap", "conv3d_weight_grad"):
+            # the two wgmma conv kernels: no spills, no serialized wgmma;
+            # K3 and K4: no spills
+            if lib in ("conv3d_large_tap", "conv3d_weight_grad",
+                       "plane_sweep_volume", "frustum_to_voxel"):
                 assert spills == 0 and not notes, f"ptxas: {lib} {fn}"
 
     gen = torch.Generator().manual_seed(0)

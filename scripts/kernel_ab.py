@@ -1,6 +1,6 @@
 """A/B timing of the port's kernels (K1 forward and backward, K2 forward,
-its dx and dw, K5) between two trees of this repository, in turns on one
-NVIDIA GPU.
+its dx and dw, K3, K4, K5) between two trees of this repository, in turns
+on one NVIDIA GPU.
 
     python3 scripts/kernel_ab.py --parent DIR [--rounds 2]
 
@@ -19,17 +19,26 @@ that tree's kernels and times, at the main paths' shapes:
            assemble_instances) and at uniform random ones;
   K1 bwd   the training sampler's backward ([8, 64, 64, 32], 16x96x96, a
            seeded VernierConfig() batch's projections, no grid gradient);
+  K3       the detect request's plane sweep ([1, 96, 312, 32] bf16
+           features x2, its own 64-plane shift table);
+  K4       the detect request's frustum -> voxel resample ([1, 64, 96, 312,
+           32] bf16 volume -> 288 x 300 x 20, the default calibration);
 
 and the one PyTorch call that computes each (F.conv3d, torch.nn.grad.
-conv3d_input / conv3d_weight, F.grid_sample forward / backward).  Each run prints one JSON line; the last
-lines are the medians per tree and the change / parent ratios.  Times are
-CUDA-event means over a few launches after a warm-up, on the same seeded
-inputs in every run.
+conv3d_input / conv3d_weight, F.grid_sample forward / backward, and the 5-D
+trilinear F.grid_sample for K4; none for K3).  Each run prints one JSON
+line with the times and, per kernel, a checksum of its output bytes; the
+last lines are the medians per tree, the change / parent ratios, and
+whether each kernel's checksums agree between the trees (K1's backward
+adds in an order that varies from run to run, so its checksum varies
+too).  Times are CUDA-event means over a few launches after a warm-up, on
+the same seeded inputs in every run.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import statistics
@@ -63,9 +72,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_tree(tree: Path) -> dict:
-    """Milliseconds of each kernel wrapper of ``tree`` and of each library
-    call, at the paths' shapes."""
+def digest(result) -> str:
+    """The first 16 hex digits of the SHA-256 of a kernel's output bytes
+    (a tensor or a tuple of them)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in result if isinstance(result, (tuple, list)) else (result,):
+        if t is not None:
+            h.update(t.detach().flatten().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()[:16]
+
+
+class Record:
+    """Milliseconds of each call and checksums of each kernel's output."""
+
+    def __init__(self):
+        self.ms, self.sums = {}, {}
+
+    def kernel(self, key, fn, reps):
+        self.sums[key] = digest(fn())
+        self.ms[key] = cuda_ms(fn, reps)
+
+    def library(self, key, fn, reps):
+        self.ms[key] = cuda_ms(fn, reps)
+
+
+def time_tree(tree: Path) -> Record:
+    """Milliseconds and output checksums of each kernel wrapper of
+    ``tree`` and milliseconds of each library call, at the paths'
+    shapes."""
     sys.path.insert(0, str(tree))
     import torch
     import torch.nn.functional as F
@@ -80,7 +117,8 @@ def time_tree(tree: Path) -> dict:
 
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve())
     _build.build(("conv3d_large_tap", "conv3d_weight_grad",
-                  "stereo_voxel_sample"))
+                  "stereo_voxel_sample", "plane_sweep_volume",
+                  "frustum_to_voxel"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     torch.backends.cudnn.allow_tf32 = False
@@ -96,46 +134,48 @@ def time_tree(tree: Path) -> dict:
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         return x, w, g, xt, wt, gt
 
-    out = {}
+    out = Record()
     with torch.inference_mode():
         for name, C, kernel, feats, dil in CONVS:
             x, w, _, xt, wt, _ = case(FLAGSHIP + (C,), kernel, feats)
             pad = tuple((k - 1) // 2 * dil for k in kernel)
-            out[f"fwd {name}"] = cuda_ms(
-                lambda: conv3d_large_tap(x, w, dil), 3)
-            out[f"fwd {name} library"] = cuda_ms(
-                lambda: F.conv3d(xt, wt, None, 1, pad, dil), 3)
+            out.kernel(f"fwd {name}",
+                       lambda: conv3d_large_tap(x, w, dil), 3)
+            out.library(f"fwd {name} library",
+                        lambda: F.conv3d(xt, wt, None, 1, pad, dil), 3)
             del x, w, xt, wt
         for name, C, kernel, feats, dil in CONVS:
             x, w, g, xt, wt, gt = case(TRAINING + (C,), kernel, feats)
             pad = tuple((k - 1) // 2 * dil for k in kernel)
-            out[f"dx {name}"] = cuda_ms(
-                lambda: conv3d_input_grad(g, w, dil), 3)
-            out[f"dw {name}"] = cuda_ms(
-                lambda: conv3d_weight_grad(x, g, kernel, dil), 3)
-            out[f"dx {name} library"] = cuda_ms(
-                lambda: torch.nn.grad.conv3d_input(xt.shape, wt, gt, 1, pad,
-                                                   dil), 3)
-            out[f"dw {name} library"] = cuda_ms(
-                lambda: torch.nn.grad.conv3d_weight(xt, wt.shape, gt, 1, pad,
-                                                    dil), 3)
+            out.kernel(f"dx {name}",
+                       lambda: conv3d_input_grad(g, w, dil), 3)
+            out.kernel(f"dw {name}",
+                       lambda: conv3d_weight_grad(x, g, kernel, dil), 3)
+            out.library(f"dx {name} library",
+                        lambda: torch.nn.grad.conv3d_input(
+                            xt.shape, wt, gt, 1, pad, dil), 3)
+            out.library(f"dw {name} library",
+                        lambda: torch.nn.grad.conv3d_weight(
+                            xt, wt.shape, gt, 1, pad, dil), 3)
             del x, w, g, xt, wt, gt
         x, w, g, xt, wt, gt = case(STEREO_STACK, (3, 3, 3), 32)
-        out["K5 fwd"] = cuda_ms(lambda: conv3d_k3(x, w), 5)
-        out["K5 dx"] = cuda_ms(lambda: conv3d_input_grad(g, w, 1), 5)
-        out["K5 dw"] = cuda_ms(
-            lambda: conv3d_weight_grad(x, g, (3, 3, 3), 1), 5)
-        out["K5 fwd library"] = cuda_ms(
-            lambda: F.conv3d(xt, wt, None, 1, 1), 5)
-        out["K5 dx library"] = cuda_ms(
-            lambda: torch.nn.grad.conv3d_input(xt.shape, wt, gt, 1, 1), 5)
-        out["K5 dw library"] = cuda_ms(
-            lambda: torch.nn.grad.conv3d_weight(xt, wt.shape, gt, 1, 1), 5)
-    out.update(time_k1(dev, gen))
+        out.kernel("K5 fwd", lambda: conv3d_k3(x, w), 5)
+        out.kernel("K5 dx", lambda: conv3d_input_grad(g, w, 1), 5)
+        out.kernel("K5 dw",
+                   lambda: conv3d_weight_grad(x, g, (3, 3, 3), 1), 5)
+        out.library("K5 fwd library",
+                    lambda: F.conv3d(xt, wt, None, 1, 1), 5)
+        out.library("K5 dx library", lambda: torch.nn.grad.conv3d_input(
+            xt.shape, wt, gt, 1, 1), 5)
+        out.library("K5 dw library", lambda: torch.nn.grad.conv3d_weight(
+            xt, wt.shape, gt, 1, 1), 5)
+        del x, w, g, xt, wt, gt
+        time_k34(out, dev, gen)
+    time_k1(out, dev, gen)
     for part in ("fwd", "dx", "dw"):
         for suffix in ("", " library"):
-            out[f"{part} total{suffix}"] = sum(
-                out[f"{part} {c[0]}{suffix}"] for c in CONVS)
+            out.ms[f"{part} total{suffix}"] = sum(
+                out.ms[f"{part} {c[0]}{suffix}"] for c in CONVS)
     return out
 
 
@@ -156,8 +196,61 @@ def k1_projections(cfg, dev):
     return gl.float().contiguous(), gr.float().contiguous()
 
 
-def time_k1(dev, gen) -> dict:
-    """Milliseconds of the K1 wrappers and their F.grid_sample calls."""
+def time_k34(out: Record, dev, gen) -> None:
+    """K3 and K4 at the detect request's shapes and tables, and the 5-D
+    trilinear F.grid_sample that computes K4's function."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from snvc_tpu_torch.config import StereoConfig
+    from snvc_tpu_torch.geometry.calib import Calibration
+    from snvc_tpu_torch.models.stereonet import (
+        _bev_axes,
+        depth_hypotheses,
+        plane_shifts,
+    )
+    from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
+    from snvc_tpu_torch.ops.frustum import (
+        _project_uv,
+        frustum_tables,
+        frustum_to_voxel_k4,
+    )
+
+    cfg = StereoConfig()
+    D, C = cfg.num_depths, 32
+    H, W = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(
+        dev)
+    depths = depth_hypotheses(cfg)
+    lf, rf = (torch.randn((1, H, W, C), generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    shifts = plane_shifts(Pl, Pr, torch.from_numpy(depths).to(dev))
+    out.kernel("K3", lambda: plane_sweep_volume_k3(lf, rf, shifts), 20)
+    zs, xs, ys = _bev_axes(cfg)
+    d0, fd = frustum_tables(depths, zs)
+    tabs = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+            for a, dt in ((d0, np.int32), (fd, np.float32), (zs, np.float32),
+                          (xs, np.float32), (ys, np.float32))]
+    vol = torch.randn((1, D, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    out.kernel("K4", lambda: frustum_to_voxel_k4(vol, Pl, *tabs, 4), 20)
+    u, v = _project_uv(Pl, tabs[2], tabs[3], tabs[4], 4)
+    d = tabs[0].float() + tabs[1]
+    nz, nx, ny = u.shape[1], u.shape[2], v.shape[2]
+    grid = torch.stack([
+        (2 * u / (W - 1) - 1)[..., None].expand(1, nz, nx, ny),
+        (2 * v / (H - 1) - 1)[:, :, None, :].expand(1, nz, nx, ny),
+        (2 * d / (D - 1) - 1)[None, :, None, None].expand(1, nz, nx, ny),
+    ], dim=-1).to(torch.bfloat16)
+    vt = vol.permute(0, 4, 1, 2, 3)
+    out.library("K4 library", lambda: F.grid_sample(
+        vt, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        3)
+
+
+def time_k1(out: Record, dev, gen) -> None:
+    """The K1 wrappers and their F.grid_sample calls."""
     import torch
     import torch.nn.functional as F
 
@@ -175,7 +268,6 @@ def time_k1(dev, gen) -> dict:
         scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=dev)
         return (g * scale - 1.0)[:, None].to(torch.bfloat16)
 
-    out = {}
     cfg = flagship_vernier_config()
     grid, roi, N = cfg.grid_resolution, cfg.resolution, cfg.max_instances
     P = grid[0] * grid[1] * grid[2]
@@ -186,10 +278,10 @@ def time_k1(dev, gen) -> dict:
                - 0.0625 * roi[1] for _ in range(2)]
         for label, (gl, gr) in (("path", k1_projections(cfg, dev)),
                                 ("random", rnd)):
-            out[f"K1 fwd {label}"] = cuda_ms(
-                lambda: stereo_voxel_sample(lf, rf, gl, gr, roi, grid), 20)
+            out.kernel(f"K1 fwd {label}", lambda: stereo_voxel_sample(
+                lf, rf, gl, gr, roi, grid), 20)
             ngl, ngr = normalized(gl, roi), normalized(gr, roi)
-            out[f"K1 fwd {label} library"] = cuda_ms(lambda: torch.cat(
+            out.library(f"K1 fwd {label} library", lambda: torch.cat(
                 [F.grid_sample(lft, ngl, align_corners=False),
                  F.grid_sample(rft, ngr, align_corners=False)], 1), 5)
         del lf, rf, lft, rft, rnd
@@ -199,7 +291,7 @@ def time_k1(dev, gen) -> dict:
     gl, gr = k1_projections(cfg, dev)
     g = torch.randn((N,) + grid + (64,), generator=gen).to(dev,
                                                            torch.bfloat16)
-    out["K1 bwd"] = cuda_ms(lambda: stereo_voxel_sample_bwd(
+    out.kernel("K1 bwd", lambda: stereo_voxel_sample_bwd(
         lf, rf, gl, gr, g, roi, need_grid=False), 20)
     leaves = [f.detach().requires_grad_() for f in (lf, rf)]
     outs = [F.grid_sample(leaf.permute(0, 3, 1, 2), normalized(gp, roi),
@@ -207,9 +299,8 @@ def time_k1(dev, gen) -> dict:
             for leaf, gp in zip(leaves, (gl, gr))]
     gouts = [half.reshape(N, 1, -1, 32).permute(0, 3, 1, 2)
              for half in (g[..., :32], g[..., 32:])]
-    out["K1 bwd library"] = cuda_ms(lambda: torch.autograd.grad(
+    out.library("K1 bwd library", lambda: torch.autograd.grad(
         outs, leaves, gouts, retain_graph=True), 5)
-    return out
 
 
 def main() -> int:
@@ -229,12 +320,14 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0]
-        print(json.dumps({"label": args.label, "card": smi,
-                          "ms": time_tree(args.tree)}), flush=True)
+        rec = time_tree(args.tree)
+        print(json.dumps({"label": args.label, "card": smi, "ms": rec.ms,
+                          "sha": rec.sums}), flush=True)
         return 0
     if args.parent is None:
         ap.error("--parent is required")
     runs = {"parent": [], "change": []}
+    sums = {"parent": [], "change": []}
     for label in ["parent", "change", "change", "parent"] * args.rounds:
         tree = args.parent if label == "parent" else ROOT
         res = subprocess.run(
@@ -246,6 +339,7 @@ def main() -> int:
         line = res.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs[label].append(json.loads(line)["ms"])
+        sums[label].append(json.loads(line)["sha"])
     keys = list(runs["change"][0])
     summary = {}
     for k in keys:
@@ -256,7 +350,14 @@ def main() -> int:
     for k, v in summary.items():
         print(f"{k:28s} parent {v['parent_ms']:9.4f}  change "
               f"{v['change_ms']:9.4f}  ratio {v['change_over_parent']:.3f}")
-    print(json.dumps({"summary": summary}))
+    bits = {}
+    for k in sums["change"][0]:
+        p = sorted({r[k] for r in sums["parent"]})
+        c = sorted({r[k] for r in sums["change"]})
+        bits[k] = {"parent": p, "change": c, "same_bits": p == c}
+        print(f"{k:28s} checksums parent {','.join(p)}  change "
+              f"{','.join(c)}  {'same bits' if p == c else 'DIFFER'}")
+    print(json.dumps({"summary": summary, "checksums": bits}))
     return 0
 
 

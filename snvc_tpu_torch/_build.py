@@ -46,11 +46,10 @@ ENTRY_POINTS = {
         [_P] * 4 + [_I] * 15 + [_P]),
     "snvc_plane_sweep_volume": (
         "plane_sweep_volume",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        [_P] * 4 + [_I] * 9 + [_P]),
     "snvc_frustum_to_voxel": (
         "frustum_to_voxel",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-         _I, _P]),
+        [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in ENTRY_POINTS.values()))
 

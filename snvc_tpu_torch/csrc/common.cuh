@@ -10,6 +10,9 @@
 
 namespace snvc {
 
+// a block's dynamic shared memory on sm_90 (227 KB)
+constexpr int kSmemLimit = 232448;
+
 // 16 bytes of channels, loaded to and stored from float32.
 template <typename T>
 struct Vec;
@@ -34,6 +37,15 @@ struct Vec<__nv_bfloat16> {
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = raw;
   }
+  // store with the streaming hint (st.global.cs), for an output larger
+  // than L2 that the kernel does not read back
+  __device__ static void store_cs(__nv_bfloat16* p, const float* v) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    __stcs(reinterpret_cast<uint4*>(p), raw);
+  }
 };
 
 template <>
@@ -45,6 +57,9 @@ struct Vec<float> {
   }
   __device__ static void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static void store_cs(float* p, const float* v) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   }
 };
 

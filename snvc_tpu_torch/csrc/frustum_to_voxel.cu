@@ -13,23 +13,45 @@
 // pallas_call at :125, and _kernel_v2, :230, the same contract), which lerp
 // the z row's two planes in VMEM and then run the u hats as a dense
 // [nx, Wf] matmul and the v hats plus a mod-C channel select as a second
-// matmul per y: matrix-unit shapes for a chip without a gather.  Here one
-// thread owns 16 bytes of channels of one voxel and gathers its 8 taps
-// (2 planes x 2 rows x 2 columns) directly, sums them in float32 in the plain
-// version's order (depth lerp, then over v, then over u) and rounds once.
-// One launch covers the batch.  u and v use the round-to-nearest intrinsics
-// in the plain version's order of operations, so floor() falls on the same
-// side as there.
+// matmul per y: matrix-unit shapes for a chip without a gather.
 //
-// Bound: memory.  The output (110.6 MB at the serving shape) is written once
-// by coalesced 16-byte stores from neighbouring threads (channel groups, then
-// y); the tap loads are 16-byte gathers that hit L2 for the planes of nearby
-// z rows (each plane is 1.9 MB at the serving shape).
+// Bound: bytes, the output (110.6 MB at the serving shape) and the depth
+// planes the z rows use, each read once.  u depends on (z, x) only and v on
+// (z, y) only, and in far rows neighbouring x and y fall on the same
+// columns and rows, so a direct 8-tap gather per output fetches each tap
+// several times (648 MB of 64-byte gathers at the serving shape).  A block
+// owns one BEV row (n, z) -- blockIdx.z, blockIdx.y -- and a tile of
+// tile_x x cells (blockIdx.x).  It is G x ny x L threads: threadIdx.x is
+// the 16-byte channel group, threadIdx.y the BEV y, threadIdx.z one of L
+// lanes that walk the tile's x cells L apart; no thread divides to find its
+// work.  The block projects u for its x cells and v for the ny cells once,
+// into shared memory, with the plain version's round-to-nearest order, so
+// floor() falls on the same side.  Then, in the plain version's separable
+// order (depth lerp, the hat over v, then the hat over u, in float32):
+//
+//   stage 1: t[col][y] = sum over dv of wv * lerp(planes)[v0 + dv][col],
+//            for every image column in the tile's window [lo, hi], into
+//            shared memory;
+//   stage 2: out[x][y] = sum over du of wu * t[u0(x) + du][y].
+//
+// Each tap is fetched once per (column, y) and shared by every x of the
+// tile that reads the column.  In near rows a cell spans many columns
+// (16.8 px at 2.1 m) and no x shares one: when the window is wider than the
+// `ncol` columns that shared memory holds, the block gathers each output's
+// taps directly instead, in the same order.  Both paths add a tap outside
+// the image as nothing (the old kernel skipped it: adding +0 to a sum that
+// is never -0 gives the same bits) and round once.  An output tile is a
+// contiguous [tile_x, ny, C] slab, written by neighbouring threads with the
+// streaming store hint.  ops/frustum.py: k4_tiling picks tile_x, L and
+// ncol.
+
+#include <climits>
 
 #include "common.cuh"
 
 namespace {
 
+using snvc::kSmemLimit;
 using snvc::Vec;
 
 // (a + b) + c with a = p0 * q, b = p1 * zv, divided by w, then by stride:
@@ -40,95 +62,193 @@ __device__ __forceinline__ float project(float pq, float q, float pz, float z,
   return __fdiv_rn(__fdiv_rn(s, w), stride);
 }
 
+// A hat's lower tap, clamped so far outside the image both taps stay
+// outside and the float -> int conversion stays in range, and its weights.
+struct Hat {
+  int i0;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Hat hat(float p, int size) {
+  const float pf = floorf(p);
+  const float f = __fsub_rn(p, pf);
+  return {(int)fminf(fmaxf(pf, -2.0f), (float)size + 1.0f),
+          __fsub_rn(1.0f, f), f};
+}
+
+// Shared-memory bytes of the tables that precede the stage-1 sums.
+__host__ __device__ constexpr int table_bytes(int tile_x, int ny) {
+  return ((tile_x + ny) * (int)sizeof(Hat) + 2 * (int)sizeof(int) + 15) / 16 *
+         16;
+}
+
+// Stage 1 for one image column of one (y, channel group): the depth lerp of
+// rows v0 and v0 + 1, weighted by the v hat and summed in float32 in the
+// plain version's order; a row outside the image adds nothing.  (Issuing
+// all of an output's loads before its sums measured no faster, and slower
+// on the direct path: scripts/k34_variants.py.)
 template <typename T>
-__global__ void frustum_to_voxel_kernel(
+__device__ __forceinline__ void column_sum(const T* p0, const T* p1, int col,
+                                           int Wf, int C, const Hat& hv,
+                                           int Hf, float f0, float f1,
+                                           float* t) {
+  constexpr int V = Vec<T>::N;
+#pragma unroll
+  for (int i = 0; i < V; ++i) t[i] = 0.0f;
+#pragma unroll
+  for (int dv = 0; dv < 2; ++dv) {
+    const int vv = hv.i0 + dv;
+    if ((unsigned)vv >= (unsigned)Hf) continue;
+    const int64_t off = ((int64_t)vv * Wf + col) * C;
+    const float wv = dv ? hv.w1 : hv.w0;
+    float a[V], b[V];
+    Vec<T>::load(p0 + off, a);
+    Vec<T>::load(p1 + off, b);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float lerp = __fadd_rn(__fmul_rn(a[i], f0), __fmul_rn(b[i], f1));
+      t[i] = __fadd_rn(t[i], __fmul_rn(wv, lerp));
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024) frustum_to_voxel_kernel(
     const T* __restrict__ vol, const float* __restrict__ P,
     const int* __restrict__ d0, const float* __restrict__ fd,
     const float* __restrict__ zs, const float* __restrict__ xs,
-    const float* __restrict__ ys, T* __restrict__ out, int N, int D, int Hf,
-    int Wf, int C, int nz, int nx, int ny, float stride) {
+    const float* __restrict__ ys, T* __restrict__ out, int D, int Hf, int Wf,
+    int C, int nz, int nx, int ny, float stride, int tile_x, int ncol) {
   constexpr int V = Vec<T>::N;
-  const int G = C / V;
-  const int64_t total = (int64_t)N * nz * nx * ny * G;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;  // masked tail
-  const int g = (int)(idx % G);
-  int64_t r = idx / G;
-  const int y = (int)(r % ny);
-  r /= ny;
-  const int x = (int)(r % nx);
-  r /= nx;
-  const int z = (int)(r % nz);
-  const int n = (int)(r / nz);
+  extern __shared__ float4 block_smem[];
+  Hat* hu = reinterpret_cast<Hat*>(block_smem);  // [tile_x]
+  Hat* hv = hu + tile_x;                          // [ny]
+  int* window = reinterpret_cast<int*>(hv + ny);  // lowest, highest column
+  float* st = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(block_smem) + table_bytes(tile_x, ny));
 
+  const int g = threadIdx.x, y = threadIdx.y, lane = threadIdx.z;
+  const int G = blockDim.x, lanes = blockDim.z;
+  const int tid = (lane * ny + y) * G + g;
+  const int nthreads = G * ny * lanes;
+  const int n = blockIdx.z, z = blockIdx.y;
+  const int x_begin = blockIdx.x * tile_x;
+  const int ntx = min(tile_x, nx - x_begin);
+
+  // project once: u of the tile's x cells, v of the ny cells
   const float* p = P + (int64_t)n * 12;  // row-major [3, 4]
   const float zz = zs[z];
   const float w = __fadd_rn(zz, p[11]);
-  const float u = project(p[0], xs[x], p[2], zz, p[3], w, stride);
-  const float v = project(p[5], ys[y], p[6], zz, p[7], w, stride);
-  const float uf = floorf(u), vf = floorf(v);
-  const float fu = __fsub_rn(u, uf), fv = __fsub_rn(v, vf);
-  // far outside the image both taps stay outside; clamping keeps the
-  // float -> int conversion in range
-  const int u0 = (int)fminf(fmaxf(uf, -2.0f), (float)Wf + 1.0f);
-  const int v0 = (int)fminf(fmaxf(vf, -2.0f), (float)Hf + 1.0f);
-  const float wu[2] = {__fsub_rn(1.0f, fu), fu};
-  const float wv[2] = {__fsub_rn(1.0f, fv), fv};
+  if (tid == 0) {
+    window[0] = INT_MAX;
+    window[1] = INT_MIN;
+  }
+  __syncthreads();
+  for (int i = tid; i < ntx; i += nthreads) {
+    const Hat h = hat(project(p[0], xs[x_begin + i], p[2], zz, p[3], w,
+                              stride), Wf);
+    hu[i] = h;
+    atomicMin(&window[0], h.i0);
+    atomicMax(&window[1], h.i0 + 1);
+  }
+  for (int i = tid; i < ny; i += nthreads)
+    hv[i] = hat(project(p[5], ys[i], p[6], zz, p[7], w, stride), Hf);
+  __syncthreads();
 
+  const Hat my_v = hv[y];
   const int dz = min(max(d0[z], 0), D - 2);
   const float f1 = fd[z];
   const float f0 = __fsub_rn(1.0f, f1);
   const int64_t plane = (int64_t)Hf * Wf * C;
   const T* p0 = vol + ((int64_t)n * D + dz) * plane + g * V;
   const T* p1 = p0 + plane;
+  const int lo = max(window[0], 0), hi = min(window[1], Wf - 1);
+  const int ncols = hi - lo + 1;  // <= 0: no column of the tile is inside
+  T* dst = out + ((((int64_t)n * nz + z) * nx + x_begin) * ny + y) * C + g * V;
+  const int64_t x_step = (int64_t)ny * C;
 
-  float acc[V];
+  if (ncols <= ncol) {
+    // stage 1: each window column once per (y, group)
+    for (int c = lane; c < ncols; c += lanes) {
+      float t[V];
+      column_sum<T>(p0, p1, lo + c, Wf, C, my_v, Hf, f0, f1, t);
+      float4* s4 = reinterpret_cast<float4*>(st + ((c * ny + y) * C + g * V));
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
-#pragma unroll
-  for (int du = 0; du < 2; ++du) {
-    const int uu = u0 + du;
-    if (uu < 0 || uu >= Wf) continue;
-    float t[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) t[i] = 0.0f;
-#pragma unroll
-    for (int dv = 0; dv < 2; ++dv) {
-      const int vv = v0 + dv;
-      if (vv < 0 || vv >= Hf) continue;
-      const int64_t off = ((int64_t)vv * Wf + uu) * C;
-      float a[V], b[V];
-      Vec<T>::load(p0 + off, a);
-      Vec<T>::load(p1 + off, b);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float lerp = __fadd_rn(__fmul_rn(a[i], f0), __fmul_rn(b[i], f1));
-        t[i] = __fadd_rn(t[i], __fmul_rn(wv[dv], lerp));
-      }
+      for (int i = 0; i < V / 4; ++i)
+        s4[i] = make_float4(t[4 * i], t[4 * i + 1], t[4 * i + 2], t[4 * i + 3]);
     }
+    __syncthreads();
+    // stage 2: the u hat over the staged columns
+    for (int xi = lane; xi < ntx; xi += lanes) {
+      const Hat h = hu[xi];
+      float acc[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(wu[du], t[i]));
+      for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int du = 0; du < 2; ++du) {
+        const int uu = h.i0 + du;
+        if ((unsigned)uu >= (unsigned)Wf) continue;
+        const float wu = du ? h.w1 : h.w0;
+        const float4* s4 = reinterpret_cast<const float4*>(
+            st + (((uu - lo) * ny + y) * C + g * V));
+#pragma unroll
+        for (int i = 0; i < V / 4; ++i) {
+          const float4 q = s4[i];
+          acc[4 * i] = __fadd_rn(acc[4 * i], __fmul_rn(wu, q.x));
+          acc[4 * i + 1] = __fadd_rn(acc[4 * i + 1], __fmul_rn(wu, q.y));
+          acc[4 * i + 2] = __fadd_rn(acc[4 * i + 2], __fmul_rn(wu, q.z));
+          acc[4 * i + 3] = __fadd_rn(acc[4 * i + 3], __fmul_rn(wu, q.w));
+        }
+      }
+      Vec<T>::store_cs(dst + xi * x_step, acc);
+    }
+  } else {
+    // a wide window (near rows): each output gathers its own taps
+    for (int xi = lane; xi < ntx; xi += lanes) {
+      const Hat h = hu[xi];
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int du = 0; du < 2; ++du) {
+        const int uu = h.i0 + du;
+        if ((unsigned)uu >= (unsigned)Wf) continue;
+        const float wu = du ? h.w1 : h.w0;
+        float t[V];
+        column_sum<T>(p0, p1, uu, Wf, C, my_v, Hf, f0, f1, t);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(wu, t[i]));
+      }
+      Vec<T>::store_cs(dst + xi * x_step, acc);
+    }
   }
-  Vec<T>::store(out + idx * V, acc);
 }
 
 template <typename T>
-cudaError_t launch(const void* vol, const void* P, const void* d0,
-                   const void* fd, const void* zs, const void* xs,
-                   const void* ys, void* out, int N, int D, int Hf, int Wf,
-                   int C, int nz, int nx, int ny, float stride,
-                   cudaStream_t stream) {
-  const int64_t total = (int64_t)N * nz * nx * ny * (C / Vec<T>::N);
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  frustum_to_voxel_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+cudaError_t launch_f2v(const void* vol, const void* P, const void* d0,
+                       const void* fd, const void* zs, const void* xs,
+                       const void* ys, void* out, int N, int D, int Hf, int Wf,
+                       int C, int nz, int nx, int ny, float stride, int tile_x,
+                       int lanes, int ncol, cudaStream_t stream) {
+  if ((int64_t)N * nz * nx * ny * C == 0) return cudaSuccess;
+  const int G = C / Vec<T>::N;
+  const int64_t smem =
+      table_bytes(tile_x, ny) + (int64_t)ncol * ny * C * sizeof(float);
+  if (G * Vec<T>::N != C || tile_x < 1 || lanes < 1 || ncol < 0 ||
+      (int64_t)G * ny * lanes > 1024 || smem > kSmemLimit || N > 65535 ||
+      nz > 65535)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = frustum_to_voxel_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nx + tile_x - 1) / tile_x, nz, N);
+  kernel<<<grid, dim3(G, ny, lanes), (size_t)smem, stream>>>(
       static_cast<const T*>(vol), static_cast<const float*>(P),
       static_cast<const int*>(d0), static_cast<const float*>(fd),
       static_cast<const float*>(zs), static_cast<const float*>(xs),
-      static_cast<const float*>(ys), static_cast<T*>(out), N, D, Hf, Wf, C,
-      nz, nx, ny, stride);
+      static_cast<const float*>(ys), static_cast<T*>(out), D, Hf, Wf, C, nz,
+      nx, ny, stride, tile_x, ncol);
   return cudaGetLastError();
 }
 
@@ -136,19 +256,24 @@ cudaError_t launch(const void* vol, const void* P, const void* d0,
 
 extern "C" {
 
-// dtype: 0 = bfloat16, 1 = float32.  Returns a cudaError_t (0 = success).
+// dtype: 0 = bfloat16, 1 = float32.  tile_x: x cells per block; lanes:
+// threads per (y, channel group); ncol: image columns a block stages
+// (k4_tiling).  Returns a cudaError_t (0 = success).
 int snvc_frustum_to_voxel(const void* vol, const void* P, const void* d0,
                           const void* fd, const void* zs, const void* xs,
                           const void* ys, void* out, int N, int D, int Hf,
                           int Wf, int C, int nz, int nx, int ny, float stride,
-                          int dtype, void* stream) {
+                          int tile_x, int lanes, int ncol, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<__nv_bfloat16>(vol, P, d0, fd, zs, xs, ys, out, N, D,
-                                      Hf, Wf, C, nz, nx, ny, stride, s);
+    return (int)launch_f2v<__nv_bfloat16>(vol, P, d0, fd, zs, xs, ys, out, N,
+                                          D, Hf, Wf, C, nz, nx, ny, stride,
+                                          tile_x, lanes, ncol, s);
   if (dtype == 1)
-    return (int)launch<float>(vol, P, d0, fd, zs, xs, ys, out, N, D, Hf, Wf,
-                              C, nz, nx, ny, stride, s);
+    return (int)launch_f2v<float>(vol, P, d0, fd, zs, xs, ys, out, N, D, Hf,
+                                  Wf, C, nz, nx, ny, stride, tile_x, lanes,
+                                  ncol, s);
   return (int)cudaErrorInvalidValue;
 }
 

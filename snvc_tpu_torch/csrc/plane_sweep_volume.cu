@@ -10,86 +10,111 @@
 // pallas_call at :119 in _psv_pallas_fwd), which streams a left-zero-padded,
 // column-major float32 copy of the right features through VMEM as two dynamic
 // W-row slices per (sample, plane, 128 lanes) and leaves the concat with the
-// left half to a separate XLA pass.  Here one thread owns one 16-byte group of
-// the 2C output channels of one voxel (n, d, h, x): groups below C copy the
-// left features bit for bit, groups above lerp the right taps in float32 and
-// round once, as the Pallas kernel does.  Both halves leave in one pass, and
-// neighbouring threads store neighbouring 16-byte groups of the same voxel.
+// left half to a separate XLA pass.
+//
+// Bound: bytes.  The 2C-wide output is ~65x the inputs (245.4 MB against
+// 3.8 MB at the serving shape), so the kernel is a store stream.  A block
+// owns one feature row (n, h) -- h from blockIdx.x, n from blockIdx.y -- and
+// a group of `planes` consecutive planes (blockIdx.z).  It copies the left
+// and right rows (W*C each, 19.5 KB bf16 at the serving shape) into shared
+// memory once, then builds each plane's [W, 2C] slab, which is contiguous in
+// the output.  A block is G x BY threads (G = 16-byte channel groups of one
+// half): threadIdx.x is the group, threadIdx.y the first column, and each
+// thread walks the columns BY apart, so no thread divides to find its work.
+// Per column a thread writes its left group (copied bit for bit) and its
+// right group (the two taps lerped in float32 and rounded once), both with
+// the streaming store hint: the volume does not fit the 50 MB L2.  The shift
+// and its split are uniform across the block and computed once per plane.
 // The multiply and add are the round-to-nearest intrinsics, in the plain
 // version's order (a * fs + b * (1 - fs)), so no fused multiply-add changes
-// the float32 sum.
-//
-// Bound: memory (the 2C-wide output is ~65x the size of the inputs at the
-// serving shape).  The right row (n, h) read by every plane is W*C elements
-// (20 KB at W = 312, C = 32 bf16) and stays in L1/L2.
+// the float32 sum.  ops/cost_volume.py: k3_tiling picks BY and `planes`.
 
 #include "common.cuh"
 
 namespace {
 
+using snvc::kSmemLimit;
 using snvc::Vec;
 
 template <typename T>
-__global__ void plane_sweep_volume_kernel(
+__global__ void __launch_bounds__(1024) plane_sweep_volume_kernel(
     const T* __restrict__ left, const T* __restrict__ right,
-    const float* __restrict__ shifts, T* __restrict__ out, int N, int D,
-    int H, int W, int C, int shift_n_stride) {
+    const float* __restrict__ shifts, T* __restrict__ out, int D, int H,
+    int W, int C, int shift_n_stride, int planes) {
   constexpr int V = Vec<T>::N;
-  const int G = C / V;  // 16-byte groups per half
-  const int64_t total = (int64_t)N * D * H * W * 2 * G;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;  // masked tail
-  const int g2 = (int)(idx % (2 * G));
-  int64_t r = idx / (2 * G);
-  const int x = (int)(r % W);
-  r /= W;
-  const int h = (int)(r % H);
-  r /= H;
-  const int d = (int)(r % D);
-  const int n = (int)(r / D);
+  extern __shared__ uint4 rows[];
+  const int h = blockIdx.x, n = blockIdx.y;
+  const int d_begin = blockIdx.z * planes;
+  const int d_end = min(D, d_begin + planes);
+  const int G = blockDim.x;  // C / V
+  const int g = threadIdx.x;
 
-  T* dst = out + idx * V;  // the output is dense in (voxel, group) order
-  const int64_t row = ((int64_t)n * H + h) * W;  // (n, h, 0) in features
-  if (g2 < G) {
-    *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(left + (row + x) * C + g2 * V);
-    return;
+  // both rows into shared memory, 16 bytes a copy
+  const int64_t row = ((int64_t)n * H + h) * W * C;
+  const uint4* gl = reinterpret_cast<const uint4*>(left + row);
+  const uint4* gr = reinterpret_cast<const uint4*>(right + row);
+  uint4* sl = rows;
+  uint4* sr = rows + W * G;
+  const int tid = threadIdx.y * G + g;
+  const int nthreads = G * blockDim.y;
+  for (int i = tid; i < W * G; i += nthreads) {
+    sl[i] = gl[i];
+    sr[i] = gr[i];
   }
-  const int g = g2 - G;
-  const float s = shifts[(int64_t)n * shift_n_stride + d];
-  const float ksf = floorf(s);
-  const float fs = __fsub_rn(s, ksf);
-  const float gs = __fsub_rn(1.0f, fs);
-  // a shift past the row puts both taps outside it; clamping it keeps the
-  // float -> int conversion in range and changes no tap.  The contract takes
-  // shifts >= 0, which the host checks; a negative one is not read back here,
-  // so taps right of the row are zeroed too and nothing is read out of bounds
-  const int ks = (int)fmaxf(fminf(ksf, (float)(W + 1)), (float)(-W - 1));
-  const int x0 = x - ks - 1, x1 = x - ks;
-  float a[V], b[V], o[V];
+  __syncthreads();
+
+  const T* sright = reinterpret_cast<const T*>(sr);
+  const float* srow = shifts + (int64_t)n * shift_n_stride;
+  for (int d = d_begin; d < d_end; ++d) {
+    const float s = srow[d];
+    const float ksf = floorf(s);
+    const float fs = __fsub_rn(s, ksf);
+    const float gs = __fsub_rn(1.0f, fs);
+    // a shift past the row puts both taps outside it; clamping it keeps the
+    // float -> int conversion in range and changes no tap.  The contract
+    // takes shifts >= 0, which the host checks; a negative one is not read
+    // back here, so taps right of the row are zeroed too and nothing is
+    // read out of bounds
+    const int ks = (int)fmaxf(fminf(ksf, (float)(W + 1)), (float)(-W - 1));
+    T* slab = out + (((int64_t)n * D + d) * H + h) * W * 2 * C + g * V;
+    for (int x = threadIdx.y; x < W; x += blockDim.y) {
+      const int x0 = x - ks - 1, x1 = x - ks;
+      float a[V], b[V], o[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) a[i] = b[i] = 0.0f;
-  const T* base = right + row * C + g * V;
-  if (x0 >= 0 && x0 < W) Vec<T>::load(base + (int64_t)x0 * C, a);
-  if (x1 >= 0 && x1 < W) Vec<T>::load(base + (int64_t)x1 * C, b);
+      for (int i = 0; i < V; ++i) a[i] = b[i] = 0.0f;
+      if ((unsigned)x0 < (unsigned)W) Vec<T>::load(sright + (x0 * G + g) * V, a);
+      if ((unsigned)x1 < (unsigned)W) Vec<T>::load(sright + (x1 * G + g) * V, b);
 #pragma unroll
-  for (int i = 0; i < V; ++i) o[i] = __fadd_rn(__fmul_rn(a[i], fs), __fmul_rn(b[i], gs));
-  Vec<T>::store(dst, o);
+      for (int i = 0; i < V; ++i)
+        o[i] = __fadd_rn(__fmul_rn(a[i], fs), __fmul_rn(b[i], gs));
+      T* dst = slab + (int64_t)x * 2 * C;
+      __stcs(reinterpret_cast<uint4*>(dst), sl[x * G + g]);
+      Vec<T>::store_cs(dst + C, o);
+    }
+  }
 }
 
 template <typename T>
-cudaError_t launch(const void* left, const void* right, const void* shifts,
-                   void* out, int N, int D, int H, int W, int C,
-                   int shift_n_stride, cudaStream_t stream) {
-  const int64_t total = (int64_t)N * D * H * W * 2 * (C / Vec<T>::N);
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  plane_sweep_volume_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+cudaError_t launch_psv(const void* left, const void* right, const void* shifts,
+                       void* out, int N, int D, int H, int W, int C,
+                       int shift_n_stride, int block_y, int planes,
+                       cudaStream_t stream) {
+  if ((int64_t)N * D * H * W * C == 0) return cudaSuccess;
+  const int G = C / Vec<T>::N;
+  const int64_t smem = (int64_t)2 * W * G * 16;
+  if (G * Vec<T>::N != C || planes < 1 || block_y < 1 ||
+      (int64_t)G * block_y > 1024 || smem > kSmemLimit || N > 65535 ||
+      (D + planes - 1) / planes > 65535)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = plane_sweep_volume_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, N, (D + planes - 1) / planes);
+  kernel<<<grid, dim3(G, block_y), (size_t)smem, stream>>>(
       static_cast<const T*>(left), static_cast<const T*>(right),
-      static_cast<const float*>(shifts), static_cast<T*>(out), N, D, H, W, C,
-      shift_n_stride);
+      static_cast<const float*>(shifts), static_cast<T*>(out), D, H, W, C,
+      shift_n_stride, planes);
   return cudaGetLastError();
 }
 
@@ -98,18 +123,22 @@ cudaError_t launch(const void* left, const void* right, const void* shifts,
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32.  shift_n_stride: 0 for a shared [D]
-// table, D for a per-sample [N, D] table.  Returns a cudaError_t (0 = ok).
+// table, D for a per-sample [N, D] table.  block_y: threads per block along
+// the row; planes: planes per block (k3_tiling).  Returns a cudaError_t
+// (0 = ok).
 int snvc_plane_sweep_volume(const void* left, const void* right,
                             const void* shifts, void* out, int N, int D,
                             int H, int W, int C, int shift_n_stride,
-                            int dtype, void* stream) {
+                            int block_y, int planes, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<__nv_bfloat16>(left, right, shifts, out, N, D, H, W, C,
-                                      shift_n_stride, s);
+    return (int)launch_psv<__nv_bfloat16>(left, right, shifts, out, N, D, H,
+                                          W, C, shift_n_stride, block_y,
+                                          planes, s);
   if (dtype == 1)
-    return (int)launch<float>(left, right, shifts, out, N, D, H, W, C,
-                              shift_n_stride, s);
+    return (int)launch_psv<float>(left, right, shifts, out, N, D, H, W, C,
+                                  shift_n_stride, block_y, planes, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -66,8 +66,7 @@ constexpr int kBwdThreads = 1024;
 // channels a backward lane accumulates (a walker has CS / K lanes)
 constexpr int kLaneChannels = 2;
 constexpr int min_int(int a, int b) { return a < b ? a : b; }
-// a block's dynamic shared memory on sm_90 (227 KB)
-constexpr int kSmemLimit = 232448;
+using snvc::kSmemLimit;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);

@@ -37,7 +37,7 @@ from snvc_tpu_torch.models.layers import (
     init_weights,
 )
 from snvc_tpu_torch.models.stereo_backbone import _VARIANTS, StereoFeatureNet
-from snvc_tpu_torch.ops.cost_volume import build_cost_volume
+from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
 from snvc_tpu_torch.ops.frustum import _hat, frustum_tables, frustum_to_voxel_k4
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
 
@@ -183,7 +183,7 @@ class StereoHead(nn.Module):
             _check_div4(name, v)
         depths = self.depths
         Pl = P_left.float()
-        vol = build_cost_volume(lf, rf, plane_shifts(Pl, P_right, depths), 1)
+        vol = plane_sweep_volume_k3(lf, rf, plane_shifts(Pl, P_right, depths))
 
         base = F.relu(self.ConvNorm3d_0(vol))
         base = F.relu(self.ConvNorm3d_1(base))

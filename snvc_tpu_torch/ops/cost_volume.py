@@ -20,11 +20,12 @@ right features read at x - shift[d] (linear in x, zeros outside):
 The Pallas kernel streams the right features through VMEM as two dynamic
 W-slices per (sample, plane, 128 lanes), in float32, and the left half is
 concatenated by a separate XLA pass.  The CUDA kernel writes both halves
-in one pass: one thread per (n, d, h, x, 16 bytes of the 2C output
-channels), so neighbouring threads store neighbouring 16-byte groups and
-the 2C-channel row of a voxel goes out as one coalesced run.  The right
-row (n, h) that a plane reads is 20 KB at the serving shape and stays in
-L1/L2.
+in one pass.  A block owns one feature row (n, h) and a group of planes:
+it copies the left and right rows into shared memory once, then writes
+each plane's [W, 2C] slab, which is contiguous in the output, with
+streaming 16-byte stores; the channel group and the first column come
+from the thread's index, the plane from a loop, so nothing is divided.
+``k3_tiling`` picks the block and the plane group.
 
 Bound: bytes.  At the serving shape ([1, 96, 312, 32] bf16 features, 64
 planes) the kernel writes the 245.4 MB volume and reads 3.8 MB, ~0.074 ms
@@ -33,8 +34,12 @@ at 3.35 TB/s.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 import torch.nn.functional as F
+
+from snvc_tpu_torch.ops.stereo_sample_cuda import SMEM_LIMIT, SMEM_PER_SM
 
 
 def plane_sweep_volume(left, right, shifts, downsample: int = 1):
@@ -109,6 +114,50 @@ def plane_sweep_shifted(left, right, shifts):
 
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+K3_THREADS = 256  # threads a block aims for
+K3_MAX_PLANES = 8  # planes a block writes at most
+K3_WAVES = 4  # blocks per resident slot of the card, at least
+
+
+class K3Tiling(NamedTuple):
+    """The kernel's launch: ``block`` = (G, BY) threads (G 16-byte channel
+    groups of one half, BY first columns), ``planes`` consecutive planes per
+    block, ``smem`` bytes of shared memory (both feature rows), ``blocks``
+    = N * H * ceil(D / planes) in all, on a grid (H, N, ceil(D / planes))."""
+    block: Tuple[int, int]
+    planes: int
+    smem: int
+    blocks: int
+
+
+def k3_tiling(N: int, D: int, H: int, W: int, C: int, dtype,
+              sms: int = 132) -> K3Tiling:
+    """The launch of K3 for [N, H, W, C] features of ``dtype`` and D
+    planes on a card of ``sms`` SMs: BY = 256 / G threads along the row
+    (at most W), and as many planes per block (at most 8) as still give
+    every resident block slot of the card 4 blocks, so the last wave's
+    tail is short (scripts/k34_variants.py: 1-4 planes a block time alike
+    at the serving shape, 8 planes in 768 blocks ~14 % slower).  Raises
+    ValueError when the two rows do not fit a block's shared memory or G
+    exceeds a block's threads."""
+    esize = dtype.itemsize
+    vec = 16 // esize
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec}")
+    G = C // vec
+    if G > 1024:
+        raise ValueError(f"plane_sweep_volume: {G} channel groups exceed a "
+                         f"block's 1024 threads")
+    smem = 2 * W * C * esize
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"plane_sweep_volume: two [{W}, {C}] feature rows ({smem} bytes) "
+            f"exceed a block's {SMEM_LIMIT} bytes of shared memory")
+    by = max(1, min(W, K3_THREADS // G))
+    per_sm = min(2048 // (G * by), SMEM_PER_SM // (smem + 1024), 32)
+    planes = max(1, min(K3_MAX_PLANES, D,
+                        N * H * D // (K3_WAVES * sms * per_sm)))
+    return K3Tiling((G, by), planes, smem, N * H * -(-D // planes))
 
 
 def plane_sweep_volume_k3(left, right, shifts):
@@ -139,10 +188,11 @@ def plane_sweep_volume_k3(left, right, shifts):
     if not (left.is_contiguous() and right.is_contiguous()
             and shifts.is_contiguous()):
         raise ValueError("left, right and shifts must be contiguous")
-    vec = 8 if dt == torch.bfloat16 else 4  # 16-byte channel groups
-    if C % vec:
-        raise ValueError(f"C={C} must be a multiple of {vec}")
+    if left.data_ptr() % 16 or right.data_ptr() % 16:
+        raise ValueError("left and right must be 16-byte aligned")
     D = table.shape[1]
+    t = k3_tiling(N, D, H, W, C, dt, torch.cuda.get_device_properties(
+        left.device).multi_processor_count)
     out = torch.empty((N, D, H, W, 2 * C), dtype=dt, device=left.device)
     from snvc_tpu_torch._build import error_string, load_library
 
@@ -150,7 +200,8 @@ def plane_sweep_volume_k3(left, right, shifts):
     stream = torch.cuda.current_stream(left.device).cuda_stream
     err = lib.snvc_plane_sweep_volume(
         left.data_ptr(), right.data_ptr(), shifts.data_ptr(), out.data_ptr(),
-        N, D, H, W, C, 0 if shifts.ndim == 1 else D, _DTYPES[dt], stream)
+        N, D, H, W, C, 0 if shifts.ndim == 1 else D, t.block[1], t.planes,
+        _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"plane_sweep_volume launch failed: "
                            f"{error_string(lib, err)}")

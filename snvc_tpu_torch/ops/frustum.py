@@ -22,11 +22,17 @@ edge planes, zeros outside the image).
 
 The TPU kernels express the hats as dense matmuls and select channels with
 a mod-C 0/1 matrix: matrix-unit shapes for a chip with no gather.  The CUDA
-kernel is an 8-tap gather instead: one thread per (n, z, x, y, 16 bytes of
-channels), two depth planes x two rows x two columns of 16-byte loads,
-float32 accumulation, one rounding, coalesced 16-byte stores.  u and v are
-computed with the round-to-nearest intrinsics in the plain version's order,
-so floor() falls on the same side.  One launch covers the batch.
+kernel keeps the separable order instead.  A block owns one BEV row
+(n, z) and a tile of x cells; it projects u for the tile and v for the ny
+cells once, with the round-to-nearest intrinsics in the plain version's
+order (so floor() falls on the same side), then sums the depth lerp and
+the v hat once per image column of the tile's window into shared memory
+(stage 1) and the u hat over those sums per output (stage 2), in float32,
+rounded once.  Neighbouring x cells of far rows read the same columns and
+share them there.  Where the window is wider than shared memory holds
+(near rows, whose cells span many columns), the block gathers each
+output's 8 taps directly, in the same order.  ``k4_tiling`` picks the
+tile.  One launch covers the batch.
 
 Bound: bytes.  At the serving shape (volume [1, 64, 96, 312, 32] bf16, BEV
 288 x 300 x 20) it writes 110.6 MB and reads at most the 122.7 MB volume
@@ -35,10 +41,12 @@ once, ~0.070 ms at 3.35 TB/s.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from snvc_tpu_torch.ops.stereo_sample_cuda import SMEM_LIMIT
 
 
 def depth_plane_coords(z, depths):
@@ -151,6 +159,56 @@ def frustum_to_voxel_separable(volume, P_mat, d0, fd, zs, xs, ys,
 
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+K4_THREADS = 256  # threads a block aims for
+K4_MAX_THREADS = 1024  # the kernel's __launch_bounds__
+K4_TILE_X = 16  # x cells a block owns
+HAT_BYTES = 12  # the kernel's Hat: lower tap (int32) and two weights
+
+
+class K4Tiling(NamedTuple):
+    """The kernel's launch: ``block`` = (G, ny, L) threads (G 16-byte
+    channel groups, the BEV y, L lanes over the tile's x cells),
+    ``tile_x`` x cells per block, ``ncol`` image columns whose stage-1
+    sums a block holds, ``smem`` bytes of shared memory, ``blocks`` =
+    N * nz * ceil(nx / tile_x) on a grid (ceil(nx / tile_x), nz, N)."""
+    block: Tuple[int, int, int]
+    tile_x: int
+    ncol: int
+    smem: int
+    blocks: int
+
+
+def k4_table_bytes(tile_x: int, ny: int) -> int:
+    """Shared-memory bytes of the u and v hats and the column window,
+    rounded up to 16 (the kernel's table_bytes)."""
+    return -(-((tile_x + ny) * HAT_BYTES + 8) // 16) * 16
+
+
+def k4_tiling(N: int, nz: int, nx: int, ny: int, C: int, dtype,
+              sms: int = 132) -> K4Tiling:
+    """The launch of K4 for an [N, nz, nx, ny, C] output of ``dtype`` on
+    a card of ``sms`` SMs: tiles of 16 x cells, halved while the grid has
+    fewer blocks than SMs, L = 256 / (G * ny) lanes (at least 1), and room
+    for the stage-1 sums of tile_x + 2 columns (a window that wide shares
+    columns between the tile's x cells; a wider one gathers directly).
+    Raises ValueError when G * ny exceeds a block's 1024 threads."""
+    esize = dtype.itemsize
+    vec = 16 // esize
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec}")
+    G = C // vec
+    if G * ny > K4_MAX_THREADS:
+        raise ValueError(f"frustum_to_voxel: {G} channel groups x {ny} BEV "
+                         f"cells exceed a block's {K4_MAX_THREADS} threads")
+    lanes = max(1, K4_THREADS // (G * ny))
+    tile_x = max(1, min(K4_TILE_X, nx))
+    while tile_x > 1 and N * nz * -(-nx // tile_x) < sms:
+        tile_x //= 2
+    table = k4_table_bytes(tile_x, ny)
+    ncol = min(tile_x + 2, (SMEM_LIMIT - table) // (ny * C * 4))
+    smem = table + ncol * ny * C * 4
+    return K4Tiling((G, ny, lanes), tile_x, ncol, smem,
+                    N * nz * -(-nx // tile_x))
 
 
 def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
@@ -182,11 +240,12 @@ def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
         raise ValueError("every argument must lie on the volume's CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("every argument must be contiguous")
-    vec = 8 if dt == torch.bfloat16 else 4  # 16-byte channel groups
-    if C % vec:
-        raise ValueError(f"C={C} must be a multiple of {vec}")
     if D < 2:
         raise ValueError(f"the volume needs at least 2 depth planes, got {D}")
+    if volume.data_ptr() % 16:
+        raise ValueError("the volume must be 16-byte aligned")
+    t = k4_tiling(N, nz, nx, ny, C, dt, torch.cuda.get_device_properties(
+        volume.device).multi_processor_count)
     out = torch.empty((N, nz, nx, ny, C), dtype=dt, device=volume.device)
     from snvc_tpu_torch._build import error_string, load_library
 
@@ -195,8 +254,8 @@ def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
     err = lib.snvc_frustum_to_voxel(
         volume.data_ptr(), P_mat.data_ptr(), d0.data_ptr(), fd.data_ptr(),
         zs.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
-        N, D, Hf, Wf, C, nz, nx, ny, float(feature_stride), _DTYPES[dt],
-        stream)
+        N, D, Hf, Wf, C, nz, nx, ny, float(feature_stride), t.tile_x,
+        t.block[2], t.ncol, _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"frustum_to_voxel launch failed: "
                            f"{error_string(lib, err)}")

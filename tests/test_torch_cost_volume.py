@@ -157,3 +157,43 @@ def test_k3_kernel_negative_shift_reads_in_bounds(cuda_device):
     want = plane_sweep_volume(lt, rt, st)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _k3_launch(left, right, shifts, block_y, planes):
+    """K3 through its C entry point at an explicit tiling."""
+    from snvc_tpu_torch._build import load_library
+
+    N, H, W, C = left.shape
+    D = shifts.shape[-1]
+    out = torch.empty((N, D, H, W, 2 * C), dtype=left.dtype,
+                      device=left.device)
+    err = load_library("plane_sweep_volume").snvc_plane_sweep_volume(
+        left.data_ptr(), right.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+        N, D, H, W, C, 0 if shifts.ndim == 1 else D, block_y, planes,
+        0 if left.dtype == torch.bfloat16 else 1,
+        torch.cuda.current_stream(left.device).cuda_stream)
+    assert err == 0, err
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_y,planes", [(16, 4), (64, 8), (7, 3),
+                                            (37, 13), (1, 1)])
+def test_k3_kernel_ragged_tilings_match_plain_on_card(cuda_device, dtype,
+                                                      block_y, planes):
+    """W = 37 and D = 13 are multiples of no tile: the last column pass and
+    the last plane group of a row are partial; N = 2 with a per-sample
+    table whose second row holds the edge shifts (0, integers, past the
+    row)."""
+    left, right = _features(9, N=2, H=5, W=37, C=16)
+    rng = np.random.default_rng(9)
+    shifts = rng.uniform(0.0, 37.0, size=(2, 13)).astype(np.float32)
+    shifts[1, :7] = [0.0, 1.0, 2.5, 36.0, 37.0, 42.5, 111.25]
+    lt, rt, st = (t.to(cuda_device) for t in _t(left, right, shifts))
+    lt, rt = lt.to(dtype), rt.to(dtype)
+    want = plane_sweep_shifted(lt, rt, st)
+    got = _k3_launch(lt, rt, st, block_y, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(plane_sweep_volume_k3(lt, rt, st), want)

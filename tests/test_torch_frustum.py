@@ -152,3 +152,46 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, dtype):
     want = frustum_to_voxel_separable(*args, 4).float()
     tol = 4 * 2.0 ** -23 if dtype == torch.float32 else 2 * 2.0 ** -7
     assert bool(((got - want).abs() <= tol * want.abs().max()).all())
+
+
+def _k4_launch(args, tile_x, lanes, ncol):
+    """K4 through its C entry point at an explicit tiling."""
+    from snvc_tpu_torch._build import load_library
+
+    vol, P, d0, fd, zs, xs, ys = args
+    N, D, Hf, Wf, C = vol.shape
+    nz, nx, ny = len(zs), len(xs), len(ys)
+    out = torch.empty((N, nz, nx, ny, C), dtype=vol.dtype, device=vol.device)
+    err = load_library("frustum_to_voxel").snvc_frustum_to_voxel(
+        *(a.data_ptr() for a in args), out.data_ptr(), N, D, Hf, Wf, C, nz,
+        nx, ny, 4.0, tile_x, lanes, ncol,
+        0 if vol.dtype == torch.bfloat16 else 1,
+        torch.cuda.current_stream(vol.device).cuda_stream)
+    assert err == 0, err
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_x,lanes,ncol", [
+    (4, 1, 0), (4, 3, 6), (5, 2, 7), (12, 4, 26), (16, 1, 18), (7, 16, 64)])
+def test_k4_kernel_tiles_across_image_edges_match_plain_on_card(
+        cuda_device, dtype, tile_x, lanes, ncol):
+    """x tiles that straddle the image's left and right edges (the case's
+    columns run outside on both sides), staged (ncol >= the window) and
+    direct (ncol 0) tiles, N = 2 with per-sample calibration: the same bits
+    as the wrapper's tiling, and the plain version's rule of
+    test_k4_kernel_matches_plain_on_card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vol, P, depths, zs, xs, ys = _case(6, N=2)
+    d0, fd = frustum_tables(depths, zs)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (vol, P, d0, fd, zs, xs, ys)]
+    args[0] = args[0].to(dtype)
+    got = _k4_launch(args, tile_x, lanes, ncol)
+    shipped = frustum_to_voxel_k4(*args, 4)
+    want = frustum_to_voxel_separable(*args, 4).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, shipped)
+    tol = 4 * 2.0 ** -23 if dtype == torch.float32 else 2 * 2.0 ** -7
+    assert bool(((got.float() - want).abs() <= tol * want.abs().max()).all())

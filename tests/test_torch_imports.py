@@ -42,7 +42,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (imported, not run)
 sys.path.insert(0, "scripts")
-import k1_variants, kernel_ab  # noqa: E401,F401  (imported, not run)
+import k1_variants, k34_variants, kernel_ab  # noqa: E401,F401  (not run)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("imported", len(mods))
