@@ -9,7 +9,8 @@ Phases, each printing one line with its elapsed seconds:
   2. build   - nvcc builds every CUDA kernel, and each kernel's ptxas
                registers and spills are printed (the two wgmma conv
                kernels must spill nothing and keep their wgmma
-               unserialized; K3 and K4 must spill nothing);
+               unserialized; K3 and K4, forward and backward, must spill
+               nothing);
   3. K1      - the stereo voxel sampler kernel against its plain version
                (small shapes; the flagship shape at uniform random
                projections and at a seeded flagship batch's own), with
@@ -67,7 +68,31 @@ Phases, each printing one line with its elapsed seconds:
                bf16, remat; TrainConfig with warmup_steps=2) takes 12 steps
                on one seeded batch; the loss must be finite and fall, and
                the counters must show per step K1 1 + 1 backward, K2 3 +
-               3 dx, dw 3, K3 = K4 = K5 = 0.
+               3 dx, dw 3, K3 = K4 = K5 = 0;
+ 14. K3_bwd  - the plane sweep's backward kernel against its plain version
+               (small shapes, shared and per-sample tables with the edge
+               shifts; the training shape [1, 64, 96, 312, 64] bf16 at the
+               default calibration's table, and N = 2 with a [2, 64] edge
+               table), within 2 bf16 ulp of the largest value, with kernel
+               / plain times and the memory bound;
+ 15. K4_bwd  - the frustum resample's backward kernel (d volume) against its
+               plain version (small shapes with per-sample calibration; the
+               training shape, gradient [1, 288, 300, 20, 32] bf16 ->
+               [1, 64, 96, 312, 32]), within 2 bf16 ulp of the largest
+               value, with kernel / plain / F.grid_sample-backward times
+               and the memory bound;
+ 16. stereo_train_reference - one training step of a tiny float32
+               StereoNet (no SPP branches, cuDNN off) on the card against
+               the same step on the CPU (losses, every gradient, BatchNorm
+               statistics, parameters after the next step), then in bf16
+               held to three times the CPU's own bf16 drift (+1 % of
+               scale);
+ 17. stereo_train - StereoConfig() (reslike-det-small, 384x1248, 64 planes,
+               288x300x20 BEV, bf16), batch 1, one seeded training frame
+               with 4 cars, TrainConfig with warmup_steps=2: 12 steps; the
+               loss must be finite and fall, and the counters must show
+               per step K3 1 + 1 backward, K4 1 + 1 backward, K1 = K2 =
+               K5 = 0.
 Then a {"kernels": [...]} line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
@@ -119,13 +144,17 @@ from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
 from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3
 from snvc_tpu_torch.ops.cost_volume import (
     plane_sweep_shifted,
+    plane_sweep_shifted_bwd,
     plane_sweep_volume_k3,
+    plane_sweep_volume_k3_bwd,
 )
 from snvc_tpu_torch.ops.frustum import (
     _project_uv,
     frustum_tables,
     frustum_to_voxel_k4,
+    frustum_to_voxel_k4_bwd,
     frustum_to_voxel_separable,
+    frustum_to_voxel_separable_bwd,
 )
 from snvc_tpu_torch.ops.grid_sample import (
     sample_stereo_voxel,
@@ -138,7 +167,13 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
 from snvc_tpu_torch.training.train import (
     batch_to_device,
     create_train_state,
+    learning_rate,
     make_train_step,
+)
+from snvc_tpu_torch.training.train_stereo import (
+    create_stereo_state,
+    make_stereo_train_step,
+    stereo_batch_to_device,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -470,9 +505,23 @@ def k4_tables(depths, zs, xs, ys, dev):
                           (ys, np.float32))]
 
 
-def check_k4(gen, dev) -> dict:
-    t = time.perf_counter()
-    # small shape, both dtypes: depths past both ends, columns outside
+def k4_library_grid(P, tabs, D, Hf, Wf):
+    """The [1, nz, nx, ny, 3] bf16 (u, v, d) grid, normalized for
+    F.grid_sample with align_corners=True, at which the BEV cells sample
+    the volume: the library call's form of K4."""
+    u, v = _project_uv(P, tabs[2], tabs[3], tabs[4], 4)  # [1,nz,nx], [1,nz,ny]
+    d = tabs[0].float() + tabs[1]
+    nz, nx, ny = u.shape[1], u.shape[2], v.shape[2]
+    return torch.stack([
+        (2 * u / (Wf - 1) - 1)[..., None].expand(1, nz, nx, ny),
+        (2 * v / (Hf - 1) - 1)[:, :, None, :].expand(1, nz, nx, ny),
+        (2 * d / (D - 1) - 1)[None, :, None, None].expand(1, nz, nx, ny),
+    ], dim=-1).to(torch.bfloat16)
+
+
+def k4_small_case(dev):
+    """The small K4 case: 6 planes over 4-30 m, BEV rows past both ends
+    of the planes, columns partly outside the image, and per-sample P."""
     depths = np.linspace(4.0, 30.0, 6).astype(np.float32)
     zs = (4.0 + (np.arange(10) + 0.5) * 2.0).astype(np.float32)
     zs[0], zs[-1] = 2.5, 34.0
@@ -481,8 +530,13 @@ def check_k4(gen, dev) -> dict:
     P = torch.tensor([[80.0, 0, 48.0, 2.0], [0, 80.0, 32.0, -0.3],
                       [0, 0, 1, 0.005]]).repeat(2, 1, 1)
     P[1, 0, 3] += 0.5
-    P = P.to(dev)
-    tabs = k4_tables(depths, zs, xs, ys, dev)
+    return P.to(dev), k4_tables(depths, zs, xs, ys, dev)
+
+
+def check_k4(gen, dev) -> dict:
+    t = time.perf_counter()
+    # small shape, both dtypes: depths past both ends, columns outside
+    P, tabs = k4_small_case(dev)
     for dtype in (torch.float32, torch.bfloat16):
         vol = torch.randn((2, 6, 16, 24, 16), generator=gen).to(dev, dtype)
         assert_within_ulps(f"K4 small {dtype}",
@@ -505,14 +559,7 @@ def check_k4(gen, dev) -> dict:
                        3)
     # library: one trilinear F.grid_sample over the 5-D volume with
     # align_corners=True and a (u, v, d) grid, timed only
-    u, v = _project_uv(P, tabs[2], tabs[3], tabs[4], 4)  # [1,nz,nx], [1,nz,ny]
-    d = tabs[0].float() + tabs[1]
-    nz, nx, ny = u.shape[1], u.shape[2], v.shape[2]
-    grid = torch.stack([
-        (2 * u / (Wf - 1) - 1)[..., None].expand(1, nz, nx, ny),
-        (2 * v / (Hf - 1) - 1)[:, :, None, :].expand(1, nz, nx, ny),
-        (2 * d / (D - 1) - 1)[None, :, None, None].expand(1, nz, nx, ny),
-    ], dim=-1).to(torch.bfloat16)
+    grid = k4_library_grid(P, tabs, D, Hf, Wf)
     vt = vol.permute(0, 4, 1, 2, 3)
     library_ms = cuda_ms(lambda: F.grid_sample(
         vt, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
@@ -535,7 +582,8 @@ def check_k4(gen, dev) -> dict:
 KERNELS = dict(K1=stereo_voxel_sample, K1_bwd=stereo_voxel_sample_bwd,
                K2=conv3d_large_tap, K2_dx=conv3d_input_grad,
                K2_dw=conv3d_weight_grad, K3=plane_sweep_volume_k3,
-               K4=frustum_to_voxel_k4, K5=conv3d_k3)
+               K3_bwd=plane_sweep_volume_k3_bwd, K4=frustum_to_voxel_k4,
+               K4_bwd=frustum_to_voxel_k4_bwd, K5=conv3d_k3)
 
 
 def counts_of(**nonzero) -> dict:
@@ -1022,14 +1070,21 @@ REF_TRAIN = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=50,
 
 
 def train_two_steps(cfg, device) -> dict:
-    """Steps 0 and 1 of a seeded small model on one seeded batch: the
-    losses and clipped gradients of step 0 (rate 0), the BatchNorm
-    statistics after it, and the parameters after step 1, on the CPU."""
+    """Steps 0 and 1 of a seeded small model on one seeded batch
+    (``two_steps``)."""
     model = VernierScale(cfg, device=device,
                          generator=torch.Generator().manual_seed(1))
     state = create_train_state(model, cfg, REF_TRAIN)
     step = make_train_step(cfg, REF_TRAIN, device)
     batch = batch_to_device(synthetic_batch_arrays(cfg, seed=7), device)
+    return two_steps(state, step, batch)
+
+
+def two_steps(state, step, batch) -> dict:
+    """The losses and clipped gradients of step 0 (rate 0), the buffers
+    (BatchNorm statistics) after it, and the parameters after step 1, on
+    the CPU."""
+    model = state.model
     m = step(state, batch)
     # copies: on the CPU .cpu() is the tensor itself, which step 1 updates
     res = dict(losses={k: float(v) for k, v in m.items()},
@@ -1077,6 +1132,26 @@ def check_train_reference(dev) -> None:
     got = train_two_steps(small, dev)
     counts = read_counts()
     assert counts == counts_of(K1=2, K1_bwd=2), f"f32 launch counts {counts}"
+    fields = assert_f32_step(ref, got, 5e-4)  # rate of step 1
+
+    bf16 = small.replace(compute_dtype="bfloat16")
+    cpu_bf16 = train_two_steps(bf16, "cpu")
+    reset_counts()
+    got = train_two_steps(bf16, dev)
+    counts = read_counts()
+    assert counts == counts_of(K1=2, K1_bwd=2, K2=6, K2_dx=6, K2_dw=6), \
+        f"bf16 launch counts {counts}"
+    fields.update(assert_bf16_step(ref, cpu_bf16, got))
+    phase("train_reference", t, tf32="off", matmul_precision="highest",
+          **fields)
+
+
+def assert_f32_step(ref: dict, got: dict, lr1: float) -> dict:
+    """PR 6's rule for a float32 step on the card against the CPU
+    (``two_steps`` results): losses within 1e-4 relative, gradients within
+    3e-3 (global relative L2) and 3e-2 of each tensor's scale, buffers
+    within 1e-4 of scale; step 1, Adam's first nonzero update (lr1 x
+    sign(g)): every parameter within 2 x lr1, 97 % within 1e-5."""
     for k, v in ref["losses"].items():
         assert math.isfinite(got["losses"][k]), k
         assert abs(got["losses"][k] - v) <= 1e-4 * abs(v), \
@@ -1089,23 +1164,23 @@ def check_train_reference(dev) -> None:
     for n, w in ref["stats"].items():
         err = float((got["stats"][n] - w).abs().max())
         assert err <= 1e-4 * max(float(w.abs().max()), 1.0), f"{n}: {err}"
-    flip = 2.0 * 5e-4 + 1e-6  # rate of step 1
+    flip = 2.0 * lr1 + 1e-6
     perr = torch.cat([(got["params"][n] - w).abs().ravel()
                       for n, w in ref["params"].items()])
     close = float((perr <= 1e-5).float().mean())
     assert float(perr.max()) <= flip and close >= 0.97, \
         f"f32 params: max {float(perr.max())}, within 1e-5 {close}"
-    fields = dict(f32_total_rel_err=f"{abs(got['losses']['total'] / ref['losses']['total'] - 1):.2e}",
-                  f32_grad_rel_l2=f"{g_rel:.2e}", f32_grad_worst=f"{worst:.2e}",
-                  f32_params_within_1e5=f"{close:.4f}")
+    total_err = abs(got["losses"]["total"] / ref["losses"]["total"] - 1)
+    return dict(f32_total_rel_err=f"{total_err:.2e}",
+                f32_grad_rel_l2=f"{g_rel:.2e}", f32_grad_worst=f"{worst:.2e}",
+                f32_params_within_1e5=f"{close:.4f}")
 
-    bf16 = small.replace(compute_dtype="bfloat16")
-    cpu_bf16 = train_two_steps(bf16, "cpu")
-    reset_counts()
-    got = train_two_steps(bf16, dev)
-    counts = read_counts()
-    assert counts == counts_of(K1=2, K1_bwd=2, K2=6, K2_dx=6, K2_dw=6), \
-        f"bf16 launch counts {counts}"
+
+def assert_bf16_step(ref: dict, cpu_bf16: dict, got: dict) -> dict:
+    """A bf16 step on the card: losses and gradients (global relative L2)
+    within three times the CPU's own bf16 drift from its float32 step,
+    plus 1 % of scale."""
+    fields = {}
     for k, v in ref["losses"].items():
         err = abs(got["losses"][k] - v) / max(abs(v), 1e-6)
         drift = abs(cpu_bf16["losses"][k] - v) / max(abs(v), 1e-6)
@@ -1119,8 +1194,7 @@ def check_train_reference(dev) -> None:
         f"bf16 grads: card {g_err:.4f}, cpu bf16 {g_drift:.4f}"
     fields.update(bf16_grad_rel_l2=f"{g_err:.4f}",
                   bf16_grad_cpu_rel_l2=f"{g_drift:.4f}")
-    phase("train_reference", t, tf32="off", matmul_precision="highest",
-          **fields)
+    return fields
 
 
 def check_train(dev, profile: bool = False, steps: int = 12) -> dict:
@@ -1168,6 +1242,227 @@ def check_train(dev, profile: bool = False, steps: int = 12) -> dict:
     return dict(counts=counts, step_ms=times)
 
 
+# ------------------------------------------------------ K3 / K4 bwd ----
+def check_k3_bwd(gen, dev) -> dict:
+    t = time.perf_counter()
+    # small shapes, f32 and bf16, shared [D] and per-sample [N, D] tables
+    # holding 0, integers, fractions and shifts past the row
+    for dtype in (torch.float32, torch.bfloat16):
+        for shifts in (k3_edge_table(2, 9, 24, gen)[1],
+                       k3_edge_table(2, 9, 24, gen)):
+            s = shifts.to(dev)
+            g = torch.randn((2, 9, 8, 24, 32), generator=gen).to(dev, dtype)
+            for name, a, b in zip(("dleft", "dright"),
+                                  plane_sweep_volume_k3_bwd(g, s, 24),
+                                  plane_sweep_shifted_bwd(g, s, 24)):
+                assert_within_ulps(
+                    f"K3_bwd small {dtype} {tuple(s.shape)} {name}", a, b)
+    # the training shape: a [N, 64, 96, 312, 64] bf16 gradient; N = 2 with
+    # a [2, 64] table whose second row holds the edge cases, then one
+    # sample at the default calibration's table (timed)
+    cfg = StereoConfig()
+    H, W = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    C, D = 32, cfg.num_depths
+    err = 0.0
+    g = torch.randn((2, D, H, W, 2 * C), generator=gen).to(dev, torch.bfloat16)
+    table = k3_edge_table(2, D, W, gen).to(dev)
+    for name, a, b in zip(("dleft", "dright"),
+                          plane_sweep_volume_k3_bwd(g, table, W),
+                          plane_sweep_shifted_bwd(g, table, W)):
+        err = max(err, assert_within_ulps(f"K3_bwd [2, D] {name}", a, b))
+    g = g[:1].contiguous()
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
+    shifts = plane_shifts(Pl, Pr, torch.from_numpy(depth_hypotheses(cfg)).to(
+        dev))
+    got = plane_sweep_volume_k3_bwd(g, shifts, W)
+    for name, a, b in zip(("dleft", "dright"), got,
+                          plane_sweep_shifted_bwd(g, shifts, W)):
+        err = max(err, assert_within_ulps(f"K3_bwd train {name}", a, b))
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: plane_sweep_volume_k3_bwd(g, shifts, W), 20)
+    plain_ms = cuda_ms(lambda: plane_sweep_shifted_bwd(g, shifts, W), 3)
+    # bytes: the gradient read once, both feature gradients written once;
+    # f32 work: an add per left element and a plane, two multiplies and
+    # two adds per right element and a plane
+    bound_ms = max(nbytes(g, shifts, *got) / PEAK_BYTES,
+                   2.5 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    phase("K3_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          library_ms="none")
+    # no PyTorch call computes the plane sweep's transpose: library_ms null
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=None)
+
+
+def check_k4_bwd(gen, dev) -> dict:
+    t = time.perf_counter()
+    # small shape, both dtypes (rows past both ends of the planes, columns
+    # outside the image, per-sample P)
+    P, tabs = k4_small_case(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn((2, 10, 12, 4, 16), generator=gen).to(dev, dtype)
+        assert_within_ulps(
+            f"K4_bwd small {dtype}",
+            frustum_to_voxel_k4_bwd(g, P, *tabs, (6, 16, 24), 4),
+            frustum_to_voxel_separable_bwd(g, P, *tabs, (6, 16, 24), 4))
+    # the training shape: gradient [1, 288, 300, 20, 32] bf16 -> the
+    # [1, 64, 96, 312, 32] volume's, at the default calibration
+    cfg = StereoConfig()
+    D, C = cfg.num_depths, 32
+    Hf, Wf = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    tabs = k4_tables(depth_hypotheses(cfg), *_bev_axes(cfg), dev)
+    nz, nx, ny = (len(a) for a in tabs[2:])
+    P = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    g = torch.randn((1, nz, nx, ny, C), generator=gen).to(dev, torch.bfloat16)
+    got = frustum_to_voxel_k4_bwd(g, P, *tabs, (D, Hf, Wf), 4)
+    err = assert_within_ulps(
+        "K4_bwd train", got,
+        frustum_to_voxel_separable_bwd(g, P, *tabs, (D, Hf, Wf), 4))
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: frustum_to_voxel_k4_bwd(g, P, *tabs, (D, Hf, Wf), 4),
+                 20)
+    plain_ms = cuda_ms(lambda: frustum_to_voxel_separable_bwd(
+        g, P, *tabs, (D, Hf, Wf), 4), 3)
+    # library: the backward of the 5-D F.grid_sample of phase K4 with
+    # respect to its input, timed only
+    leaf = torch.zeros((1, C, D, Hf, Wf), dtype=torch.bfloat16, device=dev,
+                       requires_grad=True)
+    out = F.grid_sample(leaf, k4_library_grid(P, tabs, D, Hf, Wf),
+                        mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    gout = g.permute(0, 4, 1, 2, 3)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaf, gout,
+                                                     retain_graph=True), 3)
+    # bytes: the gradient read once, the volume's gradient written once;
+    # f32 operations per gradient element: its 8 taps' weights and adds
+    bound_ms = max(nbytes(g, got) / PEAK_BYTES,
+                   24.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    phase("K4_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=library_ms)
+
+
+# --------------------------------------------------- stereo training ----
+# the JAX stereo training test's optimizer (tests/test_stereo_training.py)
+REF_STEREO_TRAIN = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=20,
+                               grad_clip=5.0)
+
+
+def stereo_two_steps(cfg, device) -> dict:
+    """Steps 0 and 1 of a seeded tiny StereoNet on one seeded training
+    frame with two cars (``two_steps``)."""
+    model = StereoNet(cfg, device=device,
+                      generator=torch.Generator().manual_seed(1))
+    state = create_stereo_state(model, REF_STEREO_TRAIN)
+    step = make_stereo_train_step(cfg, REF_STEREO_TRAIN, device)
+    batch = stereo_batch_to_device(
+        synthetic_stereo_request(cfg, seed=7, boxes_per_frame=2), device)
+    return two_steps(state, step, batch)
+
+
+def check_stereo_train_reference(dev) -> None:
+    """One stereo training step of a tiny model (reslike50-det-tiny with
+    its BatchNorm stem, 64x128, 16 planes, the JAX training test's 38 m
+    range) on the card against the CPU, under phase train_reference's
+    rules (TF32 off, matmul precision "highest").  The model's gradients
+    are sensitive to float32 rounding order (the port's CPU step against
+    JAX's: 1.4e-3 global relative L2), so the float32 step keeps the
+    card's other arithmetic near the CPU's:
+
+      * the SPP branches are off: at 64x128 they pool to 1x2 maps whose
+        GroupNorm groups hold 2 values (JAX's jitted step against its own
+        eager step: 1.2e-2 of the gradients with them);
+      * cuDNN is off for the float32 step: its float32 conv algorithms
+        moved the gradients by 3.9e-3 from the CPU's, 7.5e-4 without it,
+        with K3, K4 and their backwards on the card or their plain
+        versions alike (NVIDIA H100 80GB HBM3, 700.00 W).  The cuDNN
+        step's drift is printed beside, not gated.
+
+    Neither path runs a kernel of this phase."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    small = tiny_stereo_config(z_max=38.0, max_depth=40.0, branch=False)
+    ref = stereo_two_steps(small, "cpu")
+    assert ref["losses"]["num_pos"] > 0 and ref["losses"]["depth"] > 0
+    reset_counts()
+    torch.backends.cudnn.enabled = False
+    try:
+        got = stereo_two_steps(small, dev)
+    finally:
+        torch.backends.cudnn.enabled = True
+    counts = read_counts()
+    assert counts == counts_of(K3=2, K3_bwd=2, K4=2, K4_bwd=2), \
+        f"f32 launch counts {counts}"
+    fields = assert_f32_step(ref, got, learning_rate(REF_STEREO_TRAIN, 1))
+    fields["f32_cudnn_grad_rel_l2"] = \
+        f"{rel_l2(stereo_two_steps(small, dev)['grads'], ref['grads']):.2e}"
+
+    bf16 = small.replace(compute_dtype="bfloat16")
+    cpu_bf16 = stereo_two_steps(bf16, "cpu")
+    reset_counts()
+    got = stereo_two_steps(bf16, dev)
+    counts = read_counts()
+    assert counts == counts_of(K3=2, K3_bwd=2, K4=2, K4_bwd=2), \
+        f"bf16 launch counts {counts}"
+    fields.update(assert_bf16_step(ref, cpu_bf16, got))
+    phase("stereo_train_reference", t, tf32="off",
+          matmul_precision="highest", **fields)
+
+
+def check_stereo_train(dev, profile: bool = False, steps: int = 12) -> dict:
+    """StereoConfig() at full width and depth, batch 1 (the JAX CLI's
+    default), on one seeded training frame with 4 cars; rate warm-up 2
+    steps (500 would keep the rate ~0)."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True  # the card's defaults
+    cfg = StereoConfig()
+    tc = TrainConfig(warmup_steps=2)
+    model = StereoNet(cfg, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    state = create_stereo_state(model, tc)
+    step = make_stereo_train_step(cfg, tc, dev)
+    batch = stereo_batch_to_device(
+        synthetic_stereo_request(cfg, seed=0, boxes_per_frame=4), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t_step = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_step) * 1e3)
+        losses.append(float(m["total"]))
+    counts = read_counts()
+    n = steps
+    assert counts == counts_of(K3=n, K3_bwd=n, K4=n, K4_bwd=n), \
+        f"launch counts {counts}"
+    assert all(math.isfinite(v) for v in losses), f"losses {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert float(m["num_pos"]) > 0 and float(m["depth"]) > 0, m
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    phase("stereo_train", t, note="TrainConfig.warmup_steps=2",
+          loss=",".join(f"{v:.4f}" for v in losses),
+          step_ms=",".join(f"{v:.1f}" for v in times),
+          median_ms=f"{med:.1f}", q1_ms=f"{q1:.1f}", q3_ms=f"{q3:.1f}",
+          pairs_per_s=f"{1e3 / med:.2f}", peak_mem_gb=f"{peak_gb:.2f}",
+          card_mem_gb=f"{card_gb:.1f}", num_pos=f"{float(m['num_pos']):.0f}",
+          launches_per_step=json.dumps(
+              {k: v // n for k, v in counts.items()}).replace(" ", ""))
+    if profile:
+        profile_request(lambda: step(state, batch))
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_ms=times)
+
+
 def main() -> int:
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1188,7 +1483,7 @@ def main() -> int:
             print(f"  ptxas: {lib} {fn} registers={regs} spill_bytes={spills}"
                   + "".join(f" NOTE {n}" for n in notes))
             # the two wgmma conv kernels: no spills, no serialized wgmma;
-            # K3 and K4: no spills
+            # K3 and K4, forward and backward: no spills
             if lib in ("conv3d_large_tap", "conv3d_weight_grad",
                        "plane_sweep_volume", "frustum_to_voxel"):
                 assert spills == 0 and not notes, f"ptxas: {lib} {fn}"
@@ -1210,6 +1505,10 @@ def main() -> int:
     k5 = check_k5(gen, dev)
     check_train_reference(dev)
     train = check_train(dev, profile=profile)
+    k3_bwd = check_k3_bwd(gen, dev)
+    k4_bwd = check_k4_bwd(gen, dev)
+    check_stereo_train_reference(dev)
+    stereo_train = check_stereo_train(dev, profile=profile)
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",
@@ -1247,6 +1546,16 @@ def main() -> int:
              replaces="snvc_tpu/ops/conv3d_pallas.py:118",
              launches=train["counts"]["K5"] + serving["counts"]["K5"],
              bound_by="operations", **k5),
+        dict(name="plane_sweep_volume_bwd", route="cuda",
+             source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
+             replaces="snvc_tpu/ops/cost_volume.py:160",
+             launches=stereo_train["counts"]["K3_bwd"], bound_by="bytes",
+             **k3_bwd),
+        dict(name="frustum_to_voxel_bwd", route="cuda",
+             source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
+             replaces="snvc_tpu/ops/frustum_pallas.py:271",
+             launches=stereo_train["counts"]["K4_bwd"], bound_by="bytes",
+             **k4_bwd),
     ]
     print(f"[total] {time.perf_counter() - T0:.2f}s")
     print(json.dumps({"kernels": kernels}))

@@ -47,9 +47,15 @@ ENTRY_POINTS = {
     "snvc_plane_sweep_volume": (
         "plane_sweep_volume",
         [_P] * 4 + [_I] * 9 + [_P]),
+    "snvc_plane_sweep_volume_bwd": (
+        "plane_sweep_volume",
+        [_P] * 4 + [_I] * 8 + [_P]),
     "snvc_frustum_to_voxel": (
         "frustum_to_voxel",
         [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
+    "snvc_frustum_to_voxel_bwd": (
+        "frustum_to_voxel",
+        [_P] * 6 + [_I] * 10 + [_P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in ENTRY_POINTS.values()))
 

@@ -157,7 +157,8 @@ def flagship_vernier_config(**overrides) -> VernierConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and loss weights of Vernier training (JAX TrainConfig)."""
+    """Optimizer and loss weights of training (JAX TrainConfig); the
+    stereo step reads the optimizer's fields."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-4
@@ -171,8 +172,8 @@ class TrainConfig:
 @dataclass(frozen=True)
 class StereoConfig:
     """Global stereo detector config (the fields of the JAX StereoConfig
-    that the detection serving path reads, with the same defaults: the
-    full-width model ``bench.py --model stereo`` serves)."""
+    that detection serving and stereo training read, with the same
+    defaults: the full-width model ``bench.py --model stereo`` serves)."""
 
     backbone: str = "reslike-det-small"
     gn: bool = True
@@ -198,9 +199,19 @@ class StereoConfig:
     # RPN head
     num_classes: int = 1
     num_angles: int = 2
+    # yaw of each angle bin (training's target assignment)
+    anchor_angles: Tuple[float, ...] = (0.0, 1.5707963)
     anchors_y: Tuple[float, ...] = (1.65,)
+    # sigmoid focal loss of the classification maps
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
     num_hourglasses: int = 1
+    # depth supervision: "sl1" (multi-stage smooth-L1 on the regressed
+    # depth) or "w1" (Wasserstein-1 over the depth distribution)
+    depth_loss: str = "sl1"
     depth_offset: bool = False
+    # score each positive's corners against both pi-rotated orderings
+    reg_heading_sym: bool = False
     input_size: Tuple[int, int] = (384, 1248)
     compute_dtype: str = "bfloat16"
 

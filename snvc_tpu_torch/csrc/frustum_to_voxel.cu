@@ -44,6 +44,41 @@
 // contiguous [tile_x, ny, C] slab, written by neighbouring threads with the
 // streaming store hint.  ops/frustum.py: k4_tiling picks tile_x, L and
 // ncol.
+//
+// The backward with respect to the volume (snvc_frustum_to_voxel_bwd)
+// replaces the XLA VJP of JAX's gather form (frustum_pallas.py:271-289,
+// whose gradient for P no path uses).  It is the transpose:
+//
+//   dvol[n,d,h,w] = sum over rows z with d0[z] = d of (1-fd[z]) T[z,h,w]
+//                 + sum over rows z with d0[z] + 1 = d of fd[z] T[z,h,w],
+//   T[z,h,w] = sum over x whose u hat reaches w of wu(x) *
+//              sum over y whose v hat reaches h of wv(y) * g[n,z,x,y].
+//
+// Bound: bytes, the gradient read once and the volume's gradient written
+// once (110.6 + 122.7 MB at the training shape).  A scatter from each g
+// element into its 8 taps would collide on the planes the z rows share;
+// this kernel gathers instead, deterministically: a block owns BW image
+// columns of one (n, d, h) row of the output (blockIdx.x the column tile,
+// y the row h, z = n * D + d: one division per block) and is
+// ceil(C / 16) x BW threads, a thread 16 channels (threadIdx.x) of one
+// column w (threadIdx.y), so its sums stay in registers.  The wrapper
+// projects u [N, nz, nx] and v [N, nz, ny] once, on the device, in the
+// plain version's round-to-nearest order (the forward kernel's own), so
+// the kernel takes no correctly rounded division: its slow path is a
+// subroutine call, and ptxas spilled live registers around it.  First the
+// block fills tables per BEV row z in shared memory: the row's weight on
+// plane d (0 unless d0[z] or d0[z] + 1 is d: the tables are static, so
+// which rows reach a plane is known there), the v hat's weight of each y
+// at row h and the first and last y it reaches, and u's origin and
+// inverse slope along x.  Then each thread walks the rows that reach (d, h): u is
+// affine in x for a fixed z, so inverting it gives the x cells whose hat
+// can reach w; the range is widened by one cell on each side and each
+// candidate's hat is taken from its projected u exactly as the forward
+// takes it, so boundary taps are the forward's own.  Each tap adds
+// (wz * wu * wv) * g to a float32 sum (the plain version sums over x, then
+// y, then z: the same terms, another rounding order); each output is
+// written once, rounded once.  Neighbouring columns read
+// neighbouring or the same g cells, which L1 and L2 serve.
 
 #include <climits>
 
@@ -252,6 +287,159 @@ cudaError_t launch_f2v(const void* vol, const void* P, const void* d0,
   return cudaGetLastError();
 }
 
+// Shared-memory bytes of the backward's per-row tables (k4_bwd_smem).
+__host__ __device__ constexpr int bwd_table_bytes(int nz, int ny) {
+  return (nz * (5 + ny) * 4 + 15) / 16 * 16;
+}
+
+constexpr int kBwdFloats = 16;    // channels a thread sums
+constexpr int kBwdThreads = 128;  // threads of a block, at most
+
+// (kBwdThreads, 1): with the thread count alone ptxas held the kernel to 56
+// registers and spilled two loop invariants to local memory.
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1) frustum_to_voxel_bwd_kernel(
+    const T* __restrict__ g, const float* __restrict__ u,
+    const float* __restrict__ v, const int* __restrict__ d0,
+    const float* __restrict__ fd, T* __restrict__ dvol, int D, int Hf, int Wf,
+    int C, int nz, int nx, int ny) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ float4 bwd_smem[];
+  float* zw = reinterpret_cast<float*>(bwd_smem);  // [nz] weight on plane d
+  float* u0 = zw + nz;                             // [nz] u of x cell 0
+  float* inv_du = u0 + nz;                         // [nz] cells per pixel
+  int* yr = reinterpret_cast<int*>(inv_du + nz);   // [nz][2] first, last y
+  float* vw = reinterpret_cast<float*>(yr + 2 * nz);  // [nz][ny] v hat at h
+
+  __shared__ int zrange[2];  // first, last row that reaches (d, h)
+
+  const int h = blockIdx.y;
+  const int n = blockIdx.z / D;
+  const int d = blockIdx.z - n * D;
+  const float* un = u + (int64_t)n * nz * nx;  // [nz, nx]
+  const float* vn = v + (int64_t)n * nz * ny;  // [nz, ny]
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid == 0) {
+    zrange[0] = INT_MAX;
+    zrange[1] = INT_MIN;
+  }
+  __syncthreads();
+  // the tables of every BEV row, rows spread over the threads
+  for (int z = tid; z < nz; z += blockDim.x * blockDim.y) {
+    const int dz = min(max(d0[z], 0), D - 2);
+    const float f1 = fd[z];
+    const float wz = dz == d ? __fsub_rn(1.0f, f1) : dz + 1 == d ? f1 : 0.0f;
+    int ylo = ny, yhi = -1;
+    if (wz != 0.0f) {
+      for (int y = 0; y < ny; ++y) {
+        const Hat hv = hat(vn[z * ny + y], Hf);
+        const float wv = hv.i0 == h ? hv.w0 : hv.i0 + 1 == h ? hv.w1 : 0.0f;
+        vw[z * ny + y] = wv;
+        if (wv != 0.0f) {
+          ylo = min(ylo, y);
+          yhi = max(yhi, y);
+        }
+      }
+      // the slope only bounds the candidates, which are widened and tested:
+      // the fast division (no slow-path call) is exact enough
+      const float ua = un[z * nx], ub = un[z * nx + nx - 1];
+      u0[z] = ua;
+      inv_du[z] = nx > 1 ? __fdividef((float)(nx - 1), ub - ua) : 0.0f;
+      if (ylo <= yhi) {
+        atomicMin(&zrange[0], z);
+        atomicMax(&zrange[1], z);
+      }
+    }
+    zw[z] = wz;
+    yr[2 * z] = ylo;
+    yr[2 * z + 1] = yhi;
+  }
+  __syncthreads();
+
+  const int w = blockIdx.x * blockDim.y + threadIdx.y;
+  if (w >= Wf) return;
+  constexpr int CV = kBwdFloats / V;  // vectors a thread sums
+  const int c0 = threadIdx.x * CV;    // its first vector
+  const int nv = min(CV, C / V - c0);
+  float acc[kBwdFloats];
+#pragma unroll
+  for (int i = 0; i < kBwdFloats; ++i) acc[i] = 0.0f;
+  const T* gn = g + (int64_t)n * nz * nx * ny * C + c0 * V;
+  for (int z = zrange[0]; z <= zrange[1]; ++z) {
+    const float wz = zw[z];
+    const int ylo = yr[2 * z], yhi = yr[2 * z + 1];
+    if (wz == 0.0f || ylo > yhi) continue;
+    // the x cells whose u lies in [w - 1, w + 1), from the inverse of the
+    // affine map, widened by a cell each side; a zero or non-finite slope
+    // keeps every cell
+    int xlo = 0, xhi = nx - 1;
+    const float inv = inv_du[z];
+    if (isfinite(inv) && inv != 0.0f) {
+      const float xa = ((float)(w - 1) - u0[z]) * inv;
+      const float xb = ((float)(w + 1) - u0[z]) * inv;
+      const float lo = fmaxf(floorf(fminf(xa, xb)) - 1.0f, 0.0f);
+      const float hi = fminf(ceilf(fmaxf(xa, xb)) + 1.0f, (float)(nx - 1));
+      if (!(lo <= hi)) continue;
+      xlo = (int)lo;
+      xhi = (int)hi;
+    }
+    const T* gz = gn + (int64_t)z * nx * ny * C;
+    for (int x = xlo; x <= xhi; ++x) {
+      const Hat hu = hat(un[z * nx + x], Wf);
+      const float wu = hu.i0 == w ? hu.w0 : hu.i0 + 1 == w ? hu.w1 : 0.0f;
+      if (wu == 0.0f) continue;
+      const float wzu = __fmul_rn(wz, wu);
+      const T* gx = gz + (int64_t)x * ny * C;
+      for (int y = ylo; y <= yhi; ++y) {
+        const float wv = vw[z * ny + y];
+        if (wv == 0.0f) continue;
+        const float wt = __fmul_rn(wzu, wv);
+#pragma unroll
+        for (int k = 0; k < CV; ++k) {
+          if (k < nv) {
+            float a[V];
+            Vec<T>::load(gx + (int64_t)y * C + k * V, a);
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              acc[k * V + i] = __fadd_rn(acc[k * V + i], __fmul_rn(wt, a[i]));
+          }
+        }
+      }
+    }
+  }
+  T* out = dvol + ((((int64_t)n * D + d) * Hf + h) * Wf + w) * C + c0 * V;
+#pragma unroll
+  for (int k = 0; k < CV; ++k)
+    if (k < nv) Vec<T>::store_cs(out + k * V, acc + k * V);
+}
+
+template <typename T>
+cudaError_t launch_f2v_bwd(const void* g, const void* u, const void* v,
+                           const void* d0, const void* fd, void* dvol, int N,
+                           int D, int Hf, int Wf, int C, int nz, int nx,
+                           int ny, int block, cudaStream_t stream) {
+  if ((int64_t)N * D * Hf * Wf * C == 0) return cudaSuccess;
+  const int smem = bwd_table_bytes(nz, ny);
+  const int chunks = (C + kBwdFloats - 1) / kBwdFloats;
+  if (C % Vec<T>::N != 0 || D < 2 || nx < 1 || block < 1 ||
+      chunks * block > kBwdThreads || smem > kSmemLimit ||
+      (int64_t)N * D > 65535 || Hf > 65535)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = frustum_to_voxel_bwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Wf + block - 1) / block, Hf, N * D);
+  kernel<<<grid, dim3(chunks, block), (size_t)smem, stream>>>(
+      static_cast<const T*>(g), static_cast<const float*>(u),
+      static_cast<const float*>(v), static_cast<const int*>(d0),
+      static_cast<const float*>(fd), static_cast<T*>(dvol), D, Hf, Wf, C, nz,
+      nx, ny);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -274,6 +462,26 @@ int snvc_frustum_to_voxel(const void* vol, const void* P, const void* d0,
     return (int)launch_f2v<float>(vol, P, d0, fd, zs, xs, ys, out, N, D, Hf,
                                   Wf, C, nz, nx, ny, stride, tile_x, lanes,
                                   ncol, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward with respect to the volume: g [N, nz, nx, ny, C] -> dvol
+// [N, D, Hf, Wf, C], given u [N, nz, nx] and v [N, nz, ny] in feature
+// pixels.  dtype as above; block: image columns per block, each taken by
+// ceil(C / 16) threads (k4_bwd_tiling).  Returns a cudaError_t (0 =
+// success).
+int snvc_frustum_to_voxel_bwd(const void* g, const void* u, const void* v,
+                              const void* d0, const void* fd, void* dvol,
+                              int N, int D, int Hf, int Wf, int C, int nz,
+                              int nx, int ny, int block, int dtype,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_f2v_bwd<__nv_bfloat16>(g, u, v, d0, fd, dvol, N, D, Hf,
+                                              Wf, C, nz, nx, ny, block, s);
+  if (dtype == 1)
+    return (int)launch_f2v_bwd<float>(g, u, v, d0, fd, dvol, N, D, Hf, Wf, C,
+                                      nz, nx, ny, block, s);
   return (int)cudaErrorInvalidValue;
 }
 

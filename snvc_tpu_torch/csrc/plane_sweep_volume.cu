@@ -28,6 +28,26 @@
 // The multiply and add are the round-to-nearest intrinsics, in the plain
 // version's order (a * fs + b * (1 - fs)), so no fused multiply-add changes
 // the float32 sum.  ops/cost_volume.py: k3_tiling picks BY and `planes`.
+//
+// The backward (snvc_plane_sweep_volume_bwd) is the transpose, which JAX
+// leaves to XLA (the VJP of the gather form, cost_volume.py:160-169):
+//
+//   dleft[n,h,x]  = sum_d g[n,d,h,x, :C]
+//   dright[n,h,x] = sum_d (1-fs) g[n,d,h,x+ks, C:] + fs g[n,d,h,x+ks+1, C:]
+//
+// over in-range columns.  Bound: bytes, the gradient read once (245.4 MB
+// at the training shape) and both outputs written once.  The shift is
+// uniform per plane, so each output column gathers exactly two gradient
+// columns at one weight pair and nothing is scattered: a block owns BX
+// columns of one feature row (blockIdx.x the column tile, y the row, z the
+// sample) and is G x BX threads (threadIdx.x the 16-byte channel group of
+// one half, threadIdx.y the column).  A thread loops over the D planes and
+// sums its two outputs in float32 registers, in plane order, the right
+// half as (b * (1-fs)) + (a * fs) with the round-to-nearest intrinsics,
+// and writes each once, rounded once.  The right half's two taps of
+// neighbouring columns overlap, so a warp's second load mostly hits L1.
+// No atomics and no index division.  ops/cost_volume.py: k3_bwd_tiling
+// picks BX.
 
 #include "common.cuh"
 
@@ -118,6 +138,66 @@ cudaError_t launch_psv(const void* left, const void* right, const void* shifts,
   return cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(1024) plane_sweep_volume_bwd_kernel(
+    const T* __restrict__ grad, const float* __restrict__ shifts,
+    T* __restrict__ dleft, T* __restrict__ dright, int D, int H, int W, int C,
+    int shift_n_stride) {
+  constexpr int V = Vec<T>::N;
+  const int h = blockIdx.y, n = blockIdx.z;
+  const int g = threadIdx.x;
+  const int x = blockIdx.x * blockDim.y + threadIdx.y;
+  if (x >= W) return;
+  const int64_t row = (int64_t)W * 2 * C;  // one (plane, feature row)
+  const int64_t plane = (int64_t)H * row;
+  const T* gp = grad + ((int64_t)n * D * H + h) * row + g * V;
+  const float* srow = shifts + (int64_t)n * shift_n_stride;
+  float sl[V], sr[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) sl[i] = sr[i] = 0.0f;
+  for (int d = 0; d < D; ++d, gp += plane) {
+    const float s = srow[d];
+    const float ksf = floorf(s);
+    const float fs = __fsub_rn(s, ksf);
+    const float gs = __fsub_rn(1.0f, fs);
+    // the forward's clamp: a shift past the row keeps every tap outside it
+    const int ks = (int)fmaxf(fminf(ksf, (float)(W + 1)), (float)(-W - 1));
+    const int x1 = x + ks, x0 = x + ks + 1;
+    float l[V], b[V], a[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) b[i] = a[i] = 0.0f;
+    Vec<T>::load(gp + (int64_t)x * 2 * C, l);
+    if ((unsigned)x1 < (unsigned)W) Vec<T>::load(gp + (int64_t)x1 * 2 * C + C, b);
+    if ((unsigned)x0 < (unsigned)W) Vec<T>::load(gp + (int64_t)x0 * 2 * C + C, a);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sl[i] = __fadd_rn(sl[i], l[i]);
+      sr[i] = __fadd_rn(sr[i], __fadd_rn(__fmul_rn(b[i], gs), __fmul_rn(a[i], fs)));
+    }
+  }
+  const int64_t o = (((int64_t)n * H + h) * W + x) * C + g * V;
+  Vec<T>::store(dleft + o, sl);
+  Vec<T>::store(dright + o, sr);
+}
+
+template <typename T>
+cudaError_t launch_psv_bwd(const void* grad, const void* shifts, void* dleft,
+                           void* dright, int N, int D, int H, int W, int C,
+                           int shift_n_stride, int block_x,
+                           cudaStream_t stream) {
+  if ((int64_t)N * H * W * C == 0) return cudaSuccess;
+  const int G = C / Vec<T>::N;
+  if (G * Vec<T>::N != C || block_x < 1 || (int64_t)G * block_x > 1024 ||
+      N > 65535 || H > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((W + block_x - 1) / block_x, H, N);
+  plane_sweep_volume_bwd_kernel<T><<<grid, dim3(G, block_x), 0, stream>>>(
+      static_cast<const T*>(grad), static_cast<const float*>(shifts),
+      static_cast<T*>(dleft), static_cast<T*>(dright), D, H, W, C,
+      shift_n_stride);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -139,6 +219,24 @@ int snvc_plane_sweep_volume(const void* left, const void* right,
   if (dtype == 1)
     return (int)launch_psv<float>(left, right, shifts, out, N, D, H, W, C,
                                   shift_n_stride, block_y, planes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward: grad [N, D, H, W, 2C] -> dleft, dright [N, H, W, C].  dtype and
+// shift_n_stride as above; block_x: columns per block (k3_bwd_tiling).
+// Returns a cudaError_t (0 = ok).
+int snvc_plane_sweep_volume_bwd(const void* grad, const void* shifts,
+                                void* dleft, void* dright, int N, int D,
+                                int H, int W, int C, int shift_n_stride,
+                                int block_x, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_psv_bwd<__nv_bfloat16>(grad, shifts, dleft, dright, N,
+                                              D, H, W, C, shift_n_stride,
+                                              block_x, s);
+  if (dtype == 1)
+    return (int)launch_psv_bwd<float>(grad, shifts, dleft, dright, N, D, H, W,
+                                      C, shift_n_stride, block_x, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,10 @@ import numpy as np
 import torch
 
 from snvc_tpu_torch.config import StereoConfig
-from snvc_tpu_torch.data.stereo import normalize_images
+from snvc_tpu_torch.data.stereo import (
+    check_stereo_projections,
+    normalize_images,
+)
 from snvc_tpu_torch.geometry import boxes as gbox
 from snvc_tpu_torch.inference.kitti_writer import instance_line
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
@@ -108,20 +111,7 @@ class DetectRunner:
         self.locations = torch.from_numpy(bev_locations(cfg)).to(self.device)
 
     def _to_device(self, arrays: Mapping) -> Dict[str, torch.Tensor]:
-        Pl, Pr = (np.asarray(arrays[k], np.float64)
-                  for k in ("P_left", "P_right"))
-        for k, P in (("P_left", Pl), ("P_right", Pr)):
-            # the frustum resample (K4) takes the rectified form only
-            if np.any(P[:, 2, :2] != 0):
-                raise ValueError(f"{k} must be rectified (P[:, 2, :2] == 0)")
-        # the plane sweep (K3) takes shifts fu*B/z/4 >= 0; checked here on
-        # the host copy, so the card is not asked for the sign of its table
-        fu = Pl[:, 0, 0]
-        baseline = Pr[:, 0, 3] / -Pr[:, 0, 0] - Pl[:, 0, 3] / -Pl[:, 0, 0]
-        if not np.all(fu * baseline >= 0):
-            raise ValueError("P_left/P_right give a negative disparity "
-                             "(fu * baseline < 0): the plane-sweep shifts "
-                             "must be >= 0")
+        check_stereo_projections(arrays["P_left"], arrays["P_right"])
         return {k: torch.as_tensor(np.asarray(arrays[k])).to(self.device)
                 for k in _BATCH_KEYS}
 

@@ -1,5 +1,5 @@
 """Global main-scale stereo detector ``StereoNet`` (port of
-snvc_tpu/models/stereonet.py), inference only.
+snvc_tpu/models/stereonet.py), for serving and training.
 
   stereo pair -> StereoEncoder (one StereoFeatureNet shared by both views)
               -> plane-sweep cost volume over the depth hypotheses (K3)
@@ -15,7 +15,11 @@ Children carry the Flax names (``encoder``, ``head``,
 ``ConvNorm_i``, ``Conv_i``), so JAX variables load by path.
 
 The K4 resample assumes a rectified projection (P[:, 2, :2] == 0, true of
-every KITTI P2/P3); the caller checks its host copy (``DetectRunner``).
+every KITTI P2/P3); the caller checks its host copy
+(``data/stereo.check_stereo_projections``).  K3 and K4 carry gradients to
+the encoder and the 3D stack; in train mode (``model.train()``) the
+BatchNorm stem of the backbones whose first width is below 32 normalizes
+with batch statistics and moves its running averages, as flax's does.
 """
 
 from __future__ import annotations
@@ -183,7 +187,8 @@ class StereoHead(nn.Module):
             _check_div4(name, v)
         depths = self.depths
         Pl = P_left.float()
-        vol = plane_sweep_volume_k3(lf, rf, plane_shifts(Pl, P_right, depths))
+        vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(),
+                                    plane_shifts(Pl, P_right, depths))
 
         base = F.relu(self.ConvNorm3d_0(vol))
         base = F.relu(self.ConvNorm3d_1(base))

@@ -14,8 +14,13 @@ right features read at x - shift[d] (linear in x, zeros outside):
         out[..., C:] = fs * right[x - ks - 1] + (1 - fs) * right[x - ks],
     ks = floor(s), fs = s - ks, computed in float32 and rounded once.
   * ``plane_sweep_volume_k3``: the wrapper of the CUDA kernel
-    (csrc/plane_sweep_volume.cu).  A CPU tensor goes to
-    ``plane_sweep_shifted``; a CUDA tensor goes to the kernel or raises.
+    (csrc/plane_sweep_volume.cu), differentiable through ``PlaneSweepK3``.
+    A CPU tensor goes to ``plane_sweep_shifted``; a CUDA tensor goes to
+    the kernel or raises.
+  * ``plane_sweep_shifted_bwd`` / ``plane_sweep_volume_k3_bwd``: the
+    backward, plain and kernel.  JAX takes the VJP of the gather form
+    through XLA (``_psv_bwd``, snvc_tpu/ops/cost_volume.py:160-169) and
+    gives the shifts a zero gradient; here the shifts get none.
 
 The Pallas kernel streams the right features through VMEM as two dynamic
 W-slices per (sample, plane, 128 lanes), in float32, and the left half is
@@ -30,6 +35,16 @@ from the thread's index, the plane from a loop, so nothing is divided.
 Bound: bytes.  At the serving shape ([1, 96, 312, 32] bf16 features, 64
 planes) the kernel writes the 245.4 MB volume and reads 3.8 MB, ~0.074 ms
 at 3.35 TB/s.
+
+The backward is the transpose: dleft sums the gradient's left half over
+the planes, and each dright column gathers the two right-half columns
+that read it, x + k_d (weight 1 - f_d) and x + k_d + 1 (weight f_d),
+k_d = floor(s_d), f_d = s_d - k_d.  Per plane the shift is uniform, so
+the kernel needs no atomics: a block owns a tile of columns of one
+feature row and loops over the planes, each thread summing one 16-byte
+channel group of one column in float32 registers, written once
+(``k3_bwd_tiling``).  Bound: bytes, the gradient read once (245.4 MB at
+the training shape, ~0.074 ms).
 """
 
 from __future__ import annotations
@@ -160,15 +175,41 @@ def k3_tiling(N: int, D: int, H: int, W: int, C: int, dtype,
     return K3Tiling((G, by), planes, smem, N * H * -(-D // planes))
 
 
-def plane_sweep_volume_k3(left, right, shifts):
-    """Kernel K3: [N, H, W, C] x2, shifts [D] or [N, D] float32 (>= 0) ->
-    [N, D, H, W, 2C].  See module docstring.  A negative shift in a host
-    table raises.  A CUDA table is not read back to check it: the caller
-    that holds the values on the host checks them (``DetectRunner`` does,
-    from P), and the kernel zeroes every tap outside [0, W), so a negative
-    shift reads nothing out of bounds."""
-    if not shifts.is_cuda and bool((shifts < 0).any()):
-        raise ValueError("plane-sweep shifts must be >= 0")
+def plane_sweep_shifted_bwd(grad, shifts, W: int):
+    """Plain backward of K3, written as the kernel computes it: grad
+    [N, D, H, W, 2C] -> (dleft, dright) [N, H, W, C] in grad's dtype.
+
+        dleft[x]  = sum_d grad[d, x, :C]
+        dright[x] = sum_d (1 - f_d) grad[d, x + k_d, C:]
+                          + f_d grad[d, x + k_d + 1, C:]
+
+    over in-range columns, k_d = floor(s_d), f_d = s_d - k_d; summed in
+    float32 and rounded once."""
+    N, D, H, _, C2 = grad.shape
+    C = C2 // 2
+    s = _shift_table(shifts, N).float()
+    ks = torch.floor(s)
+    fs = (s - ks)[..., None, None, None]  # [N, D, 1, 1, 1]
+    gf = grad.float()
+    dleft = gf[..., :C].sum(1)
+    # column W of the padded gradient is the zero every tap past the row
+    # reads (shifts >= 0 keep every tap at or right of x)
+    gpad = F.pad(gf[..., C:], (0, 0, 0, 1))  # [N, D, H, W + 1, C]
+    ksi = ks.clamp(max=W + 1).to(torch.int64)[..., None]  # [N, D, 1]
+    x = torch.arange(W, device=grad.device)
+    i0 = (x + ksi).clamp(max=W)
+    i1 = (x + ksi + 1).clamp(max=W)
+    n = torch.arange(N, device=grad.device)[:, None, None]
+    d = torch.arange(D, device=grad.device)[None, :, None]
+    b = gpad[n, d, :, i0].permute(0, 1, 3, 2, 4)  # [N, D, H, W, C]
+    a = gpad[n, d, :, i1].permute(0, 1, 3, 2, 4)
+    dright = (b * (1.0 - fs) + a * fs).sum(1)
+    return dleft.to(grad.dtype), dright.to(grad.dtype)
+
+
+def _psv_forward(left, right, shifts):
+    """The forward of ``PlaneSweepK3``: the plain version on the CPU, the
+    kernel on the card."""
     if not left.is_cuda:
         return plane_sweep_shifted(left, right, shifts)
     dt = left.dtype
@@ -209,7 +250,116 @@ def plane_sweep_volume_k3(left, right, shifts):
     return out
 
 
+K3_BWD_THREADS = 256  # threads a backward block aims for
+
+
+class K3BwdTiling(NamedTuple):
+    """The backward's launch: ``block`` = (G, BX) threads (G 16-byte
+    channel groups of one half, BX columns), ``blocks`` = N * H *
+    ceil(W / BX) in all, on a grid (ceil(W / BX), H, N)."""
+    block: Tuple[int, int]
+    blocks: int
+
+
+def k3_bwd_tiling(N: int, H: int, W: int, C: int, dtype,
+                  sms: int = 132) -> K3BwdTiling:
+    """The launch of K3's backward for a [N, D, H, W, 2C] gradient of
+    ``dtype`` on a card of ``sms`` SMs: BX = 256 / G columns a block (at
+    most W), halved down to 32 while the grid has fewer than 4 blocks per
+    SM.  Raises ValueError when G exceeds a block's threads."""
+    vec = 16 // dtype.itemsize
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec}")
+    G = C // vec
+    if G > 1024:
+        raise ValueError(f"plane_sweep_volume_bwd: {G} channel groups "
+                         f"exceed a block's 1024 threads")
+    bx = max(1, min(W, K3_BWD_THREADS // G))
+    while bx > 32 and N * H * -(-W // bx) < 4 * sms:
+        bx //= 2
+    return K3BwdTiling((G, bx), N * H * -(-W // bx))
+
+
+def plane_sweep_volume_k3_bwd(grad, shifts, W: int):
+    """Backward of K3: grad [N, D, H, W, 2C] and the forward's shifts ->
+    (dleft, dright) [N, H, W, C] in grad's dtype.  A CPU tensor goes to
+    ``plane_sweep_shifted_bwd``; a CUDA tensor to the kernel, or raises."""
+    if not grad.is_cuda:
+        return plane_sweep_shifted_bwd(grad, shifts, W)
+    dt = grad.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"plane_sweep_volume_k3_bwd takes bf16 or f32, "
+                        f"got {dt}")
+    if shifts.dtype != torch.float32:
+        raise TypeError(f"shifts must be float32, got {shifts.dtype}")
+    if grad.ndim != 5 or grad.shape[3] != W or grad.shape[4] % 2:
+        raise ValueError(f"grad must be [N, D, H, {W}, 2C], got "
+                         f"{tuple(grad.shape)}")
+    N, D, H, _, C2 = grad.shape
+    C = C2 // 2
+    table = _shift_table(shifts, N)
+    if table.shape[1] != D:
+        raise ValueError(f"{D} planes but {table.shape[1]} shifts")
+    if not (shifts.is_cuda and shifts.device == grad.device):
+        raise ValueError("grad and shifts must lie on one CUDA device")
+    if not (grad.is_contiguous() and shifts.is_contiguous()):
+        raise ValueError("grad and shifts must be contiguous")
+    if grad.data_ptr() % 16:
+        raise ValueError("grad must be 16-byte aligned")
+    t = k3_bwd_tiling(N, H, W, C, dt, torch.cuda.get_device_properties(
+        grad.device).multi_processor_count)
+    dleft = torch.empty((N, H, W, C), dtype=dt, device=grad.device)
+    dright = torch.empty_like(dleft)
+    from snvc_tpu_torch._build import error_string, load_library
+
+    lib = load_library("plane_sweep_volume")
+    stream = torch.cuda.current_stream(grad.device).cuda_stream
+    err = lib.snvc_plane_sweep_volume_bwd(
+        grad.data_ptr(), shifts.data_ptr(), dleft.data_ptr(),
+        dright.data_ptr(), N, D, H, W, C, 0 if shifts.ndim == 1 else D,
+        t.block[1], _DTYPES[dt], stream)
+    if err != 0:
+        raise RuntimeError(f"plane_sweep_volume_bwd launch failed: "
+                           f"{error_string(lib, err)}")
+    plane_sweep_volume_k3_bwd.launches += 1
+    return dleft, dright
+
+
+class PlaneSweepK3(torch.autograd.Function):
+    """K3 with its backward; the shifts get no gradient (JAX gives them
+    zeros)."""
+
+    @staticmethod
+    def forward(ctx, left, right, shifts):
+        ctx.save_for_backward(shifts)
+        ctx.W = left.shape[2]
+        return _psv_forward(left, right, shifts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (shifts,) = ctx.saved_tensors
+        dleft, dright = plane_sweep_volume_k3_bwd(grad.contiguous(), shifts,
+                                                  ctx.W)
+        need = ctx.needs_input_grad
+        return (dleft if need[0] else None, dright if need[1] else None,
+                None)
+
+
+def plane_sweep_volume_k3(left, right, shifts):
+    """Kernel K3: [N, H, W, C] x2, shifts [D] or [N, D] float32 (>= 0) ->
+    [N, D, H, W, 2C], differentiable in left and right.  See module
+    docstring.  A negative shift in a host table raises.  A CUDA table is
+    not read back to check it: the caller that holds the values on the
+    host checks them (``data/stereo.check_stereo_projections``), and the
+    kernel zeroes every tap outside [0, W), so a negative shift reads
+    nothing out of bounds."""
+    if not shifts.is_cuda and bool((shifts < 0).any()):
+        raise ValueError("plane-sweep shifts must be >= 0")
+    return PlaneSweepK3.apply(left, right, shifts)
+
+
 plane_sweep_volume_k3.launches = 0
+plane_sweep_volume_k3_bwd.launches = 0
 
 
 def build_cost_volume(left, right, shifts, downsample: int = 1):

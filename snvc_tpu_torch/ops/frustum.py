@@ -16,9 +16,13 @@ edge planes, zeros outside the image).
     on (z, x) and v on (z, y), so the sample is a depth lerp and two hat
     weightings, accumulated in float32 and rounded once.
   * ``frustum_to_voxel_k4``: the wrapper of the CUDA kernel
-    (csrc/frustum_to_voxel.cu).  A CPU tensor goes to
-    ``frustum_to_voxel_separable``; a CUDA tensor goes to the kernel or
-    raises.
+    (csrc/frustum_to_voxel.cu), differentiable in the volume through
+    ``FrustumK4``.  A CPU tensor goes to ``frustum_to_voxel_separable``; a
+    CUDA tensor goes to the kernel or raises.
+  * ``frustum_to_voxel_separable_bwd`` / ``frustum_to_voxel_k4_bwd``: the
+    backward with respect to the volume, plain and kernel.  JAX takes the
+    XLA VJP of the gather form (frustum_pallas.py:271-289), which also
+    gives P a gradient; no path uses that one, and the port gives none.
 
 The TPU kernels express the hats as dense matmuls and select channels with
 a mod-C 0/1 matrix: matrix-unit shapes for a chip with no gather.  The CUDA
@@ -37,6 +41,14 @@ tile.  One launch covers the batch.
 Bound: bytes.  At the serving shape (volume [1, 64, 96, 312, 32] bf16, BEV
 288 x 300 x 20) it writes 110.6 MB and reads at most the 122.7 MB volume
 once, ~0.070 ms at 3.35 TB/s.
+
+The backward gathers rather than scatters, so it needs no atomics: a
+block owns image columns of one (sample, plane, row) of the volume's
+gradient; the static tables say which BEV rows reach the plane, the v hat
+which y cells reach the row, and inverting the affine map x -> u which x
+cells can reach a column, each candidate tested with the forward's own
+arithmetic (``k4_bwd_tiling``).  Bound: bytes, the same in reverse
+(~0.070 ms at the training shape).
 """
 
 from __future__ import annotations
@@ -158,6 +170,28 @@ def frustum_to_voxel_separable(volume, P_mat, d0, fd, zs, xs, ys,
     return out.to(volume.dtype)
 
 
+def frustum_to_voxel_separable_bwd(grad, P_mat, d0, fd, zs, xs, ys,
+                                   depth_hw, feature_stride: int = 4):
+    """Plain backward of K4 with respect to the volume: grad
+    [N, nz, nx, ny, C] -> [N, D, Hf, Wf, C] in grad's dtype, for the
+    volume's (D, Hf, Wf) = ``depth_hw``.  The transpose of
+    ``frustum_to_voxel_separable``: the hat over u, then the hat over v,
+    then the depth lerp into planes d0 and d0 + 1, in float32, rounded
+    once."""
+    D, Hf, Wf = depth_hw
+    N, nz, nx, ny, C = grad.shape
+    u, v = _project_uv(P_mat, zs, xs, ys, feature_stride)
+    t = torch.einsum("nzxw,nzxyc->nzywc", _hat(u, Wf), grad.float())
+    t = torch.einsum("nzyh,nzywc->nzhwc", _hat(v, Hf), t)
+    f = fd.float()[None, :, None, None, None]
+    d0 = d0.long()
+    out = torch.zeros((N, D, Hf, Wf, C), dtype=torch.float32,
+                      device=grad.device)
+    out.index_add_(1, d0, t * (1.0 - f))
+    out.index_add_(1, d0 + 1, t * f)
+    return out.to(grad.dtype)
+
+
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 K4_THREADS = 256  # threads a block aims for
 K4_MAX_THREADS = 1024  # the kernel's __launch_bounds__
@@ -211,12 +245,9 @@ def k4_tiling(N: int, nz: int, nx: int, ny: int, C: int, dtype,
                     N * nz * -(-nx // tile_x))
 
 
-def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
-                        feature_stride: int = 4):
-    """Kernel K4, same arguments and result as
-    ``frustum_to_voxel_separable``.  The kernel assumes P[:, 2, :2] == 0
-    and does not check it (that would read P back from the card): the
-    caller checks its host copy.  See module docstring."""
+def _f2v_forward(volume, P_mat, d0, fd, zs, xs, ys, feature_stride):
+    """The forward of ``FrustumK4``: the plain version on the CPU, the
+    kernel on the card."""
     if not volume.is_cuda:
         return frustum_to_voxel_separable(volume, P_mat, d0, fd, zs, xs, ys,
                                           feature_stride)
@@ -228,18 +259,7 @@ def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
                          f"{tuple(volume.shape)}")
     N, D, Hf, Wf, C = volume.shape
     nz, nx, ny = zs.shape[0], xs.shape[0], ys.shape[0]
-    want = ((P_mat, torch.float32, (N, 3, 4)), (d0, torch.int32, (nz,)),
-            (fd, torch.float32, (nz,)), (zs, torch.float32, (nz,)),
-            (xs, torch.float32, (nx,)), (ys, torch.float32, (ny,)))
-    for i, (t, dtype, shape) in enumerate(want):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"argument {i + 2} must be {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    tensors = (volume,) + tuple(t for t, _, _ in want)
-    if not all(t.is_cuda and t.device == volume.device for t in tensors):
-        raise ValueError("every argument must lie on the volume's CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("every argument must be contiguous")
+    _check_tables(volume, P_mat, d0, fd, zs, xs, ys, N)
     if D < 2:
         raise ValueError(f"the volume needs at least 2 depth planes, got {D}")
     if volume.data_ptr() % 16:
@@ -263,4 +283,153 @@ def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
     return out
 
 
+def _check_tables(t0, P_mat, d0, fd, zs, xs, ys, N):
+    """Raises unless P and the tables are what the kernels take, on
+    ``t0``'s CUDA device and contiguous like it."""
+    nz, nx, ny = zs.shape[0], xs.shape[0], ys.shape[0]
+    want = ((P_mat, torch.float32, (N, 3, 4)), (d0, torch.int32, (nz,)),
+            (fd, torch.float32, (nz,)), (zs, torch.float32, (nz,)),
+            (xs, torch.float32, (nx,)), (ys, torch.float32, (ny,)))
+    for i, (t, dtype, shape) in enumerate(want):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"argument {i + 2} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    tensors = (t0,) + tuple(t for t, _, _ in want)
+    if not all(t.is_cuda and t.device == t0.device for t in tensors):
+        raise ValueError("every argument must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("every argument must be contiguous")
+
+
+K4_BWD_THREADS = 128  # threads of a backward block (the kernel's kBwdThreads)
+K4_BWD_FLOATS = 16  # channels a backward thread sums (kBwdFloats)
+
+
+class K4BwdTiling(NamedTuple):
+    """The backward's launch: ``block`` = (ceil(C / 16), BW) threads, BW
+    image columns of 16 channels a thread, ``smem`` bytes of shared memory
+    (the per-row tables), ``blocks`` = N * D * Hf * ceil(Wf / BW) on a grid
+    (ceil(Wf / BW), Hf, N * D)."""
+    block: Tuple[int, int]
+    smem: int
+    blocks: int
+
+
+def k4_bwd_smem(nz: int, ny: int) -> int:
+    """Shared-memory bytes of the backward's per-row tables, rounded up to
+    16 (the kernel's bwd_table_bytes): the plane weight, the u map's
+    origin and inverse slope, the first and last touching y, and the v
+    hat's weight of each y, per BEV row."""
+    return -(-(nz * (5 + ny) * 4) // 16) * 16
+
+
+def k4_bwd_tiling(N: int, D: int, Hf: int, Wf: int, C: int, nz: int,
+                  ny: int) -> K4BwdTiling:
+    """The launch of K4's backward for an [N, D, Hf, Wf, C] volume and
+    nz BEV rows of ny cells: ceil(C / 16) threads a column and 128 threads
+    a block (BW columns, at most Wf), the row tables in shared memory.
+    Raises ValueError when a column's threads, the tables or the grid
+    exceed the card's limits."""
+    chunks = -(-C // K4_BWD_FLOATS)
+    if chunks > K4_BWD_THREADS:
+        raise ValueError(f"frustum_to_voxel_bwd: {C} channels exceed a "
+                         f"block's {K4_BWD_THREADS} threads of "
+                         f"{K4_BWD_FLOATS}")
+    smem = k4_bwd_smem(nz, ny)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"frustum_to_voxel_bwd: the tables of {nz} BEV rows "
+                         f"x {ny} cells ({smem} bytes) exceed a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    if N * D > 65535 or Hf > 65535:
+        raise ValueError(f"frustum_to_voxel_bwd: a grid of {N * D} planes x "
+                         f"{Hf} rows exceeds 65535")
+    bw = max(1, min(Wf, K4_BWD_THREADS // chunks))
+    return K4BwdTiling((chunks, bw), smem, N * D * Hf * -(-Wf // bw))
+
+
+def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
+                            feature_stride: int = 4):
+    """Backward of K4 with respect to the volume, same arguments and
+    result as ``frustum_to_voxel_separable_bwd``.  A CPU tensor goes to
+    that plain version; a CUDA tensor to the kernel, or raises.  The
+    wrapper projects u and v on the device (``_project_uv``); the kernel
+    inverts the affine map x -> u, so ``xs`` must be evenly spaced
+    (``_bev_axes`` makes them so); P is rectified, as for the forward."""
+    if not grad.is_cuda:
+        return frustum_to_voxel_separable_bwd(grad, P_mat, d0, fd, zs, xs,
+                                              ys, depth_hw, feature_stride)
+    dt = grad.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"frustum_to_voxel_k4_bwd takes bf16 or f32, got "
+                        f"{dt}")
+    if grad.ndim != 5:
+        raise ValueError(f"grad must be [N, nz, nx, ny, C], got "
+                         f"{tuple(grad.shape)}")
+    D, Hf, Wf = depth_hw
+    N, nz, nx, ny, C = grad.shape
+    vec = 16 // dt.itemsize
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec}")
+    if (zs.shape[0], xs.shape[0], ys.shape[0]) != (nz, nx, ny):
+        raise ValueError(f"grad {tuple(grad.shape)} does not match the "
+                         f"tables' {nz} x {nx} x {ny} cells")
+    _check_tables(grad, P_mat, d0, fd, zs, xs, ys, N)
+    if D < 2:
+        raise ValueError(f"the volume needs at least 2 depth planes, got {D}")
+    if grad.data_ptr() % 16:
+        raise ValueError("grad must be 16-byte aligned")
+    t = k4_bwd_tiling(N, D, Hf, Wf, C, nz, ny)
+    # u, v in the plain version's order, which the forward kernel keeps
+    u, v = (a.contiguous() for a in _project_uv(P_mat, zs, xs, ys,
+                                                 feature_stride))
+    dvol = torch.empty((N, D, Hf, Wf, C), dtype=dt, device=grad.device)
+    from snvc_tpu_torch._build import error_string, load_library
+
+    lib = load_library("frustum_to_voxel")
+    stream = torch.cuda.current_stream(grad.device).cuda_stream
+    err = lib.snvc_frustum_to_voxel_bwd(
+        grad.data_ptr(), u.data_ptr(), v.data_ptr(), d0.data_ptr(),
+        fd.data_ptr(), dvol.data_ptr(), N, D, Hf, Wf, C, nz, nx, ny,
+        t.block[1], _DTYPES[dt], stream)
+    if err != 0:
+        raise RuntimeError(f"frustum_to_voxel_bwd launch failed: "
+                           f"{error_string(lib, err)}")
+    frustum_to_voxel_k4_bwd.launches += 1
+    return dvol
+
+
+class FrustumK4(torch.autograd.Function):
+    """K4 with its backward with respect to the volume (JAX's VJP also
+    gives one for P, which no path uses: P is batch data)."""
+
+    @staticmethod
+    def forward(ctx, volume, P_mat, d0, fd, zs, xs, ys, feature_stride):
+        ctx.save_for_backward(P_mat, d0, fd, zs, xs, ys)
+        ctx.depth_hw = tuple(volume.shape[1:4])
+        ctx.stride = feature_stride
+        return _f2v_forward(volume, P_mat, d0, fd, zs, xs, ys, feature_stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dvol = frustum_to_voxel_k4_bwd(grad.contiguous(), *ctx.saved_tensors,
+                                       ctx.depth_hw, ctx.stride)
+        return (dvol,) + (None,) * 7
+
+
+def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
+                        feature_stride: int = 4):
+    """Kernel K4, same arguments and result as
+    ``frustum_to_voxel_separable``, differentiable in the volume.  The
+    kernel assumes P[:, 2, :2] == 0 and does not check it (that would
+    read P back from the card): the caller checks its host copy
+    (``data/stereo.check_stereo_projections``).  The gradient with respect
+    to P is not ported: a P that requires it raises.  See module
+    docstring."""
+    if P_mat.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("frustum_to_voxel_k4 gives no gradient "
+                                  "with respect to P_mat")
+    return FrustumK4.apply(volume, P_mat, d0, fd, zs, xs, ys, feature_stride)
+
+
 frustum_to_voxel_k4.launches = 0
+frustum_to_voxel_k4_bwd.launches = 0

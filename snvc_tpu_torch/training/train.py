@@ -36,6 +36,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from snvc_tpu_torch.config import TrainConfig, VernierConfig
 from snvc_tpu_torch.models.losses import vernier_losses
@@ -80,15 +81,16 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The step count, the model (parameters and BatchNorm statistics) and
-    its optimizer."""
+    its optimizer; the Vernier and the stereo steps share it."""
 
     step: int
-    model: VernierScale
+    model: nn.Module
     optimizer: torch.optim.AdamW
 
 
-def make_optimizer(model: VernierScale, tc: TrainConfig) -> torch.optim.AdamW:
-    """AdamW over every parameter; ``train_step`` sets the rate per step."""
+def make_optimizer(model: nn.Module, tc: TrainConfig) -> torch.optim.AdamW:
+    """AdamW over every parameter; the train steps set the rate per
+    step."""
     return torch.optim.AdamW(model.parameters(), lr=0.0, betas=(0.9, 0.999),
                              eps=1e-8, weight_decay=tc.weight_decay)
 
@@ -118,7 +120,7 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     """One step on ``batch`` (tensors on the model's device): updates
     ``state`` in place and returns the losses and the gradients' global
     norm (before clipping), as 0-d tensors."""
-    model, opt = state.model, state.optimizer
+    model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
         batch["trans_l"], batch["trans_r"], batch["samples"],
@@ -130,23 +132,32 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     losses = vernier_losses(outputs, targets, batch["valid"], cfg,
                             occupancy_weight=tc.occupancy_weight,
                             coordinate_weight=tc.coordinate_weight)
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["grad_norm"] = apply_gradients(state, losses["total"], tc)
+    return metrics
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    tc: TrainConfig) -> torch.Tensor:
+    """The backward of ``loss``, the clip by global norm and the AdamW
+    update at the step's rate; advances ``state.step``.  Returns the
+    gradients' global norm before clipping."""
+    model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
-    losses["total"].backward()
+    loss.backward()
     # optax updates every parameter: one the loss does not reach (the
     # HRNet's unused low-resolution fusions) gets a zero gradient, so AdamW
     # still decays it
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in model.parameters()]
-    norm = clip_by_global_norm(grads, tc.grad_clip)
+    norm = clip_by_global_norm([p.grad for p in model.parameters()],
+                               tc.grad_clip)
     for group in opt.param_groups:
         group["lr"] = learning_rate(tc, state.step)
     opt.step()
     state.step += 1
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["grad_norm"] = norm
-    return metrics
+    return norm
 
 
 def make_train_step(cfg: VernierConfig, tc: TrainConfig, device):

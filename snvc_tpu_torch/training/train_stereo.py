@@ -1,0 +1,119 @@
+"""Training step of the global stereo detector (port of
+snvc_tpu/training/train_stereo.py, one device, no mesh).
+
+One step does what the JAX ``stereo_train_step`` does: image
+normalization, the StereoNet forward in train mode (the plane sweep K3
+and the frustum resample K4 with their backward kernels on the card;
+BatchNorm statistics of the small backbones move inside the forward),
+on-device RPN target assignment, depth supervision, the backward, and
+the clip-by-global-norm AdamW update of ``training/train.py``.  The
+depth loss weighs 1, as JAX's fused step has it (its ``depth_weight``
+argument is set by no caller).
+
+JAX also has ``make_stereo_train_step_split``: the same step as three
+chained programs, which exists only to cut XLA's compile time, with the
+fused step's gradients.  PyTorch runs eagerly and compiles nothing, so
+the port has the fused step alone.  Its ``_volume_sharding`` (the cost
+volume split over a mesh's "model" axis) waits for a port of
+``parallel/api``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from snvc_tpu_torch.config import StereoConfig, TrainConfig
+from snvc_tpu_torch.data.stereo import (
+    check_stereo_projections,
+    normalize_images,
+)
+from snvc_tpu_torch.models.stereo_losses import (
+    depth_multistage_sl1_loss,
+    depth_sl1_loss,
+    depth_w1_loss,
+    rpn3d_loss,
+)
+from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
+from snvc_tpu_torch.training.train import (
+    TrainState,
+    apply_gradients,
+    make_optimizer,
+)
+
+STEREO_BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
+                     "gt_boxes", "gt_valid", "gt_classes", "depth_gt")
+
+
+def augment_normalize(img_l_u8, img_r_u8, cfg: StereoConfig, step: int):
+    """ImageNet normalization of both views.  JAX first applies the
+    view-consistent photometric jitter when ``cfg.photometric_aug`` is
+    set; the port has neither that field nor ``ops/augment.py`` yet, and
+    a config that adds the field must raise NotImplementedError here
+    until they are ported."""
+    return normalize_images(img_l_u8), normalize_images(img_r_u8)
+
+
+def _depth_loss(out, depth_gt, cfg: StereoConfig):
+    """'sl1': multi-stage smooth-L1 over the stacked hourglasses' depths;
+    'w1': Wasserstein-1 over the final depth distribution, with the
+    per-plane offset when the head has one."""
+    mask = depth_gt > 0
+    if cfg.depth_loss == "w1":
+        return depth_w1_loss(out["depth_prob"], out["depth_levels"],
+                             depth_gt, mask, offset=out.get("depth_offset"))
+    if cfg.depth_loss != "sl1":
+        raise ValueError(f"unknown depth_loss {cfg.depth_loss!r}")
+    preds = out["depth_preds"]
+    if len(preds) == 1:
+        return depth_sl1_loss(out["depth"], depth_gt, mask)
+    return depth_multistage_sl1_loss(preds, depth_gt, mask)
+
+
+def create_stereo_state(model: StereoNet, tc: TrainConfig) -> TrainState:
+    """Puts ``model`` in train mode and pairs it with a new optimizer."""
+    model.train()
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(model, tc))
+
+
+def stereo_batch_to_device(batch: Mapping[str, np.ndarray],
+                           device) -> Dict[str, torch.Tensor]:
+    """The training keys of a stereo batch (``synthetic_stereo_request``
+    or ``StereoBatch.arrays()``) as tensors on ``device``, after the host
+    checks of its projections."""
+    check_stereo_projections(batch["P_left"], batch["P_right"])
+    return {k: torch.as_tensor(np.asarray(batch[k])).to(device)
+            for k in STEREO_BATCH_KEYS}
+
+
+def stereo_train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                      cfg: StereoConfig, tc: TrainConfig,
+                      locations: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One step on ``batch`` (tensors on the model's device, from
+    ``stereo_batch_to_device``): updates ``state`` in place and returns
+    the losses (total, cls, reg, centerness, depth), num_pos and the
+    gradients' global norm before clipping, as 0-d tensors."""
+    left, right = augment_normalize(batch["images_left"],
+                                    batch["images_right"], cfg, state.step)
+    out = state.model(left, right, batch["P_left"].float(),
+                      batch["P_right"].float())
+    losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
+                        batch["gt_classes"], cfg, locations)
+    dloss = _depth_loss(out, batch["depth_gt"], cfg)
+    total = losses["total"] + dloss
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics.update(depth=dloss.detach(), total=total.detach())
+    metrics["grad_norm"] = apply_gradients(state, total, tc)
+    return metrics
+
+
+def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device):
+    """``stereo_train_step`` with the config and the BEV anchor locations
+    bound: ``step(state, batch) -> metrics``."""
+    locations = torch.from_numpy(bev_locations(cfg)).to(device)
+    return functools.partial(stereo_train_step, cfg=cfg, tc=tc,
+                             locations=locations)

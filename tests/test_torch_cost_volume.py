@@ -29,8 +29,10 @@ from snvc_tpu_torch.ops.cost_volume import (
     _plane_sweep_xla_any,
     build_cost_volume,
     plane_sweep_shifted,
+    plane_sweep_shifted_bwd,
     plane_sweep_volume,
     plane_sweep_volume_k3,
+    plane_sweep_volume_k3_bwd,
 )
 
 SHARED = np.array([0.0, 1.0, 2.5, 7.25, 21.9], np.float32)
@@ -197,3 +199,120 @@ def test_k3_kernel_ragged_tilings_match_plain_on_card(cuda_device, dtype,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(plane_sweep_volume_k3(lt, rt, st), want)
+
+
+# ---------------------------------------------------------- backward ----
+# JAX gives K3 a custom VJP (``_psv_bwd``, snvc_tpu/ops/cost_volume.py:
+# 160-169): the XLA VJP of the gather form, zeros for the shifts.  The
+# port's plain backward is written as its kernel computes it; float32 on
+# both sides, so the sums differ by rounding order and by the gather
+# form's x - s rounding (as for the forward): atol 1e-5 of scale.  The
+# Pallas forward slices outside its padding for a shift >= W (ROADMAP
+# Queue 3), so the tables stay below W.
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k3_plain_backward_matches_jax_vjp(per_sample):
+    import jax
+
+    left, right = _features(10, N=3)
+    shifts = _per_sample(10, 3, 24, past_row=False) if per_sample else SHARED
+    g = np.random.default_rng(10).standard_normal(
+        (3, shifts.shape[-1], 8, 24, 32)).astype(np.float32)
+    _, vjp = jax.vjp(lambda l, r: jax_any(l, r, jnp.asarray(shifts), 1),
+                     jnp.asarray(left), jnp.asarray(right))
+    want = vjp(jnp.asarray(g))
+    got = plane_sweep_shifted_bwd(*_t(g, shifts), 24)
+    for a, b, name in zip(got, want, ("dleft", "dright")):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_k3_plain_backward_matches_autograd(per_sample):
+    """Against torch autograd of the plain forward, shifts past the row
+    included (their taps are all zero)."""
+    left, right = _features(11, N=2)
+    shifts = _per_sample(11, 2, 24) if per_sample else SHARED
+    lt, rt = (t.requires_grad_() for t in _t(left, right))
+    out = plane_sweep_shifted(lt, rt, torch.from_numpy(shifts))
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(11))
+    want = torch.autograd.grad(out, (lt, rt), g)
+    got = plane_sweep_shifted_bwd(g, torch.from_numpy(shifts), 24)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max())
+
+
+def test_k3_plain_backward_rounds_once_in_bf16():
+    left, _ = _features(12)
+    g = torch.randn((2, 5, 8, 24, 32),
+                    generator=torch.Generator().manual_seed(12))
+    s = torch.from_numpy(SHARED)
+    got = plane_sweep_shifted_bwd(g.bfloat16(), s, 24)
+    want = plane_sweep_shifted_bwd(g.bfloat16().float(), s, 24)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b.bfloat16())
+
+
+def test_k3_wrapper_on_cpu_carries_gradients():
+    """``PlaneSweepK3``: the output has a graph; the backward is the plain
+    backward, uncounted; the shifts get no gradient."""
+    left, right = _features(13)
+    lt, rt = (t.requires_grad_() for t in _t(left, right))
+    st = torch.from_numpy(_per_sample(13, 2, 24)).requires_grad_()
+    before = plane_sweep_volume_k3_bwd.launches
+    out = plane_sweep_volume_k3(lt, rt, st)
+    assert out.grad_fn is not None
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(13))
+    out.backward(g)
+    want = plane_sweep_shifted_bwd(g, st.detach(), 24)
+    assert torch.equal(lt.grad, want[0]) and torch.equal(rt.grad, want[1])
+    assert st.grad is None
+    assert plane_sweep_volume_k3_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,per_sample", [(24, False), (37, True)])
+def test_k3_backward_kernel_matches_plain_on_card(cuda_device, dtype, W,
+                                                  per_sample):
+    """The kernel sums the planes in order, the plain version as torch
+    reduces: bf16 within one ulp of the largest value, float32 within
+    1e-5 of it.  W = 37 is off every column tile; the per-sample table
+    holds 0, integers and shifts past the row."""
+    rng = np.random.default_rng(14)
+    N, D, H, C = 2, 9, 5, 16
+    shifts = rng.uniform(0.0, W, size=(N, D)).astype(np.float32)
+    shifts[1, :6] = [0.0, 1.0, 2.5, W - 1.0, W, 3.0 * W + 0.25]
+    if not per_sample:
+        shifts = shifts[1]
+    g = torch.from_numpy(rng.standard_normal((N, D, H, W, 2 * C)).astype(
+        np.float32)).to(cuda_device, dtype)
+    st = torch.from_numpy(shifts).to(cuda_device)
+    got = plane_sweep_volume_k3_bwd(g, st, W)
+    want = plane_sweep_shifted_bwd(g, st, W)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for a, b in zip(got, want):
+        b = b.float()
+        assert float((a.float() - b).abs().max()) <= tol * float(
+            b.abs().max())
+
+
+@pytest.mark.cuda
+def test_k3_carries_gradients_on_card(cuda_device):
+    """On the card the volume has a graph and its backward is the kernel:
+    the features' gradients are the plain backward's."""
+    left, right = _features(15)
+    lt, rt = (t.to(cuda_device).requires_grad_() for t in _t(left, right))
+    st = torch.from_numpy(_per_sample(15, 2, 24)).to(cuda_device)
+    before = plane_sweep_volume_k3_bwd.launches
+    out = plane_sweep_volume_k3(lt, rt, st)
+    assert out.grad_fn is not None
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(15)
+                    ).to(cuda_device)
+    out.backward(g)
+    assert plane_sweep_volume_k3_bwd.launches == before + 1
+    for a, b in zip((lt.grad, rt.grad), plane_sweep_shifted_bwd(g, st, 24)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

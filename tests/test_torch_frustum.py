@@ -30,7 +30,9 @@ from snvc_tpu_torch.ops.frustum import (
     frustum_tables,
     frustum_to_voxel,
     frustum_to_voxel_k4,
+    frustum_to_voxel_k4_bwd,
     frustum_to_voxel_separable,
+    frustum_to_voxel_separable_bwd,
 )
 
 P_TEST = np.array([[80.0, 0, 48.0, 2.0], [0, 80.0, 32.0, -0.3],
@@ -195,3 +197,132 @@ def test_k4_kernel_tiles_across_image_edges_match_plain_on_card(
     assert torch.equal(got, shipped)
     tol = 4 * 2.0 ** -23 if dtype == torch.float32 else 2 * 2.0 ** -7
     assert bool(((got.float() - want).abs() <= tol * want.abs().max()).all())
+
+
+# ---------------------------------------------------------- backward ----
+# JAX gives K4 a custom VJP (frustum_pallas.py:271-289): the XLA VJP of the
+# gather form, with respect to the volume and P.  The port's backward is
+# with respect to the volume only (no path differentiates P).  Float32;
+# the gather form projects with a matmul and its weights round otherwise,
+# as for the forward: atol 2e-4 of scale.
+
+
+def _grad_case(seed, N=2):
+    vol, P, depths, zs, xs, ys = _case(seed, N)
+    g = np.random.default_rng(seed).standard_normal(
+        (N, len(zs), len(xs), len(ys), vol.shape[-1])).astype(np.float32)
+    return vol, P, depths, zs, xs, ys, g
+
+
+def _tables(depths, zs, xs, ys, P, device="cpu"):
+    d0, fd = frustum_tables(depths, zs)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (P, d0, fd, zs, xs, ys)]
+
+
+def test_k4_plain_backward_matches_jax_vjp():
+    import jax
+
+    from snvc_tpu.ops.frustum_pallas import frustum_to_voxel_pallas_diff
+
+    vol, P, depths, zs, xs, ys, g = _grad_case(7)
+    _, vjp = jax.vjp(lambda v: frustum_to_voxel_pallas_diff(
+        v, jnp.asarray(P), depths, zs, xs, ys, 4, interpret=True),
+        jnp.asarray(vol))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = frustum_to_voxel_separable_bwd(
+        torch.from_numpy(g), *_tables(depths, zs, xs, ys, P),
+        vol.shape[1:4], 4).numpy()
+    assert got.shape == vol.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-4 * np.abs(want).max())
+
+
+def test_k4_plain_backward_matches_autograd():
+    vol, P, depths, zs, xs, ys, g = _grad_case(8)
+    tabs = _tables(depths, zs, xs, ys, P)
+    vt = torch.from_numpy(vol).requires_grad_()
+    out = frustum_to_voxel_separable(vt, *tabs, 4)
+    (want,) = torch.autograd.grad(out, (vt,), torch.from_numpy(g))
+    got = frustum_to_voxel_separable_bwd(torch.from_numpy(g), *tabs,
+                                         vol.shape[1:4], 4)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max())
+
+
+def test_k4_wrapper_on_cpu_carries_gradients():
+    """``FrustumK4``: the output has a graph, its backward is the plain
+    backward, uncounted; a P that requires a gradient raises."""
+    vol, P, depths, zs, xs, ys, g = _grad_case(9)
+    tabs = _tables(depths, zs, xs, ys, P)
+    vt = torch.from_numpy(vol).requires_grad_()
+    before = frustum_to_voxel_k4_bwd.launches
+    out = frustum_to_voxel_k4(vt, *tabs, 4)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(g))
+    want = frustum_to_voxel_separable_bwd(torch.from_numpy(g), *tabs,
+                                          vol.shape[1:4], 4)
+    assert torch.equal(vt.grad, want)
+    assert frustum_to_voxel_k4_bwd.launches == before
+    tabs[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="P_mat"):
+        frustum_to_voxel_k4(vt, *tabs, 4)
+    with torch.no_grad():  # no graph, nothing to refuse
+        frustum_to_voxel_k4(vt, *tabs, 4)
+
+
+def test_k4_bwd_tiling():
+    """The training shape: 2 threads of 16 channels a column, 64 columns a
+    block, one block's tables (288 rows x 20 cells) in shared memory;
+    tables past shared memory, grids past 65535 planes and channels past a
+    block's threads raise."""
+    from snvc_tpu_torch.ops.frustum import k4_bwd_smem, k4_bwd_tiling
+
+    t = k4_bwd_tiling(1, 64, 96, 312, 32, 288, 20)
+    assert t.block == (2, 64) and t.smem == k4_bwd_smem(288, 20) == 28800
+    assert t.blocks == 64 * 96 * 5
+    assert k4_bwd_tiling(1, 6, 16, 24, 8, 10, 4).block == (1, 24)
+    assert k4_bwd_tiling(1, 6, 16, 24, 40, 10, 4).block == (3, 24)
+    with pytest.raises(ValueError, match="shared memory"):
+        k4_bwd_tiling(1, 64, 96, 312, 32, 4000, 20)
+    with pytest.raises(ValueError, match="65535"):
+        k4_bwd_tiling(2, 40000, 96, 312, 32, 288, 20)
+    with pytest.raises(ValueError, match="threads"):
+        k4_bwd_tiling(1, 64, 96, 312, 4096, 288, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 2])
+def test_k4_backward_kernel_matches_plain_on_card(cuda_device, dtype, N):
+    """The kernel adds each tap's (wz * wu * wv) * g to one float32 sum;
+    the plain version sums over x, then y, then the rows: bf16 within two
+    ulp of the largest value, float32 within 1e-5 of it.  The case's
+    columns and rows run off the image and its depths past both ends of
+    the planes; N = 2 has per-sample calibration."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vol, P, depths, zs, xs, ys, g = _grad_case(10, N)
+    tabs = _tables(depths, zs, xs, ys, P, cuda_device)
+    gt = torch.from_numpy(g).to(cuda_device, dtype)
+    got = frustum_to_voxel_k4_bwd(gt, *tabs, vol.shape[1:4], 4).float()
+    want = frustum_to_voxel_separable_bwd(gt, *tabs, vol.shape[1:4],
+                                          4).float()
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_k4_carries_gradients_on_card(cuda_device):
+    vol, P, depths, zs, xs, ys, g = _grad_case(11)
+    tabs = _tables(depths, zs, xs, ys, P, cuda_device)
+    vt = torch.from_numpy(vol).to(cuda_device).requires_grad_()
+    before = frustum_to_voxel_k4_bwd.launches
+    out = frustum_to_voxel_k4(vt, *tabs, 4)
+    assert out.grad_fn is not None
+    gt = torch.from_numpy(g).to(cuda_device)
+    out.backward(gt)
+    assert frustum_to_voxel_k4_bwd.launches == before + 1
+    want = frustum_to_voxel_separable_bwd(gt, *tabs, vol.shape[1:4], 4)
+    assert float((vt.grad - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

@@ -43,6 +43,7 @@ for m in mods:
 import chip_smoke  # noqa: F401  (imported, not run)
 sys.path.insert(0, "scripts")
 import k1_variants, k34_variants, kernel_ab  # noqa: E401,F401  (not run)
+import stereo_reference_drift  # noqa: F401  (not run)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("imported", len(mods))
@@ -64,6 +65,14 @@ def test_port_imports_no_jax():
     n = len(list(pkgutil.walk_packages(snvc_tpu_torch.__path__,
                                        "snvc_tpu_torch.")))
     assert f"imported {n + 1}" in res.stdout, res.stdout
+
+
+def test_walk_covers_stereo_training():
+    """The walk above imports the stereo training modules."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.models.stereo_losses",
+            "snvc_tpu_torch.training.train_stereo"} <= names
 
 
 def _no_ok_line(stdout: str) -> bool:
