@@ -75,12 +75,16 @@ Phases, each printing one line with its elapsed seconds:
                default calibration's table, and N = 2 with a [2, 64] edge
                table), within 2 bf16 ulp of the largest value, with kernel
                / plain times and the memory bound;
- 15. K4_bwd  - the frustum resample's backward kernel (d volume) against its
-               plain version (small shapes with per-sample calibration; the
-               training shape, gradient [1, 288, 300, 20, 32] bf16 ->
-               [1, 64, 96, 312, 32]), within 2 bf16 ulp of the largest
-               value, with kernel / plain / F.grid_sample-backward times
-               and the memory bound;
+ 15. K4_bwd  - the frustum resample's backward (d volume: a plan kernel,
+               then the main kernel) against its plain version (small
+               shapes with per-sample calibration; planes and feature rows
+               that receive nothing and near rows; the training shape,
+               gradient [1, 288, 300, 20, 32] bf16 -> [1, 64, 96, 312,
+               32], its plan first held to the plain plan bit for bit),
+               within 2 bf16 ulp of the largest value (and the training
+               shape in float32 within 1e-5 of it), with kernel (both
+               launches) / plain / F.grid_sample-backward times, the
+               memory bound and the feature rows with work;
  16. stereo_train_reference - one training step of a tiny float32
                StereoNet (no SPP branches, cuDNN off) on the card against
                the same step on the CPU (losses, every gradient, BatchNorm
@@ -153,8 +157,10 @@ from snvc_tpu_torch.ops.frustum import (
     frustum_tables,
     frustum_to_voxel_k4,
     frustum_to_voxel_k4_bwd,
+    frustum_to_voxel_k4_bwd_plan,
     frustum_to_voxel_separable,
     frustum_to_voxel_separable_bwd,
+    k4_bwd_plan,
 )
 from snvc_tpu_torch.ops.grid_sample import (
     sample_stereo_voxel,
@@ -224,18 +230,23 @@ def ptxas_report(log: str):
     return [(f, r, sp, notes.get(f, [])) for f, r, sp in out]
 
 
+TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)"
+
+
 def short_name(mangled: str) -> str:
     """``_ZN..23conv3d_large_tap_kernelILi32ELi1ELi1ELi7EEEv..`` ->
-    ``conv3d_large_tap_kernel<32,1,1,7>`` (Itanium names: a length, then
-    the identifier)."""
+    ``conv3d_large_tap_kernel<32,1,1,7>``, ``..IfLi2EE..`` -> ``<f32,2>``
+    (Itanium names: a length, then the identifier)."""
     for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
         end = m.end() + int(m.group(1))
         name = mangled[m.end():end]
         if name.endswith("_kernel"):
-            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+            args = re.match(rf"I((?:{TEMPLATE_ARG})+)E", mangled[end:])
             if args:
-                name += "<" + ",".join(re.findall(r"Li(-?\d+)E",
-                                                  args.group(1))) + ">"
+                name += "<" + ",".join(
+                    i or ("f32" if f else "bf16")
+                    for i, f, _ in re.findall(TEMPLATE_ARG,
+                                              args.group(1))) + ">"
             return name
     return mangled
 
@@ -1295,25 +1306,69 @@ def check_k3_bwd(gen, dev) -> dict:
                 library_ms=None)
 
 
+def k4_bwd_near_case(gen, dev):
+    """Planes over 1.5-12 m with BEV rows at 2-5 m only (the far planes
+    and most feature rows receive nothing: the plan's zero rows) and near
+    rows whose x cells span 10-25 of the 96 columns; C = 16, per-sample P
+    (tests/test_torch_frustum.py's near case)."""
+    depths = np.linspace(1.5, 12.0, 8).astype(np.float32)
+    zs = (2.0 + np.arange(12) * 0.25).astype(np.float32)
+    xs = (-3.0 + (np.arange(13) + 0.5) * 0.5).astype(np.float32)
+    ys = (-0.3 + (np.arange(6) + 0.5) * 0.1).astype(np.float32)
+    P = torch.tensor([[400.0, 0, 192.0, 1.0], [0, 400.0, 64.0, -0.2],
+                      [0, 0, 1, 0.003]]).repeat(2, 1, 1)
+    P[1, 0, 3] += 30.0
+    g = torch.randn((2, 12, 13, 6, 16), generator=gen)
+    return P.to(dev), k4_tables(depths, zs, xs, ys, dev), g, (8, 32, 96)
+
+
 def check_k4_bwd(gen, dev) -> dict:
     t = time.perf_counter()
-    # small shape, both dtypes (rows past both ends of the planes, columns
-    # outside the image, per-sample P)
+    # small shapes, both dtypes: rows past both ends of the planes, columns
+    # outside the image, per-sample P; then planes and feature rows that
+    # receive nothing, and near rows
     P, tabs = k4_small_case(dev)
+    Pn, tabs_n, gn, hw_n = k4_bwd_near_case(gen, dev)
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.randn((2, 10, 12, 4, 16), generator=gen).to(dev, dtype)
         assert_within_ulps(
             f"K4_bwd small {dtype}",
             frustum_to_voxel_k4_bwd(g, P, *tabs, (6, 16, 24), 4),
             frustum_to_voxel_separable_bwd(g, P, *tabs, (6, 16, 24), 4))
+        g = gn.to(dev, dtype)
+        assert_within_ulps(
+            f"K4_bwd near {dtype}",
+            frustum_to_voxel_k4_bwd(g, Pn, *tabs_n, hw_n, 4),
+            frustum_to_voxel_separable_bwd(g, Pn, *tabs_n, hw_n, 4))
     # the training shape: gradient [1, 288, 300, 20, 32] bf16 -> the
-    # [1, 64, 96, 312, 32] volume's, at the default calibration
+    # [1, 64, 96, 312, 32] volume's, at the default calibration; first the
+    # plan kernel against its plain version (the same bits)
     cfg = StereoConfig()
     D, C = cfg.num_depths, 32
     Hf, Wf = cfg.input_size[0] // 4, cfg.input_size[1] // 4
     tabs = k4_tables(depth_hypotheses(cfg), *_bev_axes(cfg), dev)
     nz, nx, ny = (len(a) for a in tabs[2:])
     P = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    u, v, zr, work = frustum_to_voxel_k4_bwd_plan(P, *tabs, (D, Hf, Wf), 4)
+    want_u, want_v = _project_uv(P, *tabs[2:], 4)
+    want_zr, want_work = k4_bwd_plan(want_u, want_v, tabs[0], tabs[1],
+                                     (D, Hf, Wf))
+    assert torch.equal(u, want_u) and torch.equal(v, want_v), "K4_bwd plan uv"
+    assert torch.equal(zr, want_zr) and torch.equal(work, want_work), \
+        "K4_bwd plan rows"
+    work_rows = int(work.sum())
+    # float32 at the training shape: within 1e-5 of the largest value
+    # (plain matmuls in float32, not TF32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.randn((1, nz, nx, ny, C), generator=gen).to(dev)
+    got = frustum_to_voxel_k4_bwd(g, P, *tabs, (D, Hf, Wf), 4)
+    want = frustum_to_voxel_separable_bwd(g, P, *tabs, (D, Hf, Wf), 4)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    err32 = float((got - want).abs().max())
+    assert err32 <= 1e-5 * float(want.abs().max()), \
+        f"K4_bwd train f32: max err {err32} > 1e-5 of {want.abs().max()}"
+    del got, want
     g = torch.randn((1, nz, nx, ny, C), generator=gen).to(dev, torch.bfloat16)
     got = frustum_to_voxel_k4_bwd(g, P, *tabs, (D, Hf, Wf), 4)
     err = assert_within_ulps(
@@ -1340,7 +1395,8 @@ def check_k4_bwd(gen, dev) -> dict:
                    24.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
     phase("K4_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}")
+          bound_ms=f"{bound_ms:.4f}", f32_max_abs_err=f"{err32:.3e}",
+          work_rows=f"{work_rows}/{work.numel()}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 library_ms=library_ms)
 

@@ -1,6 +1,6 @@
 """A/B timing of the port's kernels (K1 forward and backward, K2 forward,
-its dx and dw, K3, K4, K5) between two trees of this repository, in turns
-on one NVIDIA GPU.
+its dx and dw, K3 and K4 forward and backward, K5) between two trees of
+this repository, in turns on one NVIDIA GPU.
 
     python3 scripts/kernel_ab.py --parent DIR [--rounds 2]
 
@@ -23,10 +23,15 @@ that tree's kernels and times, at the main paths' shapes:
            features x2, its own 64-plane shift table);
   K4       the detect request's frustum -> voxel resample ([1, 64, 96, 312,
            32] bf16 volume -> 288 x 300 x 20, the default calibration);
+  K3 bwd   the stereo training step's plane-sweep backward ([1, 64, 96,
+           312, 64] bf16 gradient, the default calibration's shifts);
+  K4 bwd   the stereo training step's resample backward (gradient [1, 288,
+           300, 20, 32] bf16 -> the volume's, the default calibration);
 
 and the one PyTorch call that computes each (F.conv3d, torch.nn.grad.
-conv3d_input / conv3d_weight, F.grid_sample forward / backward, and the 5-D
-trilinear F.grid_sample for K4; none for K3).  Each run prints one JSON
+conv3d_input / conv3d_weight, F.grid_sample forward / backward, the 5-D
+trilinear F.grid_sample for K4 and its backward with respect to the
+volume for K4 bwd; none for K3 or its backward).  Each run prints one JSON
 line with the times and, per kernel, a checksum of its output bytes; the
 last lines are the medians per tree, the change / parent ratios, and
 whether each kernel's checksums agree between the trees (K1's backward
@@ -172,6 +177,7 @@ def time_tree(tree: Path) -> Record:
         del x, w, g, xt, wt, gt
         time_k34(out, dev, gen)
     time_k1(out, dev, gen)
+    time_k34_bwd(out, dev, gen)
     for part in ("fwd", "dx", "dw"):
         for suffix in ("", " library"):
             out.ms[f"{part} total{suffix}"] = sum(
@@ -196,12 +202,12 @@ def k1_projections(cfg, dev):
     return gl.float().contiguous(), gr.float().contiguous()
 
 
-def time_k34(out: Record, dev, gen) -> None:
-    """K3 and K4 at the detect request's shapes and tables, and the 5-D
-    trilinear F.grid_sample that computes K4's function."""
+def stereo_tables(dev):
+    """StereoConfig()'s (D, H, W) feature volume, the default left / right
+    P, the 64-plane shift table and K4's five tables (d0, fd, zs, xs, ys)
+    on ``dev``."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from snvc_tpu_torch.config import StereoConfig
     from snvc_tpu_torch.geometry.calib import Calibration
@@ -210,43 +216,93 @@ def time_k34(out: Record, dev, gen) -> None:
         depth_hypotheses,
         plane_shifts,
     )
-    from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
-    from snvc_tpu_torch.ops.frustum import (
-        _project_uv,
-        frustum_tables,
-        frustum_to_voxel_k4,
-    )
+    from snvc_tpu_torch.ops.frustum import frustum_tables
 
     cfg = StereoConfig()
-    D, C = cfg.num_depths, 32
-    H, W = cfg.input_size[0] // 4, cfg.input_size[1] // 4
+    dhw = (cfg.num_depths, cfg.input_size[0] // 4, cfg.input_size[1] // 4)
     Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
     Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(
         dev)
     depths = depth_hypotheses(cfg)
-    lf, rf = (torch.randn((1, H, W, C), generator=gen).to(dev, torch.bfloat16)
-              for _ in range(2))
     shifts = plane_shifts(Pl, Pr, torch.from_numpy(depths).to(dev))
-    out.kernel("K3", lambda: plane_sweep_volume_k3(lf, rf, shifts), 20)
     zs, xs, ys = _bev_axes(cfg)
     d0, fd = frustum_tables(depths, zs)
     tabs = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
             for a, dt in ((d0, np.int32), (fd, np.float32), (zs, np.float32),
                           (xs, np.float32), (ys, np.float32))]
-    vol = torch.randn((1, D, H, W, C), generator=gen).to(dev, torch.bfloat16)
-    out.kernel("K4", lambda: frustum_to_voxel_k4(vol, Pl, *tabs, 4), 20)
+    return dhw, Pl, shifts, tabs
+
+
+def k4_grid(Pl, tabs, dhw):
+    """The [1, nz, nx, ny, 3] bf16 (u, v, d) grid, normalized for a 5-D
+    F.grid_sample with align_corners=True, at which the BEV cells sample
+    the volume: the library call's form of K4."""
+    import torch
+
+    from snvc_tpu_torch.ops.frustum import _project_uv
+
+    D, H, W = dhw
     u, v = _project_uv(Pl, tabs[2], tabs[3], tabs[4], 4)
     d = tabs[0].float() + tabs[1]
     nz, nx, ny = u.shape[1], u.shape[2], v.shape[2]
-    grid = torch.stack([
+    return torch.stack([
         (2 * u / (W - 1) - 1)[..., None].expand(1, nz, nx, ny),
         (2 * v / (H - 1) - 1)[:, :, None, :].expand(1, nz, nx, ny),
         (2 * d / (D - 1) - 1)[None, :, None, None].expand(1, nz, nx, ny),
     ], dim=-1).to(torch.bfloat16)
+
+
+def time_k34(out: Record, dev, gen) -> None:
+    """K3 and K4 at the detect request's shapes and tables, and the 5-D
+    trilinear F.grid_sample that computes K4's function."""
+    import torch
+    import torch.nn.functional as F
+
+    from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
+    from snvc_tpu_torch.ops.frustum import frustum_to_voxel_k4
+
+    (D, H, W), Pl, shifts, tabs = stereo_tables(dev)
+    C = 32
+    lf, rf = (torch.randn((1, H, W, C), generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    out.kernel("K3", lambda: plane_sweep_volume_k3(lf, rf, shifts), 20)
+    vol = torch.randn((1, D, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    out.kernel("K4", lambda: frustum_to_voxel_k4(vol, Pl, *tabs, 4), 20)
+    grid = k4_grid(Pl, tabs, (D, H, W))
     vt = vol.permute(0, 4, 1, 2, 3)
     out.library("K4 library", lambda: F.grid_sample(
         vt, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
         3)
+
+
+def time_k34_bwd(out: Record, dev, gen) -> None:
+    """K3's and K4's backwards at the stereo training step's shapes, and
+    the backward of K4's 5-D F.grid_sample with respect to the volume
+    (outside inference mode: it records a graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3_bwd
+    from snvc_tpu_torch.ops.frustum import frustum_to_voxel_k4_bwd
+
+    (D, H, W), Pl, shifts, tabs = stereo_tables(dev)
+    C = 32
+    g3 = torch.randn((1, D, H, W, 2 * C), generator=gen).to(dev,
+                                                             torch.bfloat16)
+    out.kernel("K3 bwd", lambda: plane_sweep_volume_k3_bwd(g3, shifts, W), 20)
+    del g3
+    nz, nx, ny = (len(t) for t in tabs[2:])
+    g4 = torch.randn((1, nz, nx, ny, C), generator=gen).to(dev,
+                                                            torch.bfloat16)
+    out.kernel("K4 bwd", lambda: frustum_to_voxel_k4_bwd(
+        g4, Pl, *tabs, (D, H, W), 4), 20)
+    leaf = torch.zeros((1, C, D, H, W), dtype=torch.bfloat16, device=dev,
+                       requires_grad=True)
+    res = F.grid_sample(leaf, k4_grid(Pl, tabs, (D, H, W)), mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    gout = g4.permute(0, 4, 1, 2, 3)
+    out.library("K4 bwd library", lambda: torch.autograd.grad(
+        res, leaf, gout, retain_graph=True), 3)
 
 
 def time_k1(out: Record, dev, gen) -> None:

@@ -53,9 +53,12 @@ ENTRY_POINTS = {
     "snvc_frustum_to_voxel": (
         "frustum_to_voxel",
         [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
+    "snvc_frustum_to_voxel_bwd_plan": (
+        "frustum_to_voxel",
+        [_P] * 7 + [_I] * 7 + [_F, _P]),
     "snvc_frustum_to_voxel_bwd": (
         "frustum_to_voxel",
-        [_P] * 6 + [_I] * 10 + [_P]),
+        [_P] * 5 + [_I] * 10 + [_P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in ENTRY_POINTS.values()))
 

@@ -42,12 +42,20 @@ Bound: bytes.  At the serving shape (volume [1, 64, 96, 312, 32] bf16, BEV
 288 x 300 x 20) it writes 110.6 MB and reads at most the 122.7 MB volume
 once, ~0.070 ms at 3.35 TB/s.
 
-The backward gathers rather than scatters, so it needs no atomics: a
-block owns image columns of one (sample, plane, row) of the volume's
-gradient; the static tables say which BEV rows reach the plane, the v hat
-which y cells reach the row, and inverting the affine map x -> u which x
-cells can reach a column, each candidate tested with the forward's own
-arithmetic (``k4_bwd_tiling``).  Bound: bytes, the same in reverse
+The backward gathers rather than scatters, so it needs no atomics, in two
+launches.  A plan kernel, a block a plane, finds each plane's BEV rows (a
+contiguous range of the static table), projects their u and v once and
+marks the (sample, plane, feature row)s that receive any gradient (about
+a third at the training shape; ``k4_bwd_plan`` is its plain version).
+The main kernel's block owns two feature rows and a tile of image columns
+of one (sample, plane), far planes first: for a row pair with no work it
+writes zeros; otherwise, per piece of x cells of the plane's BEV rows
+(near rows' few cells packed together), it sums each cell's gradient over
+the y cells whose v hat reaches the rows, for both rows at once, into
+float32 shared memory (16 bytes a thread; the next piece's loads issued
+before this one's last phases), finds each column's run of cells whose u
+hat reaches it, and adds the hats' weights times those sums into float32
+sums per column (``k4_bwd_tiling``).  Bound: bytes, the same in reverse
 (~0.070 ms at the training shape).
 """
 
@@ -301,59 +309,187 @@ def _check_tables(t0, P_mat, d0, fd, zs, xs, ys, N):
         raise ValueError("every argument must be contiguous")
 
 
-K4_BWD_THREADS = 128  # threads of a backward block (the kernel's kBwdThreads)
-K4_BWD_FLOATS = 16  # channels a backward thread sums (kBwdFloats)
+K4_BWD_THREADS = 256  # threads of a backward block (the kernel's kBwdThreads)
+K4_BWD_ROWS = 2  # feature rows a backward block owns (kBwdRows)
+K4_BWD_Z = 16  # BEV rows whose tables a block holds at once (kBwdZ)
+K4_BWD_SLOTS = 2  # float4 slots of the tile a thread owns (kBwdSlots)
+K4_BWD_SUMS = 30720  # bytes of float32 v-hat sums a block stages
+XHAT_BYTES = 16  # the kernel's XHat: a staged x cell's u hat
+BWD_ROW_BYTES = 24  # the kernel's BwdRow
 
 
 class K4BwdTiling(NamedTuple):
-    """The backward's launch: ``block`` = (ceil(C / 16), BW) threads, BW
-    image columns of 16 channels a thread, ``smem`` bytes of shared memory
-    (the per-row tables), ``blocks`` = N * D * Hf * ceil(Wf / BW) on a grid
-    (ceil(Wf / BW), Hf, N * D)."""
-    block: Tuple[int, int]
+    """The backward's two launches.  The plan: ``plan_grid`` = (D, N)
+    blocks of 256 threads, ``plan_smem`` bytes (an int a feature row).  The
+    main kernel: blocks of 256 threads own 2 feature rows and ``tw`` =
+    2 * 256 / (C / 4) image columns of one (sample, plane) on
+    ``grid`` = (ceil(Wf / tw), ceil(Hf / 2), N * D), ``blocks`` of them,
+    staging the v-hat sums of ``xcap`` x cells at once in ``smem``
+    bytes."""
+    tw: int
+    xcap: int
     smem: int
+    grid: Tuple[int, int, int]
     blocks: int
+    plan_grid: Tuple[int, int]
+    plan_smem: int
 
 
-def k4_bwd_smem(nz: int, ny: int) -> int:
-    """Shared-memory bytes of the backward's per-row tables, rounded up to
-    16 (the kernel's bwd_table_bytes): the plane weight, the u map's
-    origin and inverse slope, the first and last touching y, and the v
-    hat's weight of each y, per BEV row."""
-    return -(-(nz * (5 + ny) * 4) // 16) * 16
+def k4_bwd_smem(xcap: int, C: int, ny: int, tw: int) -> int:
+    """Shared-memory bytes of a backward block (the kernel's
+    bwd_smem_bytes): for each of ``xcap`` staged x cells the float32 v-hat
+    sums of 2 rows of C channels and its u hat (16 bytes); the float32
+    sums of the block's 2 x ``tw`` outputs; then for each of 16 BEV rows a
+    piece's row entry (16 bytes), the row's tables (24 bytes), a float32
+    weight pair per y and each column's first and last staged cell (two
+    int16)."""
+    return (xcap * (K4_BWD_ROWS * C * 4 + XHAT_BYTES)
+            + K4_BWD_ROWS * tw * C * 4
+            + K4_BWD_Z * (16 + BWD_ROW_BYTES + ny * 8 + tw * 4))
 
 
 def k4_bwd_tiling(N: int, D: int, Hf: int, Wf: int, C: int, nz: int,
                   ny: int) -> K4BwdTiling:
-    """The launch of K4's backward for an [N, D, Hf, Wf, C] volume and
-    nz BEV rows of ny cells: ceil(C / 16) threads a column and 128 threads
-    a block (BW columns, at most Wf), the row tables in shared memory.
-    Raises ValueError when a column's threads, the tables or the grid
-    exceed the card's limits."""
-    chunks = -(-C // K4_BWD_FLOATS)
-    if chunks > K4_BWD_THREADS:
-        raise ValueError(f"frustum_to_voxel_bwd: {C} channels exceed a "
-                         f"block's {K4_BWD_THREADS} threads of "
-                         f"{K4_BWD_FLOATS}")
-    smem = k4_bwd_smem(nz, ny)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"frustum_to_voxel_bwd: the tables of {nz} BEV rows "
-                         f"x {ny} cells ({smem} bytes) exceed a block's "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    if N * D > 65535 or Hf > 65535:
+    """The launches of K4's backward for an [N, D, Hf, Wf, C] gradient
+    (bf16 or float32) and nz BEV rows of ny cells: 2 float4 slots a thread
+    of 256, so tw = 2 * 256 / (C / 4) columns a block (64 at C = 32), and
+    the v-hat sums of as many x cells staged at once as 30 KB hold (120
+    at C = 32, a far row's ~112 cells of a 64-column tile whole).  Raises
+    ValueError when C is not a multiple of 8 or exceeds a block, or shared
+    memory or the grid exceed the card's limits."""
+    if C % 8 or C // 4 > K4_BWD_THREADS:
+        raise ValueError(f"frustum_to_voxel_bwd: C={C} must be a multiple of "
+                         f"8 and at most {4 * K4_BWD_THREADS}")
+    if N * D > 65535 or -(-Hf // K4_BWD_ROWS) > 65535 or N > 65535:
         raise ValueError(f"frustum_to_voxel_bwd: a grid of {N * D} planes x "
                          f"{Hf} rows exceeds 65535")
-    bw = max(1, min(Wf, K4_BWD_THREADS // chunks))
-    return K4BwdTiling((chunks, bw), smem, N * D * Hf * -(-Wf // bw))
+    xcap = K4_BWD_SUMS // (K4_BWD_ROWS * C * 4)
+    tw = K4_BWD_SLOTS * K4_BWD_THREADS // (C // 4)
+    smem = k4_bwd_smem(xcap, C, ny, tw)
+    plan_smem = 4 * Hf
+    if max(smem, plan_smem) > SMEM_LIMIT:
+        raise ValueError(f"frustum_to_voxel_bwd: {xcap} staged x cells and "
+                         f"tables for ny={ny} ({smem} bytes, C={C}) or the "
+                         f"plan's {plan_smem} (Hf={Hf}) exceed a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    grid = (-(-Wf // tw), -(-Hf // K4_BWD_ROWS), N * D)
+    return K4BwdTiling(tw, xcap, smem, grid,
+                       grid[0] * grid[1] * grid[2], (D, N), plan_smem)
+
+
+def k4_bwd_scratch_bytes(N: int, D: int, Hf: int, nz: int, nx: int,
+                         ny: int) -> int:
+    """Bytes of the plan's scratch (the kernel's BwdScratch): u [N, nz, nx]
+    and v [N, nz, ny] float32, each plane's BEV rows [N, D, 2] int32, the
+    feature rows with work [N, D, Hf] uint8."""
+    return 4 * (N * nz * nx + N * nz * ny + 2 * N * D) + N * D * Hf
+
+
+def _floor_hat(p, size: int):
+    """The kernels' hat of p: lower tap floor(p) clamped to [-2, size + 1],
+    weights 1 - f and f with f = p - floor(p)."""
+    pf = torch.floor(p)
+    f = p - pf
+    return pf.clamp(-2, size + 1).long(), 1.0 - f, f
+
+
+def k4_plane_weights(d0, fd, D: int):
+    """[D, nz] float32: the weight of each BEV row on each plane (1 - fd on
+    plane d0, fd on d0 + 1, with d0 clamped to [0, D - 2] as the kernels
+    do)."""
+    dz = d0.long().clamp(0, D - 2)[None]
+    f = fd.float()[None]
+    planes = torch.arange(D, device=d0.device)[:, None]
+    zero = torch.zeros((), device=f.device)
+    return torch.where(dz == planes, 1.0 - f,
+                       torch.where(dz + 1 == planes, f, zero))
+
+
+def k4_bwd_plan(u, v, d0, fd, depth_hw):
+    """Plain version of the backward's plan: for u [N, nz, nx] and v
+    [N, nz, ny] (``_project_uv``) and the volume's (D, Hf, Wf), each
+    plane's first and last BEV row with a nonzero weight on it, [N, D, 2]
+    int32 ((0, -1) for none), and which feature rows of each plane receive
+    any gradient, [N, D, Hf] uint8: a row with a weight on the plane, some
+    x whose u hat puts a nonzero weight on a column of the image and some y
+    whose v hat puts one on the row."""
+    D, Hf, Wf = depth_hw
+    N, nz = u.shape[:2]
+    reach = k4_plane_weights(d0, fd, D) != 0  # [D, nz]
+    z = torch.arange(nz, device=u.device)
+    first = torch.where(reach, z, nz).amin(1)
+    last = torch.where(reach, z, -1).amax(1)
+    empty = first > last
+    zr = torch.stack([torch.where(empty, 0, first),
+                      torch.where(empty, -1, last)], -1).to(torch.int32)
+    u0, wu0, wu1 = _floor_hat(u, Wf)
+    inside = (((wu0 != 0) & (u0 >= 0) & (u0 < Wf))
+              | ((wu1 != 0) & (u0 + 1 >= 0) & (u0 + 1 < Wf))).any(-1)
+    v0, wv0, wv1 = _floor_hat(v, Hf)
+    h = torch.arange(Hf, device=v.device)
+    rows = (((v0[..., None] == h) & (wv0[..., None] != 0))
+            | ((v0[..., None] + 1 == h) & (wv1[..., None] != 0))).any(2)
+    rows &= inside[..., None]  # [N, nz, Hf]
+    work = torch.einsum("dz,nzh->ndh", reach.float(), rows.float()) > 0
+    return zr[None].expand(N, D, 2).contiguous(), work.to(torch.uint8)
+
+
+def _k4_bwd_plan_scratch(lib, P_mat, d0, fd, zs, xs, ys, depth_hw,
+                         feature_stride, stream):
+    """Launches the plan kernel into a new scratch (``BwdScratch``) and
+    returns it: what the main kernel reads."""
+    from snvc_tpu_torch._build import error_string
+
+    D, Hf, Wf = depth_hw
+    N = P_mat.shape[0]
+    nz, nx, ny = zs.shape[0], xs.shape[0], ys.shape[0]
+    scratch = torch.empty(k4_bwd_scratch_bytes(N, D, Hf, nz, nx, ny),
+                          dtype=torch.uint8, device=P_mat.device)
+    err = lib.snvc_frustum_to_voxel_bwd_plan(
+        P_mat.data_ptr(), d0.data_ptr(), fd.data_ptr(), zs.data_ptr(),
+        xs.data_ptr(), ys.data_ptr(), scratch.data_ptr(), N, D, Hf, Wf,
+        nz, nx, ny, float(feature_stride), stream)
+    if err != 0:
+        raise RuntimeError(f"frustum_to_voxel_bwd plan launch failed: "
+                           f"{error_string(lib, err)}")
+    return scratch
+
+
+def _k4_bwd_scratch_views(scratch, N, D, Hf, nz, nx, ny):
+    """(u, v, zr, work) of the plan's scratch."""
+    sizes = (4 * N * nz * nx, 4 * N * nz * ny, 8 * N * D, N * D * Hf)
+    u, v, zr, work = torch.split(scratch, sizes)
+    return (u.view(torch.float32).view(N, nz, nx),
+            v.view(torch.float32).view(N, nz, ny),
+            zr.view(torch.int32).view(N, D, 2), work.view(N, D, Hf))
+
+
+def frustum_to_voxel_k4_bwd_plan(P_mat, d0, fd, zs, xs, ys, depth_hw,
+                                 feature_stride: int = 4):
+    """The backward's plan (u, v, zr, work) as ``_project_uv`` and
+    ``k4_bwd_plan`` give it: on the CPU those plain versions, on the card
+    the plan kernel (what ``frustum_to_voxel_k4_bwd`` launches first)."""
+    if not P_mat.is_cuda:
+        u, v = _project_uv(P_mat, zs, xs, ys, feature_stride)
+        return (u, v) + k4_bwd_plan(u, v, d0, fd, depth_hw)
+    _check_tables(P_mat, P_mat, d0, fd, zs, xs, ys, P_mat.shape[0])
+    from snvc_tpu_torch._build import load_library
+
+    scratch = _k4_bwd_plan_scratch(
+        load_library("frustum_to_voxel"), P_mat, d0, fd, zs, xs, ys,
+        depth_hw, feature_stride,
+        torch.cuda.current_stream(P_mat.device).cuda_stream)
+    return _k4_bwd_scratch_views(scratch, P_mat.shape[0], *depth_hw[:2],
+                                 zs.shape[0], xs.shape[0], ys.shape[0])
 
 
 def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
                             feature_stride: int = 4):
     """Backward of K4 with respect to the volume, same arguments and
     result as ``frustum_to_voxel_separable_bwd``.  A CPU tensor goes to
-    that plain version; a CUDA tensor to the kernel, or raises.  The
-    wrapper projects u and v on the device (``_project_uv``); the kernel
-    inverts the affine map x -> u, so ``xs`` must be evenly spaced
+    that plain version; a CUDA tensor to the plan kernel and the main
+    kernel, or raises.  The kernel inverts the affine map x -> u to bound
+    the x cells a tile reads, so ``xs`` must be evenly spaced
     (``_bev_axes`` makes them so); P is rectified, as for the forward."""
     if not grad.is_cuda:
         return frustum_to_voxel_separable_bwd(grad, P_mat, d0, fd, zs, xs,
@@ -367,9 +503,6 @@ def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
                          f"{tuple(grad.shape)}")
     D, Hf, Wf = depth_hw
     N, nz, nx, ny, C = grad.shape
-    vec = 16 // dt.itemsize
-    if C % vec:
-        raise ValueError(f"C={C} must be a multiple of {vec}")
     if (zs.shape[0], xs.shape[0], ys.shape[0]) != (nz, nx, ny):
         raise ValueError(f"grad {tuple(grad.shape)} does not match the "
                          f"tables' {nz} x {nx} x {ny} cells")
@@ -379,18 +512,17 @@ def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
     if grad.data_ptr() % 16:
         raise ValueError("grad must be 16-byte aligned")
     t = k4_bwd_tiling(N, D, Hf, Wf, C, nz, ny)
-    # u, v in the plain version's order, which the forward kernel keeps
-    u, v = (a.contiguous() for a in _project_uv(P_mat, zs, xs, ys,
-                                                 feature_stride))
-    dvol = torch.empty((N, D, Hf, Wf, C), dtype=dt, device=grad.device)
     from snvc_tpu_torch._build import error_string, load_library
 
     lib = load_library("frustum_to_voxel")
     stream = torch.cuda.current_stream(grad.device).cuda_stream
+    scratch = _k4_bwd_plan_scratch(lib, P_mat, d0, fd, zs, xs, ys, depth_hw,
+                                   feature_stride, stream)
+    dvol = torch.empty((N, D, Hf, Wf, C), dtype=dt, device=grad.device)
     err = lib.snvc_frustum_to_voxel_bwd(
-        grad.data_ptr(), u.data_ptr(), v.data_ptr(), d0.data_ptr(),
-        fd.data_ptr(), dvol.data_ptr(), N, D, Hf, Wf, C, nz, nx, ny,
-        t.block[1], _DTYPES[dt], stream)
+        grad.data_ptr(), d0.data_ptr(), fd.data_ptr(), scratch.data_ptr(),
+        dvol.data_ptr(), N, D, Hf, Wf, C, nz, nx, ny, t.xcap, _DTYPES[dt],
+        stream)
     if err != 0:
         raise RuntimeError(f"frustum_to_voxel_bwd launch failed: "
                            f"{error_string(lib, err)}")

@@ -60,5 +60,7 @@ def convert_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             if leaf == "kernel":
                 w = _kernel(path, w)
             name = ".".join(path[:-1] + (leaves[leaf],))
-            out[name] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+            # np.array copies: a float32 leaf that is already contiguous
+            # (a read-only checkpoint buffer) is not shared with the result
+            out[name] = torch.from_numpy(np.array(w, np.float32))
     return out

@@ -272,23 +272,121 @@ def test_k4_wrapper_on_cpu_carries_gradients():
 
 
 def test_k4_bwd_tiling():
-    """The training shape: 2 threads of 16 channels a column, 64 columns a
-    block, one block's tables (288 rows x 20 cells) in shared memory;
-    tables past shared memory, grids past 65535 planes and channels past a
-    block's threads raise."""
-    from snvc_tpu_torch.ops.frustum import k4_bwd_smem, k4_bwd_tiling
+    """The training shape (C = 32): 2 float4 slots a thread of 256, so 64
+    columns a block (5 tiles of the 312) and 2 feature rows (48 pairs) of
+    each of the 64 planes; for 120 x cells staged at once (a far row's
+    ~112 cells of a tile whole) the float32 v-hat sums of the 2 rows (30
+    KB) and the u hat, the block's float32 output sums (16 KB)
+    and the tables of 16 BEV rows (with each column's run of staged cells)
+    in shared memory, 56,320 bytes, so 4 blocks fit an SM's 228 KB; the
+    plan's grid: one block a plane, an int a feature row.  Other widths
+    change the tile (C / 4 float4 a column) and the staged x cells (30 KB
+    / 8C); C that is no multiple of 8 or exceeds a block, tables past
+    shared memory and grids past 65535 raise."""
+    from snvc_tpu_torch.ops.frustum import (
+        SMEM_LIMIT,
+        k4_bwd_smem,
+        k4_bwd_tiling,
+    )
 
     t = k4_bwd_tiling(1, 64, 96, 312, 32, 288, 20)
-    assert t.block == (2, 64) and t.smem == k4_bwd_smem(288, 20) == 28800
-    assert t.blocks == 64 * 96 * 5
-    assert k4_bwd_tiling(1, 6, 16, 24, 8, 10, 4).block == (1, 24)
-    assert k4_bwd_tiling(1, 6, 16, 24, 40, 10, 4).block == (3, 24)
+    assert (t.tw, t.xcap) == (64, 120)
+    assert t.grid == (5, 48, 64) and t.blocks == 5 * 48 * 64
+    assert t.smem == k4_bwd_smem(120, 32, 20, 64) == (
+        120 * (256 + 16) + 2 * 64 * 128 + 16 * (16 + 24 + 160 + 256))
+    assert 4 * (t.smem + 1024) <= 233472
+    assert t.plan_grid == (64, 1) and t.plan_smem == 4 * 96
+    t = k4_bwd_tiling(2, 6, 15, 24, 8, 10, 4)
+    assert (t.tw, t.xcap, t.grid) == (256, 480, (1, 8, 12))
+    assert t.plan_grid == (6, 2)
+    t = k4_bwd_tiling(1, 6, 16, 96, 16, 10, 4)
+    assert (t.tw, t.xcap, t.grid) == (128, 240, (1, 8, 6))
+    assert t.smem == k4_bwd_smem(240, 16, 4, 128)
+    # the card tests' chunked pieces (3 cells staged at once) and a piece
+    # past shared memory, which the C entry point refuses
+    assert k4_bwd_smem(3, 16, 4, 128) == (
+        3 * (128 + 16) + 2 * 128 * 64 + 16 * (16 + 24 + 32 + 512))
+    assert k4_bwd_smem(1024, 32, 20, 64) > SMEM_LIMIT
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k4_bwd_tiling(1, 6, 16, 24, 12, 10, 4)
+    with pytest.raises(ValueError, match="at most 1024"):
+        k4_bwd_tiling(1, 6, 16, 24, 2048, 10, 4)
     with pytest.raises(ValueError, match="shared memory"):
-        k4_bwd_tiling(1, 64, 96, 312, 32, 4000, 20)
+        k4_bwd_tiling(1, 64, 96, 312, 32, 288, 2000)
     with pytest.raises(ValueError, match="65535"):
         k4_bwd_tiling(2, 40000, 96, 312, 32, 288, 20)
-    with pytest.raises(ValueError, match="threads"):
-        k4_bwd_tiling(1, 64, 96, 312, 4096, 288, 20)
+
+
+def _stereo_tables(N=1):
+    """StereoConfig()'s BEV axes and planes at the default calibration
+    (the stereo training path's K4), as numpy."""
+    from snvc_tpu_torch.config import StereoConfig
+    from snvc_tpu_torch.geometry.calib import Calibration
+    from snvc_tpu_torch.models.stereonet import _bev_axes, depth_hypotheses
+
+    cfg = StereoConfig()
+    zs, xs, ys = (np.asarray(a, np.float32) for a in _bev_axes(cfg))
+    P = np.tile(Calibration.default().as_array()[None], (N, 1, 1))
+    depth_hw = (cfg.num_depths, cfg.input_size[0] // 4,
+                cfg.input_size[1] // 4)
+    return P, depth_hypotheses(cfg), zs, xs, ys, depth_hw
+
+
+def _plan_brute_force(u, v, d0, fd, depth_hw):
+    """Each plane's BEV rows and the feature rows receiving any gradient,
+    counted tap by tap with the plain version's hat (``_hat`` > 0)."""
+    from snvc_tpu_torch.ops.frustum import _hat
+
+    D, Hf, Wf = depth_hw
+    N, nz = u.shape[:2]
+    zr = np.zeros((N, D, 2), np.int32)
+    work = np.zeros((N, D, Hf), np.uint8)
+    for n in range(N):
+        rows = []  # per z: the feature rows its taps reach
+        for z in range(nz):
+            x_in = bool((_hat(u[n, z], Wf) > 0).any())
+            hits = (_hat(v[n, z], Hf) > 0).numpy().any(0)
+            rows.append(hits & x_in)
+        for d in range(D):
+            reach = []
+            for z in range(nz):
+                dz = min(max(int(d0[z]), 0), D - 2)
+                w = (1.0 - fd[z]) if dz == d else fd[z] if dz + 1 == d else 0
+                if w != 0:
+                    reach.append(z)
+                    work[n, d] |= rows[z]
+            zr[n, d] = (reach[0], reach[-1]) if reach else (0, -1)
+    return zr, work
+
+
+@pytest.mark.parametrize("case", ["small", "stereo"])
+def test_k4_bwd_plan_matches_brute_force(case):
+    """The plan's plane ranges and its (sample, plane, feature row) work
+    list (``k4_bwd_plan``, what the plan kernel computes) against a tap-by-
+    tap count: the small case (depths past both ends of the planes, per-
+    sample calibration) and StereoConfig() at the default calibration,
+    where 2,112 of the 6,144 (plane, row) pairs receive gradient, the
+    near planes over most rows and the farthest over rows 42-54 only."""
+    from snvc_tpu_torch.ops.frustum import frustum_to_voxel_k4_bwd_plan
+
+    if case == "small":
+        vol, P, depths, zs, xs, ys = _case(12, N=2)
+        depth_hw = vol.shape[1:4]
+    else:
+        P, depths, zs, xs, ys, depth_hw = _stereo_tables()
+    d0, fd = frustum_tables(depths, zs)
+    u, v, zr, work = frustum_to_voxel_k4_bwd_plan(
+        *_tables(depths, zs, xs, ys, P), depth_hw, 4)
+    want_zr, want_work = _plan_brute_force(u, v, d0, fd, depth_hw)
+    assert zr.dtype == torch.int32 and work.dtype == torch.uint8
+    np.testing.assert_array_equal(zr.numpy(), want_zr)
+    np.testing.assert_array_equal(work.numpy(), want_work)
+    if case == "small":
+        assert 0 < int(work.sum()) < work.numel()
+    else:
+        assert int(work.sum()) == 2112
+        assert np.flatnonzero(want_work[0, -1]).tolist() == list(range(42, 55))
+        assert zr[0, 0].tolist() == [0, 4] and zr[0, -1].tolist() == [283, 287]
 
 
 @pytest.mark.cuda
@@ -326,3 +424,114 @@ def test_k4_carries_gradients_on_card(cuda_device):
     want = frustum_to_voxel_separable_bwd(gt, *tabs, vol.shape[1:4], 4)
     assert float((vt.grad - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "stereo"])
+def test_k4_bwd_plan_kernel_matches_plain_on_card(cuda_device, case):
+    """The plan kernel projects u and v with the forward's round-to-
+    nearest order, the bits of ``_project_uv`` on the card, and finds the
+    plain plan's plane ranges and work list exactly."""
+    from snvc_tpu_torch.ops.frustum import (
+        _project_uv,
+        frustum_to_voxel_k4_bwd_plan,
+        k4_bwd_plan,
+    )
+
+    if case == "small":
+        vol, P, depths, zs, xs, ys = _case(13, N=2)
+        depth_hw = vol.shape[1:4]
+    else:
+        P, depths, zs, xs, ys, depth_hw = _stereo_tables(N=2)
+        P[1, 0, 3] += 3.0
+    tabs = _tables(depths, zs, xs, ys, P, cuda_device)
+    u, v, zr, work = frustum_to_voxel_k4_bwd_plan(*tabs, depth_hw, 4)
+    want_u, want_v = _project_uv(tabs[0], *tabs[3:], 4)
+    want_zr, want_work = k4_bwd_plan(want_u, want_v, tabs[1], tabs[2],
+                                     depth_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(u, want_u) and torch.equal(v, want_v)
+    assert torch.equal(zr, want_zr) and torch.equal(work, want_work)
+
+
+def _near_case(seed, N=2):
+    """Planes over 1.5-12 m but BEV rows at 2-5 m only (the planes past
+    ~5.5 m receive nothing), 6 BEV y cells on a 32-row image (most feature
+    rows receive nothing), and near rows: an x cell spans up to 25 of the
+    96 columns.  C = 16; per-sample calibration."""
+    rng = np.random.default_rng(seed)
+    depths = np.linspace(1.5, 12.0, 8).astype(np.float32)
+    zs = (2.0 + np.arange(12) * 0.25).astype(np.float32)
+    xs = (-3.0 + (np.arange(13) + 0.5) * 0.5).astype(np.float32)
+    ys = (-0.3 + (np.arange(6) + 0.5) * 0.1).astype(np.float32)
+    P = np.tile(np.array([[400.0, 0, 192.0, 1.0], [0, 400.0, 64.0, -0.2],
+                          [0, 0, 1, 0.003]], np.float32)[None], (N, 1, 1))
+    P[1:, 0, 3] += 30.0
+    g = rng.standard_normal((N, len(zs), len(xs), len(ys), 16)).astype(
+        np.float32)
+    return P, depths, zs, xs, ys, g, (8, 32, 96)
+
+
+def _k4_bwd_launch(gt, tabs, depth_hw, xcap):
+    """K4's backward through its C entry points at an explicit number of
+    staged x cells: (the main entry point's error code, the output)."""
+    from snvc_tpu_torch._build import load_library
+    from snvc_tpu_torch.ops.frustum import _k4_bwd_plan_scratch
+
+    N, nz, nx, ny, C = gt.shape
+    D, Hf, Wf = depth_hw
+    lib = load_library("frustum_to_voxel")
+    stream = torch.cuda.current_stream(gt.device).cuda_stream
+    scratch = _k4_bwd_plan_scratch(lib, *tabs, depth_hw, 4, stream)
+    dvol = torch.full((N, D, Hf, Wf, C), float("nan"), dtype=gt.dtype,
+                      device=gt.device)
+    err = lib.snvc_frustum_to_voxel_bwd(
+        gt.data_ptr(), tabs[1].data_ptr(), tabs[2].data_ptr(),
+        scratch.data_ptr(), dvol.data_ptr(), N, D, Hf, Wf, C, nz, nx, ny,
+        xcap, 0 if gt.dtype == torch.bfloat16 else 1, stream)
+    return err, dvol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xcap", [256, 3, 1])
+def test_k4_backward_kernel_empty_and_near_rows_on_card(cuda_device, dtype,
+                                                        xcap):
+    """Planes no BEV row reaches and feature rows no y cell reaches (the
+    plan's zero rows, written as zeros over a NaN-filled output), near
+    rows whose x cells span many columns, several rows' cells packed into
+    one piece (xcap 256) and the x cells staged in chunks (xcap 1 and 3),
+    against the plain version under the rule of
+    test_k4_backward_kernel_matches_plain_on_card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    P, depths, zs, xs, ys, g, depth_hw = _near_case(14)
+    tabs = _tables(depths, zs, xs, ys, P, cuda_device)
+    gt = torch.from_numpy(g).to(cuda_device, dtype)
+    err, got = _k4_bwd_launch(gt, tabs, depth_hw, xcap)
+    assert err == 0, err
+    got = got.float()
+    want = frustum_to_voxel_separable_bwd(gt, *tabs, depth_hw, 4).float()
+    torch.cuda.synchronize()
+    empty_planes = want.abs().amax(dim=(0, 2, 3, 4)) == 0
+    empty_rows = want.abs().amax(dim=(3, 4)) == 0
+    assert bool(empty_planes.any()) and bool(empty_rows[:, ~empty_planes].any())
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_k4_backward_entry_refuses_bad_staging_on_card(cuda_device):
+    """The main entry point refuses staged x cells whose sums exceed a
+    block's shared memory (1600 at C = 16, as k4_bwd_smem counts them)
+    and a piece of no cells, and launches nothing."""
+    from snvc_tpu_torch.ops.frustum import SMEM_LIMIT, k4_bwd_smem
+
+    P, depths, zs, xs, ys, g, depth_hw = _near_case(14)
+    assert k4_bwd_smem(1600, 16, len(ys), 128) > SMEM_LIMIT
+    tabs = _tables(depths, zs, xs, ys, P, cuda_device)
+    gt = torch.from_numpy(g).to(cuda_device)
+    for xcap in (1600, 0):
+        err, dvol = _k4_bwd_launch(gt, tabs, depth_hw, xcap)
+        torch.cuda.synchronize()
+        assert err != 0, xcap
+        assert bool(dvol.isnan().all()), xcap

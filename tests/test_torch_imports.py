@@ -43,6 +43,7 @@ for m in mods:
 import chip_smoke  # noqa: F401  (imported, not run)
 sys.path.insert(0, "scripts")
 import k1_variants, k34_variants, kernel_ab  # noqa: E401,F401  (not run)
+import k4_bwd_losses, k4_bwd_variants  # noqa: E401,F401  (not run)
 import stereo_reference_drift  # noqa: F401  (not run)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad

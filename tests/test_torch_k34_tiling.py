@@ -17,7 +17,17 @@ straddle the image's edges: both sum the same nonzero products, the plain
 version by einsum over hat matrices, so they differ by float32 rounding
 of those sums, at most a few ulp of the largest value (4 * 2^-23 of it,
 the card test's float32 rule).
+
+K4's backward is emulated the same way, block by block: the plan's zero
+rows, then per BEV row the v-hat sums of a block's two feature rows for
+each x cell (stage 1, in chunks of ``xcap`` cells, the cells bounded by
+the inverted x -> u map as the kernel bounds them), then the u hat over
+those sums per column of the tile (stage 2) over each column's run of
+staged cells as the kernel finds it; held to the plain backward
+``frustum_to_voxel_separable_bwd``, and the runs to a brute-force count.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -29,7 +39,10 @@ from snvc_tpu_torch.ops.cost_volume import K3_MAX_PLANES, K3_WAVES, k3_tiling
 from snvc_tpu_torch.ops.frustum import (
     _project_uv,
     frustum_tables,
+    frustum_to_voxel_k4_bwd_plan,
     frustum_to_voxel_separable,
+    frustum_to_voxel_separable_bwd,
+    k4_plane_weights,
     k4_table_bytes,
     k4_tiling,
 )
@@ -268,3 +281,157 @@ def test_k4_two_stage_staged_and_direct_agree_bit_for_bit():
     staged = _two_stage(*args, tile_x=6, ncol=64)
     direct = _two_stage(*args, tile_x=6, ncol=0)
     assert torch.equal(staged, direct)
+
+
+# ------------------------------------------ K4 backward's staged order ----
+def _hat_at(hat, i):
+    """The kernel's hat_at: the weight a floor hat puts on tap i."""
+    i0, w0, w1 = hat
+    return torch.where(i0 == i, w0, torch.where(i0 + 1 == i, w1, 0.0))
+
+
+def _x_cells(a, b, u0, inv, lo, hi):
+    """The kernel's x_cells: the x cells whose u may lie in [a, b), from
+    the inverted map widened by a cell each side, within [lo, hi]."""
+    if not math.isfinite(inv) or inv == 0.0:
+        return lo, hi
+    f32 = np.float32
+    xa = (f32(a) - f32(u0)) * f32(inv)
+    xb = (f32(b) - f32(u0)) * f32(inv)
+    first = max(math.floor(min(xa, xb)) - 1.0, lo)
+    last = min(math.ceil(max(xa, xb)) + 1.0, hi)
+    if not first <= last:
+        return lo, lo - 1
+    return int(first), int(last)
+
+
+def _column_runs(i0, w0, wend):
+    """The kernel's (first, last) staged cell of each column of [w0, wend)
+    for staged cells with lower taps ``i0`` (one row's run of x cells):
+    a cell reaches columns i0 and i0 + 1; it is the first of those the
+    cell before it does not reach and the last of those the cell after it
+    does not reach; a column no cell reaches keeps (1, 0), empty."""
+    runs = [[1, 0] for _ in range(wend - w0)]
+    n = len(i0)
+    for c in range(n):
+        prev = {i0[c - 1], i0[c - 1] + 1} if c > 0 else set()
+        nxt = {i0[c + 1], i0[c + 1] + 1} if c < n - 1 else set()
+        for w in (i0[c], i0[c] + 1):
+            if w0 <= w < wend:
+                if w not in prev:
+                    runs[w - w0][0] = c
+                if w not in nxt:
+                    runs[w - w0][1] = c
+    return runs
+
+
+def _staged_bwd(grad, u, v, zr, work, d0, fd, depth_hw, tw, xcap):
+    """K4's backward in the kernel's order, in float32: per block (sample,
+    plane, feature rows h0 and h0 + 1, columns [w0, w0 + tw)), zeros
+    unless the plan marks a row; else per BEV row of the plane's range
+    with a weight, the y cells whose v hat reaches either row and the x
+    cells the inverted map gives for the tile; per chunk of ``xcap`` x
+    cells, stage 1 sums each cell's gradient over y for both rows, stage 2
+    adds wz * wu times those sums over each column's run of staged cells
+    (``_column_runs``).  (The kernel also packs the few cells of several
+    near rows into one step: each sum keeps its terms and their order.)"""
+    D, Hf, Wf = depth_hw
+    N, nz, nx, ny, C = grad.shape
+    g = grad.float()
+    wzs = k4_plane_weights(d0, fd, D)
+    out = torch.full((N, D, Hf, Wf, C), float("nan"))
+    for n in range(N):
+        for d in range(D):
+            for h0 in range(0, Hf, 2):
+                hs = slice(h0, min(h0 + 2, Hf))
+                for w0 in range(0, Wf, tw):
+                    wend = min(w0 + tw, Wf)
+                    acc = torch.zeros((2, wend - w0, C))
+                    busy = bool(work[n, d, hs].any())
+                    for z in range(int(zr[n, d, 0]), int(zr[n, d, 1]) + 1):
+                        wz = float(wzs[d, z])
+                        hv = _hat(v[n, z], Hf)
+                        wv = torch.stack([_hat_at(hv, h0), _hat_at(hv, h0 + 1)],
+                                         1)  # [ny, 2]
+                        if h0 + 1 >= Hf:  # no row h0 + 1: its weights are 0
+                            wv[:, 1] = 0.0
+                        ys = torch.nonzero((wv != 0).any(1)).flatten()
+                        if not busy or wz == 0.0 or len(ys) == 0:
+                            continue
+                        u0 = float(u[n, z, 0])
+                        inv = (np.float32(nx - 1)
+                               / (np.float32(u[n, z, -1]) - np.float32(u0))
+                               if nx > 1 else 0.0)
+                        xlo, xhi = _x_cells(w0 - 1, wend, u0, inv, 0, nx - 1)
+                        for xc in range(xlo, xhi + 1, xcap):
+                            ncx = min(xcap, xhi - xc + 1)
+                            S = torch.zeros((2, ncx, C))
+                            for y in range(int(ys[0]), int(ys[-1]) + 1):
+                                S = S + wv[y][:, None, None] * g[
+                                    n, z, xc:xc + ncx, y][None]
+                            hu = _hat(u[n, z, xc:xc + ncx], Wf)
+                            runs = _column_runs(hu[0].tolist(), w0, wend)
+                            for w in range(w0, wend):
+                                first, last = runs[w - w0]
+                                for x in range(first, last + 1):
+                                    wu = float(_hat_at(tuple(
+                                        a[x] for a in hu), w))
+                                    acc[:, w - w0] += np.float32(
+                                        wz * wu) * S[:, x]
+                    out[n, d, hs, w0:wend] = acc[:hs.stop - h0]
+    return out
+
+
+@pytest.mark.parametrize("slope", [0.59, 1.0, 16.8, -0.8, -5.0, 0.0])
+@pytest.mark.parametrize("integer_u", [False, True])
+def test_k4_bwd_column_runs_match_brute_force(slope, integer_u):
+    """The kernel's column runs hold every staged cell whose u hat puts a
+    nonzero weight on the column and only cells whose lower tap is w - 1
+    or w, at far rows' (0.59 px a cell), near rows' (16.8) and descending
+    slopes, a constant u, and u on whole pixels (zero weights), over x
+    cells split into chunks as a piece splits them."""
+    Wf, tw = 80, 24
+    x = np.arange(150, dtype=np.float32)
+    u = np.float32(-3.3) + np.float32(slope) * x
+    if slope < 0:
+        u = u + np.float32(70.0)
+    if integer_u:
+        u = np.round(u)
+    u = torch.from_numpy(u.astype(np.float32))
+    i0, w0s, w1s = _hat(u, Wf)
+    for w0 in range(0, Wf, tw):
+        wend = min(w0 + tw, Wf)
+        for c0 in range(0, 150, 37):
+            cells = range(c0, min(c0 + 37, 150))
+            runs = _column_runs(i0[c0:c0 + 37].tolist(), w0, wend)
+            for w in range(w0, wend):
+                got = set(range(c0 + runs[w - w0][0], c0 + runs[w - w0][1] + 1))
+                want = {c for c in cells
+                        if (i0[c] == w and w0s[c] != 0)
+                        or (i0[c] + 1 == w and w1s[c] != 0)}
+                assert want <= got
+                assert all(int(i0[c]) in (w - 1, w) for c in got)
+
+
+@pytest.mark.parametrize("tw,xcap", [(24, 64), (8, 3), (5, 1), (16, 7)])
+def test_k4_bwd_staged_order_matches_plain(tw, xcap):
+    """The plan's zero rows and the two stages, tile by tile, give the
+    plain backward at the frustum tests' edge case (BEV rows past both
+    ends of the planes, x cells outside the image on both sides, per-
+    sample calibration): the same nonzero products summed in another
+    order (y, then x, then the rows; the plain version x, then y), so
+    within float32 rounding of those sums, 8 ulp of the largest value;
+    every output is written (no NaN of the emulation's fill survives)."""
+    vol, P, d0, fd, zs, xs, ys = _edge_case(2)
+    depth_hw = tuple(vol.shape[1:4])
+    grad = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, len(zs), len(xs), len(ys), 8)).astype(np.float32))
+    u, v, zr, work = frustum_to_voxel_k4_bwd_plan(P, d0, fd, zs, xs, ys,
+                                                  depth_hw, 4)
+    got = _staged_bwd(grad, u, v, zr, work, d0, fd, depth_hw, tw, xcap)
+    want = frustum_to_voxel_separable_bwd(grad, P, d0, fd, zs, xs, ys,
+                                          depth_hw, 4)
+    assert not bool(torch.isnan(got).any())
+    assert bool((got[want == 0] == 0).all())
+    tol = 8 * 2.0 ** -23 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol

@@ -210,3 +210,41 @@ def test_layers_bf16(kind):
     want, got = _run_both_bf16(j, t, x)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=6e-2, rtol=0)
+
+
+def test_convert_variables_copies_read_only_arrays():
+    """A checkpoint's arrays may be read-only buffers (Orbax restores them
+    so): the converted tensors own their memory, so no "not writable"
+    warning is raised and a write into a tensor leaves the input alone.
+    Covers a conv kernel (transposed), a Dense kernel, 1-D leaves that are
+    already contiguous float32, and a float64 leaf (cast)."""
+    import warnings
+
+    rng = np.random.default_rng(0)
+    tree = {
+        "params": {
+            "Conv_0": {"kernel": rng.standard_normal((3, 3, 4, 8)).astype(
+                np.float32), "bias": rng.standard_normal(8).astype(np.float32)},
+            "Dense_0": {"kernel": rng.standard_normal((8, 5)).astype(
+                np.float32)},
+            "GroupNorm_0": {"scale": rng.standard_normal(8),
+                            "bias": rng.standard_normal(8).astype(np.float32)},
+        },
+        "batch_stats": {"BatchNorm_0": {
+            "mean": rng.standard_normal(8).astype(np.float32),
+            "var": rng.random(8).astype(np.float32)}},
+    }
+    leaves = [a for col in tree.values() for m in col.values()
+              for a in m.values()]
+    for a in leaves:
+        a.setflags(write=False)
+    before = [a.copy() for a in leaves]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        out = convert_variables(tree)
+    assert len(out) == len(leaves)
+    for t in out.values():
+        assert not any(np.shares_memory(t.numpy(), a) for a in leaves)
+        t.add_(1.0)
+    for a, b in zip(leaves, before):
+        np.testing.assert_array_equal(a, b)
