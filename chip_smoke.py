@@ -97,6 +97,29 @@ Phases, each printing one line with its elapsed seconds:
                loss must be finite and fall, and the counters must show
                per step K3 1 + 1 backward, K4 1 + 1 backward, K1 = K2 =
                K5 = 0.
+ 18. two_stage - two-stage serving over a seeded KITTI tree through the
+               port's CLIs (``main(argv)``): 4 frames x 3 cars written as
+               375x1242 PNGs with all five row filters (``decode_png``
+               must give the arrays back bit for bit; decode ms a frame),
+               the detect CLI with a seeded StereoConfig() model
+               (counters K3 = K4 = 4, K1 = K2 = 0; every file parses, at
+               most --max_boxes lines), the inference_agnostic CLI with a
+               seeded flagship model on write_predictions' 12 noisy-GT
+               proposals (K1 = 4, K2 = 12; --prefetch 2 and 0 write the
+               same bytes) and on stage 1's own proposals for 2 batches
+               (K1 = 2, K2 = 6), and the evaluate CLI (built with g++
+               here): the GT as predictions and the noisy proposals must
+               score the AP values pinned from JAX's evaluator, and the
+               refined output must give all four car metrics; each
+               CLI's wall seconds (checkpoint load and first call
+               included; stage 2 at --prefetch 2 and 0) and the g++ build
+               seconds of the evaluator and of the PNG helper, beside
+               nvidia-smi's name and power limit.
+ 19. two_stage_warm - both runners with those checkpoints loaded and
+               warm: every request of the split queued under torch's sync
+               debug mode, which must see no host sync (the host's queueing
+               ms beside the ms until the card is done), and ``run`` over
+               the split at --prefetch 2 and 0 (median ms of 3 each).
 Then a {"kernels": [...]} line, nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
@@ -104,12 +127,17 @@ before the last line; without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -124,9 +152,30 @@ from snvc_tpu_torch.config import (
     tiny_stereo_config,
     tiny_vernier_config,
 )
+from snvc_tpu_torch.data.instance_db import build_db_from_predictions
+from snvc_tpu_torch.data.kitti import KittiDataset
+from snvc_tpu_torch.data.pipeline import RefinementPipeline
+from snvc_tpu_torch.data.png import decode_png, encode_png
 from snvc_tpu_torch.data.stereo import normalize_images, synthetic_stereo_request
-from snvc_tpu_torch.data.synthetic import synthetic_batch_arrays
-from snvc_tpu_torch.geometry.calib import Calibration
+from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
+from snvc_tpu_torch.data.synthetic import (
+    IMG_H,
+    IMG_W,
+    box2d_of,
+    calib_text,
+    random_box,
+    surface_points,
+    synthetic_batch_arrays,
+    write_predictions,
+)
+from snvc_tpu_torch.eval.kitti_ap import build_evaluator
+from snvc_tpu_torch.geometry.calib import (
+    Calibration,
+    KittiLabel,
+    format_label,
+    read_label,
+    ry_to_alpha,
+)
 from snvc_tpu_torch.inference.detect import DetectRunner
 from snvc_tpu_torch.inference.refine import RefineRunner
 from snvc_tpu_torch.models.stereonet import (
@@ -170,11 +219,16 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample,
     stereo_voxel_sample_bwd,
 )
+from snvc_tpu_torch.tools import detect as cli_detect
+from snvc_tpu_torch.tools import evaluate as cli_evaluate
+from snvc_tpu_torch.tools import inference_agnostic as cli_refine
+from snvc_tpu_torch.tools._model_dir import load_model
 from snvc_tpu_torch.training.train import (
     batch_to_device,
     create_train_state,
     learning_rate,
     make_train_step,
+    save_checkpoint,
 )
 from snvc_tpu_torch.training.train_stereo import (
     create_stereo_state,
@@ -1519,6 +1573,332 @@ def check_stereo_train(dev, profile: bool = False, steps: int = 12) -> dict:
     return dict(counts=counts, step_ms=times)
 
 
+# --------------------------------------------------------- two_stage ----
+TREE_FRAMES, TREE_BOXES, TREE_SEED = 4, 3, 0
+# Car AP3D [easy, moderate, hard] under AP11 and AP40 that the JAX
+# package's evaluator (snvc_tpu/eval/kitti_ap.py on cpp/kitti_eval.cpp)
+# gives on the seeded tree for its GT labels as predictions and
+# for write_predictions' noisy proposals; tests/test_torch_serve_run.py
+# holds both to JAX's on the CPU.  With 12 cars the protocol's recall
+# sampling stops at 12 of its 41 points, so the GT scores 27.27 (AP11).
+GT_AS_PRED_AP3D = {"ap11": [27.2727, 27.2727, 27.2727],
+                   "ap40": [20.0, 27.5, 27.5]}
+PROPOSALS_AP3D = {"ap11": [16.6667, 15.9091, 15.9091],
+                  "ap40": [10.2083, 13.6364, 13.6364]}
+
+
+def write_kitti_tree(root: str, frames: int = TREE_FRAMES,
+                     boxes_per_frame: int = TREE_BOXES,
+                     seed: int = TREE_SEED) -> dict:
+    """A seeded KITTI tree under ``root`` (split "val"): per frame a
+    375x1242 stereo pair written by ``encode_png`` with the row filter
+    cycling through all five types (a gradient, seeded noise and a flat
+    patch over each car's projected box), the default calibration,
+    ``boxes_per_frame`` random cars as labels and LiDAR points on the cars
+    and the ground.  Returns {"boxes": [[B, 7]], "images": {path: the
+    array written}}."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "training")
+    for d in ("image_2", "image_3", "calib", "label_2", "velodyne"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    cl, cr = Calibration.default(), Calibration.default_right()
+    grad = np.linspace(40, 200, IMG_H)[:, None, None] * np.ones((1, IMG_W, 3))
+    all_boxes, images = [], {}
+    for fi in range(frames):
+        name = f"{fi:06d}"
+        boxes = np.stack([random_box(rng) for _ in range(boxes_per_frame)])
+        colors = rng.integers(0, 256, size=(boxes_per_frame, 3))
+        all_boxes.append(boxes)
+        for d, calib in (("image_2", cl), ("image_3", cr)):
+            img = grad + rng.integers(0, 24, size=(IMG_H, IMG_W, 3))
+            for b, c in zip(boxes, colors):
+                x1, y1, x2, y2 = box2d_of(b, calib).astype(int)
+                img[y1:y2 + 1, x1:x2 + 1] = c
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            path = os.path.join(base, d, name + ".png")
+            encode_png(path, img, filters=(0, 1, 2, 3, 4))
+            images[path] = img
+        with open(os.path.join(base, "calib", name + ".txt"), "w") as f:
+            f.write(calib_text())
+        lines = [format_label(KittiLabel(
+            type="Car", truncation=0.0, occlusion=0,
+            alpha=ry_to_alpha(b[3], b[5], b[6]),
+            box2d=box2d_of(b, cl).astype(np.float32), box3d=b))
+            for b in boxes]
+        with open(os.path.join(base, "label_2", name + ".txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        pts = np.concatenate(
+            [surface_points(b, rng) for b in boxes]
+            + [np.stack([rng.uniform(-20, 20, 2000), np.full(2000, 1.7),
+                         rng.uniform(5, 45, 2000)], axis=1)])
+        pc = np.zeros((len(pts), 4), np.float32)
+        pc[:, :3] = cl.rect_to_velo(pts)
+        pc[:, 3] = 0.5
+        pc.tofile(os.path.join(base, "velodyne", name + ".bin"))
+    with open(os.path.join(root, "val.txt"), "w") as f:
+        f.write("\n".join(f"{i:06d}" for i in range(frames)) + "\n")
+    return dict(boxes=all_boxes, images=images)
+
+
+def write_gt_as_predictions(gt_dir: str, out_dir: str) -> None:
+    """The GT label files under ``out_dir/data``, each line with a score
+    of its own (1, 0.99, 0.98, ... over the files in order: equal scores
+    would cut the protocol's recall sampling short)."""
+    os.makedirs(os.path.join(out_dir, "data"))
+    k = 0
+    for f in sorted(os.listdir(gt_dir)):
+        labs = read_label(os.path.join(gt_dir, f))
+        for lab in labs:
+            lab.score = 1.0 - 0.01 * k
+            k += 1
+        with open(os.path.join(out_dir, "data", f), "w") as fh:
+            fh.write("\n".join(format_label(lab) for lab in labs) + "\n")
+
+
+def read_dir(d: str) -> dict:
+    return {f: open(os.path.join(d, f)).read() for f in sorted(os.listdir(d))}
+
+
+def check_two_stage(dev) -> dict:
+    """Two-stage serving over a seeded KITTI tree through the port's CLIs
+    (``main(argv)``), at full width: the detect CLI with a seeded
+    StereoConfig() model (K3, K4), the inference_agnostic CLI with a
+    seeded flagship Vernier model (K1, K2) over noisy-GT proposals and
+    over stage 1's own, and the evaluate CLI.  Seeded weights, so the
+    scores are no measure of the model: the gates are the decoder, the
+    counters, the files and the evaluator's value on the GT."""
+    t = time.perf_counter()
+    smi = nvidia_smi()
+    with tempfile.TemporaryDirectory() as root:
+        tree = write_kitti_tree(root)
+        # g++ builds the PNG row filter at first use: time it apart
+        t_png = time.perf_counter()
+        _build.build_host(_build.CSRC / "png_unfilter.cpp", shared=True)
+        png_build_s = time.perf_counter() - t_png
+        t_dec = time.perf_counter()
+        decoded = {path: decode_png(path) for path in tree["images"]}
+        decode_ms = (time.perf_counter() - t_dec) * 1e3 / TREE_FRAMES
+        for path, img in tree["images"].items():
+            assert np.array_equal(decoded[path], img), \
+                f"decode_png differs: {path}"
+        props = os.path.join(root, "props", "data")
+        write_predictions(props, tree["boxes"])
+
+        scfg = StereoConfig()
+        save_checkpoint(os.path.join(root, "stereo"), create_stereo_state(
+            StereoNet(scfg, device=dev,
+                      generator=torch.Generator().manual_seed(0)),
+            TrainConfig()), scfg, 0)
+        # the filter gate opened, so the seeded model's updates are
+        # written (its NCF would reject them all)
+        vcfg = flagship_vernier_config(filter_min=-1e9, filter_max=1e9)
+        save_checkpoint(os.path.join(root, "vernier"), create_train_state(
+            VernierScale(vcfg, device=dev,
+                         generator=torch.Generator().manual_seed(0)),
+            vcfg, TrainConfig()), vcfg, 0)
+        torch.cuda.empty_cache()
+
+        # stage 1: detect the split
+        max_boxes = 8
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cli_detect.main([
+            "--device", str(dev),
+            "--model_dir", os.path.join(root, "stereo"), "--data_path", root,
+            "--output_dir", os.path.join(root, "stage1"),
+            "--score_threshold", "0", "--max_boxes", str(max_boxes),
+            "--prefetch", "2"])
+        torch.cuda.synchronize()
+        s1 = time.perf_counter() - t1
+        counts1 = read_counts()
+        assert counts1 == counts_of(K3=TREE_FRAMES, K4=TREE_FRAMES), \
+            f"stage 1 launch counts {counts1}"
+        stage1 = os.path.join(root, "stage1", "data")
+        n_props = []
+        for f in sorted(os.listdir(stage1)):
+            labs = read_label(os.path.join(stage1, f))
+            assert len(labs) <= max_boxes, f"{f}: {len(labs)} lines"
+            assert all(np.isfinite(l.box3d).all() for l in labs), f
+            n_props.append(len(labs))
+        assert len(n_props) == TREE_FRAMES, n_props
+
+        # stage 2 (a): refine the noisy-GT proposals, prefetch 2 and 0
+        def refine(pred_dir, out, prefetch, *extra):
+            reset_counts()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cli_refine.main([
+                "--device", str(dev),
+                "--model_dir", os.path.join(root, "vernier"),
+                "--data_path", root, "--pred_dir", pred_dir,
+                "--output_dir", os.path.join(root, out),
+                "--pred_type", "one_part", "all_parts",
+                "--prefetch", str(prefetch), *extra])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t2, read_counts()
+
+        s2, counts2 = refine(props, "refined", 2)
+        n_inst = TREE_FRAMES * TREE_BOXES
+        batches = TREE_FRAMES  # one frame a batch: 3 cars in 4 slots
+        assert counts2 == counts_of(K1=batches, K2=3 * batches), \
+            f"stage 2 launch counts {counts2}"
+        refined = read_dir(os.path.join(root, "refined", "all_parts", "data"))
+        assert refined != read_dir(props), "no box moved"
+        for f, text in read_dir(props).items():
+            assert len(refined[f].splitlines()) == len(text.splitlines()), f
+        s2_sync, _ = refine(props, "refined_sync", 0)
+        for t_ in ("one_part", "all_parts"):
+            a = read_dir(os.path.join(root, "refined", t_, "data"))
+            b = read_dir(os.path.join(root, "refined_sync", t_, "data"))
+            assert a == b, f"{t_}: prefetch 2 and 0 wrote different files"
+
+        # stage 2 (b): stage 1's own proposals, 2 batches
+        _, counts3 = refine(stage1, "chained", 2, "--max_batches", "2")
+        assert counts3 == counts_of(K1=2, K2=6), f"chained counts {counts3}"
+
+        # score: the evaluator (built here with g++) on the GT as
+        # predictions and on the noisy proposals, each against JAX's
+        # value, then on stage 2 (a)'s output
+        t_build = time.perf_counter()
+        build_evaluator()
+        build_s = time.perf_counter() - t_build
+        gt_dir = os.path.join(root, "training", "label_2")
+        write_gt_as_predictions(gt_dir, os.path.join(root, "gt_as_pred"))
+        for res_dir, want in (("gt_as_pred", GT_AS_PRED_AP3D),
+                              ("props", PROPOSALS_AP3D)):
+            got = cli_evaluate.main([gt_dir, os.path.join(
+                root, res_dir)])["car"]["detection_3d"]
+            assert got == want, f"{res_dir}: AP3D {got} != JAX's {want}"
+        res = cli_evaluate.main([gt_dir, os.path.join(root, "refined",
+                                                      "all_parts")])
+        metrics = ("detection", "detection_ground", "detection_3d",
+                   "orientation")
+        assert all(len(res["car"][m]["ap40"]) == 3 for m in metrics), res
+        phase("two_stage", t, decode_ms_per_frame=f"{decode_ms:.2f}",
+              stage1_cli_wall_s=f"{s1:.3f}",
+              stage1_proposals=",".join(map(str, n_props)),
+              stage2_cli_wall_s_prefetch2=f"{s2:.3f}",
+              stage2_cli_wall_s_prefetch0=f"{s2_sync:.3f}",
+              evaluator_build_s=f"{build_s:.2f}",
+              png_helper_build_s=f"{png_build_s:.2f}",
+              refined_ap3d_ap40=",".join(map(
+                  str, res["car"]["detection_3d"]["ap40"])),
+              note=repr(f"CLI wall seconds for {TREE_FRAMES} frames / "
+                        f"{n_inst} instances, checkpoint load and first "
+                        "call included"),
+              nvidia_smi=repr(smi),
+              launches=json.dumps(dict(stage1=counts1, refine=counts2,
+                                       chained=counts3)).replace(" ", ""))
+        check_two_stage_warm(root, props, dev)
+    torch.cuda.empty_cache()
+    return dict(counts=counts2)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Fails if the block makes a CUDA call that waits for the card
+    (torch's sync debug mode), naming the Python stack of each."""
+    syncs = set()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            stack = [f for f in traceback.extract_stack()
+                     if not f.filename.endswith("warnings.py")][:-1]
+            syncs.add(" <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                  for f in reversed(stack[-6:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not syncs, f"host syncs: {sorted(syncs)}"
+
+
+def queue_and_wait(requests) -> tuple:
+    """Queues every request (each a call that must not wait for the card)
+    and then waits: (host ms to queue them all, ms until the card is
+    done), from an idle card."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with no_host_sync():
+        for request in requests:
+            request()
+    queued = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    return queued, (time.perf_counter() - t) * 1e3
+
+
+def alternate(run, reps: int = 3) -> dict:
+    """Median wall ms of ``run(prefetch)`` at prefetch 2 and 0, run in
+    the order 2 0 0 2 2 0 ... so that drift falls on both."""
+    times = {2: [], 0: []}
+    for r in range(reps):
+        for p in ((2, 0) if r % 2 == 0 else (0, 2)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(p)
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t) * 1e3)
+    return {p: sorted(v)[len(v) // 2] for p, v in times.items()}
+
+
+def check_two_stage_warm(root: str, props: str, dev) -> None:
+    """The two runners with the phase's checkpoints loaded and warm, on
+    the same tree: every request of the split queued with no host sync
+    (the host's queueing ms beside the ms until the card is done), and
+    ``run`` over the split at --prefetch 2 and 0 (medians of 3, host
+    batch building included)."""
+    t = time.perf_counter()
+    try:  # the check itself must see a known sync
+        with no_host_sync():
+            torch.ones(1, device=dev).item()
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("no_host_sync missed the sync of .item()")
+    ds = KittiDataset(root, "val")
+    cfg, model, _ = load_model(os.path.join(root, "vernier"), VernierConfig,
+                               VernierScale, dev)
+    runner = RefineRunner(model, cfg, device=dev)
+    pipe = RefinementPipeline(build_db_from_predictions(ds, cfg, props), cfg,
+                              training=False, seed=1, load_lidar=False)
+    batches = list(pipe.batches())
+    runner.step(batches[0])  # warm-up
+    q2, d2 = queue_and_wait(
+        [lambda b=b: runner.step(b, host_outputs=()) for b in batches])
+    r2 = alternate(lambda p: runner.run(pipe, progress=False, prefetch=p))
+    del runner, model
+    torch.cuda.empty_cache()
+
+    scfg, smodel, _ = load_model(os.path.join(root, "stereo"), StereoConfig,
+                                 StereoNet, dev)
+    drunner = DetectRunner(smodel, scfg, max_boxes=8, score_threshold=0.0,
+                           device=dev)
+    frames = [b.arrays() for b in
+              StereoPipeline(ds, scfg, training=False).batches()]
+    drunner.forward(frames[0])  # warm-up
+    q1, d1 = queue_and_wait([lambda b=b: drunner.forward(b) for b in frames])
+    out = os.path.join(root, "stage1_warm")
+    r1 = alternate(lambda p: drunner.run(ds, out, prefetch=p))
+    del drunner, smodel
+    phase("two_stage_warm", t,
+          stage1_queue_ms=f"{q1:.1f}", stage1_done_ms=f"{d1:.1f}",
+          stage1_run_ms_prefetch2=f"{r1[2]:.1f}",
+          stage1_run_ms_prefetch0=f"{r1[0]:.1f}",
+          stage2_queue_ms=f"{q2:.1f}", stage2_done_ms=f"{d2:.1f}",
+          stage2_run_ms_prefetch2=f"{r2[2]:.1f}",
+          stage2_run_ms_prefetch0=f"{r2[0]:.1f}",
+          note=repr(f"{len(frames)} frames / {len(batches)} batches of "
+                    f"{sum(int(b.valid.sum()) for b in batches)} "
+                    "instances, models loaded and warm"),
+          nvidia_smi=repr(nvidia_smi()))
+
+
 def main() -> int:
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1565,6 +1945,7 @@ def main() -> int:
     k4_bwd = check_k4_bwd(gen, dev)
     check_stereo_train_reference(dev)
     stereo_train = check_stereo_train(dev, profile=profile)
+    check_two_stage(dev)
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

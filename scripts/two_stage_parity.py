@@ -1,0 +1,186 @@
+"""End check of the port's stage 2 with the trained Vernier checkpoint, on
+a CPU host with JAX: refine the committed stage-1 proposals
+(artifacts/two_stage_r4/proposals, 181 boxes on the 128-frame val split)
+with the JAX package and with the port, both in float32 on the CPU, and
+score both.
+
+Steps:
+  1. re-render the recorded run's val tree,
+     ``make_synthetic_kitti(root, 128, 3, seed=1000, split="val")``
+     (tools/demo_two_stage.py:473), cached under
+     build/two_stage_parity/kitti_val;
+  2. convert artifacts/two_stage_r4/vernier_ckpt (step 8000) with
+     scripts/convert_jax_checkpoint.py;
+  3. refine the proposals with the demo's inference config
+     (tools/demo_two_stage.py:349-353: usage "inference", sup_type "real",
+     no augmentation, both pred types, argmax decode), once with the JAX
+     package and once with the port;
+  4. score the proposals and both outputs, each package with its own
+     evaluator wrapper, and compare the boxes field by field.
+
+    python scripts/two_stage_parity.py        # ~2 min on 8 CPU cores
+
+Prints one JSON object and writes it to
+build/two_stage_parity/result.json.  The recorded run's numbers
+(artifacts/two_stage_r4/two_stage.json: proposals 1.3513, refined
+all_parts 2.5984, AP3D moderate AP40) came from a bf16 TPU run: the
+proposals' value checks the tree and the evaluator; the refined value is a
+witness, not a gate.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+ART = os.path.join(ROOT, "artifacts", "two_stage_r4")
+WORK = os.path.join(ROOT, "build", "two_stage_parity")
+PRED_TYPES = ("one_part", "all_parts")
+# box fields h w l x y z ry (KITTI label columns 8-14) agree within this
+FIELD_TOL = 1e-3
+
+
+def _infer_cfg(cfg):
+    return cfg.replace(usage="inference", sup_type="real", augment=False,
+                       pred_type=PRED_TYPES, ncf_decode="argmax",
+                       compute_dtype="float32")
+
+
+def _boxes(d):
+    out = {}
+    for f in sorted(os.listdir(d)):
+        with open(os.path.join(d, f)) as fh:
+            out[f] = [[float(v) for v in ln.split()[8:15]]
+                      for ln in fh.read().splitlines() if ln.strip()]
+    return out
+
+
+def _ap3d(res):
+    return res["car"]["detection_3d"]["ap40"]
+
+
+def main() -> dict:
+    import jax
+    import numpy as np
+    import torch
+
+    jax.config.update("jax_platforms", "cpu")
+    from scripts.convert_jax_checkpoint import convert, restore_jax_variables
+    from snvc_tpu.data.instance_db import build_db_from_predictions as jdb
+    from snvc_tpu.data.kitti import KittiDataset as JDataset
+    from snvc_tpu.data.pipeline import RefinementPipeline as JPipe
+    from snvc_tpu.data.synthetic import make_synthetic_kitti
+    from snvc_tpu.eval.kitti_ap import run_kitti_eval as jeval
+    from snvc_tpu.inference.kitti_writer import PredictionWriter as JWriter
+    from snvc_tpu.inference.refine import RefineRunner as JRunner
+    from snvc_tpu.models.vernier import VernierScale as JVernier
+    from snvc_tpu_torch.config import VernierConfig, load_config
+    from snvc_tpu_torch.data.instance_db import build_db_from_predictions
+    from snvc_tpu_torch.data.kitti import KittiDataset
+    from snvc_tpu_torch.data.pipeline import RefinementPipeline
+    from snvc_tpu_torch.eval.kitti_ap import run_kitti_eval
+    from snvc_tpu_torch.inference.kitti_writer import PredictionWriter
+    from snvc_tpu_torch.inference.refine import RefineRunner
+    from snvc_tpu_torch.models.vernier import VernierScale
+    from snvc_tpu_torch.training.train import load_checkpoint
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    val_root = os.path.join(WORK, "kitti_val")
+    make_synthetic_kitti(val_root, 128, 3, seed=1000, split="val")
+    gt_dir = os.path.join(val_root, "training", "label_2")
+    # a copy: the evaluator writes its stats files beside the data
+    prop_res = os.path.join(WORK, "proposals")
+    shutil.rmtree(prop_res, ignore_errors=True)
+    shutil.copytree(os.path.join(ART, "proposals", "data"),
+                    os.path.join(prop_res, "data"))
+    prop_dir = os.path.join(prop_res, "data")
+    res = dict(render_s=round(time.perf_counter() - t0, 1))
+
+    # 2. convert, then load as the CLIs do
+    ckpt = os.path.join(ART, "vernier_ckpt")
+    model_dir = os.path.join(WORK, "vernier")
+    convert(ckpt, model_dir)
+    tcfg = _infer_cfg(load_config(os.path.join(model_dir, "config.json"),
+                                  VernierConfig))
+    tree, step = load_checkpoint(model_dir)
+    tmodel = VernierScale(tcfg, device="cpu")
+    tmodel.load_state_dict(tree["model"], strict=True)
+    jcfg, variables, jstep = restore_jax_variables(ckpt)
+    jcfg = _infer_cfg(jcfg)
+    assert step == jstep == 8000
+
+    # 3. refine in both packages
+    t = time.perf_counter()
+    jds = JDataset(val_root, "val")
+    db = jdb(jds, jcfg, prop_dir)
+    jw = JWriter(jcfg)
+    JRunner(JVernier(jcfg), variables, jcfg).run(
+        JPipe(db, jcfg, training=False, load_lidar=False), writer=jw,
+        progress=False)
+    jout = jw.write(os.path.join(WORK, "refined_jax"))
+    res["jax_refine_s"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    tds = KittiDataset(val_root, "val")
+    tdb = build_db_from_predictions(tds, tcfg, prop_dir)
+    tw = PredictionWriter(tcfg)
+    RefineRunner(tmodel, tcfg, device="cpu").run(
+        RefinementPipeline(tdb, tcfg, training=False, load_lidar=False),
+        writer=tw, progress=False)
+    tout = tw.write(os.path.join(WORK, "refined_port"))
+    res["port_refine_s"] = round(time.perf_counter() - t, 1)
+    res["instances"] = len(tdb)
+
+    # 4. score and compare
+    res["proposals_ap3d_port"] = _ap3d(run_kitti_eval(gt_dir, prop_res))
+    res["proposals_ap3d_jax"] = _ap3d(jeval(gt_dir, prop_res))
+    for pt in PRED_TYPES:
+        res[f"{pt}_ap3d_port"] = _ap3d(run_kitti_eval(
+            gt_dir, os.path.join(tout, pt)))
+        res[f"{pt}_ap3d_jax"] = _ap3d(jeval(gt_dir, os.path.join(jout, pt)))
+        got = _boxes(os.path.join(tout, pt, "data"))
+        want = _boxes(os.path.join(jout, pt, "data"))
+        assert list(got) == list(want)
+        g = np.array([b for f in got for b in got[f]])
+        w = np.array([b for f in want for b in want[f]])
+        assert g.shape == w.shape, (g.shape, w.shape)
+        diff = np.abs(g - w)
+        diff[:, 6] = np.abs((g[:, 6] - w[:, 6] + np.pi) % (2 * np.pi) - np.pi)
+        over = diff.max(axis=1) > FIELD_TOL
+        res[f"{pt}_boxes"] = len(g)
+        res[f"{pt}_boxes_over_tol"] = int(over.sum())
+        res[f"{pt}_max_diff_within_tol"] = float(diff[~over].max())
+        res[f"{pt}_max_diff_over_tol"] = (float(diff[over].max())
+                                          if over.any() else 0.0)
+        res[f"{pt}_moderate_gap"] = round(
+            res[f"{pt}_ap3d_port"][1] - res[f"{pt}_ap3d_jax"][1], 4)
+    with open(os.path.join(ART, "two_stage.json")) as fh:
+        rec = json.load(fh)
+    res["recorded_tpu_bf16"] = dict(
+        proposals=rec["ap3d_proposals"],
+        all_parts=rec["ap3d_refined_all_parts"],
+        one_part=rec["ap3d_refined_one_part"])
+    os.makedirs(WORK, exist_ok=True)
+    with open(os.path.join(WORK, "result.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    print(json.dumps(res))
+    if abs(res["proposals_ap3d_port"][1] - rec["ap3d_proposals"][1]) > 1e-4:
+        raise SystemExit("the proposals do not score the recorded AP3D: "
+                         "the tree or the evaluator differs")
+    for pt in PRED_TYPES:
+        if abs(res[f"{pt}_moderate_gap"]) > 0.05:
+            raise SystemExit(f"{pt}: the port's AP3D moderate is "
+                             f"{res[f'{pt}_moderate_gap']} from JAX's")
+    return res
+
+
+if __name__ == "__main__":
+    main()

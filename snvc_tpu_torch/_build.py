@@ -7,6 +7,10 @@ hash covers the source, the shared headers (``csrc/*.cuh``) and the flags;
 ``ctypes`` loads the result.  No
 PyTorch headers are included, so a build takes seconds.  Nothing here runs
 at import time: the first kernel call builds what is missing.
+
+``build_host`` compiles the host-side C++ (the PNG row filter, the KITTI
+evaluator) with the host compiler into the same directory, keyed the same
+way.
 """
 
 from __future__ import annotations
@@ -115,6 +119,37 @@ def build(names=LIBRARIES) -> float:
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+HOST_FLAGS = ["-O2", "-std=c++17"]
+
+
+def build_host(source: Path, shared: bool) -> Path:
+    """Compile the host C++ file ``source`` with g++ into
+    ``BUILD_DIR/<stem>_<hash>`` (a shared library with ``shared``, else an
+    executable), unless it is built already; the hash covers the source
+    and the flags.  Raises RuntimeError with the compiler's output."""
+    flags = HOST_FLAGS + (["-shared", "-fPIC"] if shared else [])
+    h = hashlib.sha256(Path(source).read_bytes())
+    h.update(" ".join(flags).encode())
+    out = BUILD_DIR / (f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
+                       if shared else
+                       f"{Path(source).stem}_{h.hexdigest()[:16]}")
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: it builds " + str(source))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {source} (rc {res.returncode}):"
+                           f"\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def build_log(name: str) -> str:

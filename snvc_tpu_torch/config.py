@@ -1,16 +1,19 @@
 """Typed configuration for the port (copy of the fields of
-snvc_tpu/config.py:116-230, :264-348 and :351-359 that the serving slices
-and Vernier training read).
+snvc_tpu/config.py:116-230, :264-348 and :351-359 that the serving slices,
+the data pipelines and Vernier training read).
 
 Frozen dataclasses, as in the JAX package; nothing here imports JAX or
-snvc_tpu.
+snvc_tpu.  ``load_config`` reads a ``config.json`` written by either
+package: it drops the JAX fields that nothing in the port reads
+(``_UNREAD``) and refuses values the port cannot honour (``_REFUSED``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Tuple, Type, TypeVar
 
 
 @dataclass(frozen=True)
@@ -93,13 +96,31 @@ class VernierConfig:
     roi_enlarge: float = 1.1
     img_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     img_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # --- data / augmentation (data/instance_db.py, data/pipeline.py) ---
+    usage: str = "inference"  # train | inference
+    sup_type: str = "real"  # synthetic (sample around GT) | real (proposals)
+    pred_dir: str = ""
+    depth_range: Tuple[float, float] = (0.0, 60.0)
+    valid_classes: Tuple[int, ...] = (2,)  # Car(+Van)=2 in the KITTI mapping
+    augment: bool = True
+    augment_times: int = 1
+    rot_aug: bool = True
+    loc_aug: bool = True
+    dim_aug: bool = False
+    std_rot: float = 5.0  # degrees
+    std_loc: Tuple[float, float, float] = (0.2, 0.05, 0.2)
+    std_dim: Tuple[float, float, float] = (0.05, 0.05, 0.05)
+    check_fov: bool = False
     # --- batching ---
     max_instances: int = 8
+    frames_per_batch: int = 1  # image slots of one batch
     image_size: Tuple[int, int] = (384, 1280)
-    # --- pose update ---
+    # --- pose update / output ---
     ncf_decode: str = "coordinates"  # coordinates | argmax | soft-argmax
     filter_min: float = -1.0
     filter_max: float = 2.0
+    pred_type: Tuple[str, ...] = ("all_parts",)
+    output_dir: str = "outputs"
     # --- numerics ---
     compute_dtype: str = "bfloat16"
     # rematerialize the 3D hourglass in training (torch.utils.checkpoint);
@@ -198,6 +219,9 @@ class StereoConfig:
     voxel_z: float = 0.2
     # RPN head
     num_classes: int = 1
+    # class slot k <-> KITTI type name (the stereo pipeline's GT classes
+    # and the proposal writer's type column)
+    class_names: Tuple[str, ...] = ("Car",)
     num_angles: int = 2
     # yaw of each angle bin (training's target assignment)
     anchor_angles: Tuple[float, ...] = (0.0, 1.5707963)
@@ -246,3 +270,58 @@ def tiny_stereo_config(**overrides) -> StereoConfig:
     )
     base.update(overrides)
     return StereoConfig(**base)
+
+
+# Fields of the JAX configs that nothing in the port reads (JAX reads none
+# of them either, or only its training CLIs do); ``load_config`` drops them.
+_UNREAD = {
+    "VernierConfig": ("head_reg_type", "aspect_ratio", "save", "debug"),
+    "BackboneConfig": ("head_type", "init_weights", "pre_trained_path"),
+    "StereoConfig": ("align_corners", "cv_feature_dim", "hourglass_3d",
+                     "num_3d_convs", "photometric_aug"),
+}
+# (class, field) -> the one value the port honours; any other is refused
+_REFUSED = {
+    ("VernierConfig", "vernier_type"): "BEV_type3",
+    ("VernierConfig", "feature_aggregation"): "concat",
+    ("BackboneConfig", "head_type"): "default",
+    ("BackboneConfig", "add_xy"): False,
+    ("StereoConfig", "photometric_aug"): False,
+}
+
+C = TypeVar("C")
+
+
+def _as_tuple(v):
+    return tuple(_as_tuple(x) for x in v) if isinstance(v, list) else v
+
+
+def _from_dict(cls: Type[C], d: Dict[str, Any]) -> C:
+    """``cls`` from a JSON dict of the JAX package or of the port; raises
+    on a field neither knows and on a value the port cannot honour."""
+    name = cls.__name__
+    for (owner, key), allowed in _REFUSED.items():
+        if owner == name and key in d and d[key] != allowed:
+            raise ValueError(f"{name}.{key}={d[key]!r}: the port supports "
+                             f"only {allowed!r}")
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - fields - set(_UNREAD.get(name, ()))
+    if unknown:
+        raise ValueError(f"{name}: unknown fields {sorted(unknown)}")
+    kw = {k: _as_tuple(v) for k, v in d.items() if k in fields}
+    if "backbone" in kw and isinstance(kw["backbone"], dict):
+        kw["backbone"] = _from_dict(BackboneConfig, kw["backbone"])
+    return cls(**kw)
+
+
+def load_config(path: str, cls: Type[C]) -> C:
+    """A ``VernierConfig`` or ``StereoConfig`` from ``config.json`` (JAX
+    ``snvc_tpu/config.py:432``).  Takes the JAX package's files (a bare
+    config, or an ExperimentConfig whose ``vernier`` / ``stereo`` entry is
+    read) and the port's own (``training/train.save_checkpoint``)."""
+    with open(path) as fh:
+        d = json.load(fh)
+    key = {VernierConfig: "vernier", StereoConfig: "stereo"}[cls]
+    if isinstance(d.get(key), dict):
+        d = d[key]
+    return _from_dict(cls, d)

@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from snvc_tpu_torch.config import StereoConfig
-from snvc_tpu_torch.data.synthetic import random_car_box, surface_points
+from snvc_tpu_torch.data.synthetic import random_box, surface_points
 from snvc_tpu_torch.geometry.calib import Calibration
+from snvc_tpu_torch.utils.device import constant
 
 IMG_MEAN = (0.485, 0.456, 0.406)
 IMG_STD = (0.229, 0.224, 0.225)
@@ -22,8 +23,8 @@ KITTI_HW = (375, 1242)
 
 def normalize_images(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 [..., 3] -> ImageNet-normalized float32."""
-    mean = torch.tensor(IMG_MEAN, device=img_u8.device)
-    std = torch.tensor(IMG_STD, device=img_u8.device)
+    mean = constant(IMG_MEAN, img_u8.device)
+    std = constant(IMG_STD, img_u8.device)
     return (img_u8.float() / 255.0 - mean) / std
 
 
@@ -79,7 +80,7 @@ def synthetic_stereo_request(cfg: StereoConfig, seed: int = 0,
     the projections are scaled to an input smaller than KITTI's 375 x 1242
     frame (diag(s, s, 1) @ P, as ``load_image_scaled`` does; no change at
     ``StereoConfig()``'s 384 x 1248), each frame gets that many random car
-    boxes (``random_car_box``: 12-35 m ahead) and ``depth_gt`` rasterizes
+    boxes (``random_box``: 12-35 m ahead) and ``depth_gt`` rasterizes
     400 surface points of each box through P_left."""
     rng = np.random.default_rng(seed)
     H, W = cfg.input_size
@@ -104,7 +105,7 @@ def synthetic_stereo_request(cfg: StereoConfig, seed: int = 0,
         for f in range(frames):
             pts = []
             for k in range(boxes_per_frame):
-                box = random_car_box(rng)
+                box = random_box(rng)
                 out["gt_boxes"][f, k] = box
                 pts.append(surface_points(box, rng).astype(np.float32))
             out["gt_valid"][f, :boxes_per_frame] = True

@@ -1,0 +1,1 @@
+"""See the package docstring of snvc_tpu_torch."""

@@ -6,13 +6,16 @@ snvc_tpu/inference/detect.py: ``corners24_to_box3d``,
 One request runs ``StereoEncoder`` (2D features of both views),
 ``StereoHead`` (cost volume K3, 3D stack, frustum resample K4, BEV head)
 and ``decode_proposals`` (scores, corner decode, a top pool, rotated NMS,
-top-k), all on the runner's device.  ``DetectRunner.run`` (the pipelined
-loop over a KITTI dataset) is not ported yet.
+top-k), all on the runner's device.  ``DetectRunner.run`` detects a
+KITTI split into proposal files, with up to ``prefetch`` frames queued on
+the card before the oldest one's proposals are pulled to the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import os
+from collections import deque
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,12 +25,13 @@ from snvc_tpu_torch.data.stereo import (
     check_stereo_projections,
     normalize_images,
 )
+from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
 from snvc_tpu_torch.geometry import boxes as gbox
 from snvc_tpu_torch.inference.kitti_writer import instance_line
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.nms import rotated_nms_bev, top_k_boxes
 from snvc_tpu_torch.ops.rotated_iou import bev_from_box3d
-from snvc_tpu_torch.utils.device import resolve_device
+from snvc_tpu_torch.utils.device import constant, resolve_device, to_device
 
 
 def corners24_to_box3d(corners):
@@ -37,15 +41,15 @@ def corners24_to_box3d(corners):
     the four parallel edges (the heading as a vector sum, wrap-safe)."""
     c = corners.reshape(corners.shape[:-1] + (8, 3))
     bottom, top = c[..., :4, :], c[..., 4:, :]
-    center_xz = c[..., [0, 2]].mean(dim=-2)
+    center_xz = c[..., ::2].mean(dim=-2)  # x and z; a list index would sync
     y_bottom = bottom[..., 1].mean(dim=-1)
     h = (bottom[..., 1] - top[..., 1]).mean(dim=-1)
     e_l = ((c[..., 0, :] - c[..., 3, :]) + (c[..., 1, :] - c[..., 2, :])
            + (c[..., 4, :] - c[..., 7, :]) + (c[..., 5, :] - c[..., 6, :]))
     e_w = ((c[..., 0, :] - c[..., 1, :]) + (c[..., 3, :] - c[..., 2, :])
            + (c[..., 4, :] - c[..., 5, :]) + (c[..., 7, :] - c[..., 6, :]))
-    length = torch.linalg.norm(e_l[..., [0, 2]], dim=-1) / 4.0
-    width = torch.linalg.norm(e_w[..., [0, 2]], dim=-1) / 4.0
+    length = torch.linalg.norm(e_l[..., ::2], dim=-1) / 4.0
+    width = torch.linalg.norm(e_w[..., ::2], dim=-1) / 4.0
     ry = torch.atan2(-e_l[..., 2], e_l[..., 0])
     return torch.stack([h, width, length, center_xz[..., 0], y_bottom,
                         center_xz[..., 1], ry], dim=-1)
@@ -64,10 +68,9 @@ def decode_proposals(outputs: Mapping, cfg: StereoConfig,
     cls_all = outputs["cls"]
     dev = cls_all.device
     if locations is None:
-        locations = torch.from_numpy(bev_locations(cfg)).to(dev)
+        locations = constant(bev_locations(cfg), dev)
     L = locations.shape[0]
-    anchors_y = torch.tensor(cfg.anchors_y, dtype=torch.float32,
-                             device=dev).expand(K)
+    anchors_y = constant(cfg.anchors_y, dev).expand(K)
     anchor3d = torch.stack([locations[:, 0:1].expand(L, K),
                             anchors_y[None, :].expand(L, K),
                             locations[:, 1:2].expand(L, K)], dim=-1)
@@ -112,8 +115,7 @@ class DetectRunner:
 
     def _to_device(self, arrays: Mapping) -> Dict[str, torch.Tensor]:
         check_stereo_projections(arrays["P_left"], arrays["P_right"])
-        return {k: torch.as_tensor(np.asarray(arrays[k])).to(self.device)
-                for k in _BATCH_KEYS}
+        return {k: to_device(arrays[k], self.device) for k in _BATCH_KEYS}
 
     def forward(self, batch_arrays: Mapping
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -129,6 +131,47 @@ class DetectRunner:
                 out, self.cfg, max_boxes=self.max_boxes,
                 score_threshold=self.score_threshold, nms_iou=self.nms_iou,
                 locations=self.locations)
+
+    def run(self, ds, out_dir: str, batch_size: int = 1, prefetch: int = 4,
+            max_frames: Optional[int] = None,
+            log: Optional[Callable[[str], None]] = None) -> int:
+        """Detect every frame of ``ds`` (a ``KittiDataset``) into KITTI
+        files under ``out_dir/data``; returns the proposal count.  A
+        padded tail batch repeats a frame, which is written once."""
+        pipe = StereoPipeline(ds, self.cfg, batch_size=batch_size,
+                              training=False)
+        data_dir = os.path.join(out_dir, "data")
+        os.makedirs(data_dir, exist_ok=True)
+        total = 0
+        written = set()
+
+        def finish(names, out):
+            nonlocal total
+            boxes, scores, classes, valid = (t.cpu().numpy() for t in out)
+            for i, name in enumerate(names):
+                if name in written:
+                    continue
+                written.add(name)
+                lines = proposals_to_kitti(
+                    boxes[i], scores[i], valid[i],
+                    ds.scene(int(name)).calibration("left"),
+                    classes=classes[i], class_names=self.cfg.class_names)
+                total += len(lines)
+                with open(os.path.join(data_dir, name + ".txt"), "w") as f:
+                    f.write("\n".join(lines) + ("\n" if lines else ""))
+
+        pending = deque()
+        for bi, batch in enumerate(pipe.batches()):
+            if max_frames is not None and bi * batch_size >= max_frames:
+                break
+            pending.append((batch.scene_names, self.forward(batch.arrays())))
+            while len(pending) > max(prefetch, 0):
+                finish(*pending.popleft())
+        while pending:
+            finish(*pending.popleft())
+        if log is not None:
+            log(f"decoded {total} proposals over {len(written)} frames")
+        return total
 
 
 def proposals_to_kitti(boxes3d: np.ndarray, scores: np.ndarray,

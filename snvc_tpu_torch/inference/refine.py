@@ -1,16 +1,21 @@
-"""Refinement serving runner (port of snvc_tpu/inference/refine.py:187-224,
-``RefineRunner.step``), serving only: no losses, no mesh.
+"""Refinement serving runner (port of snvc_tpu/inference/refine.py:187-311,
+``RefineRunner.step`` and ``run``), serving only: no losses, no mesh.
 
 One step has the JAX runner's three parts:
   1. ``encode``: ``assemble_instances`` (ROI warps + grid projections) and
      ``VernierEncoder`` (HRNet on both views + stereo voxel sampler, K1);
   2. ``heads``: ``VernierHead`` (BEV_type3; its large-tap convs run K2);
   3. ``finalize``: ``ncf_to_update`` -> refined boxes.
+
+``run`` serves a ``RefinementPipeline`` into a ``PredictionWriter``, with
+up to ``prefetch`` batches queued on the card before the oldest one's
+outputs are pulled to the host.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from collections import deque
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -20,7 +25,7 @@ from snvc_tpu_torch.data.pipeline import InstanceBatch
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
 from snvc_tpu_torch.ops.registration import ncf_to_update
-from snvc_tpu_torch.utils.device import resolve_device
+from snvc_tpu_torch.utils.device import resolve_device, to_device
 
 _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
                "image_idx", "trans_l", "trans_r", "samples")
@@ -42,8 +47,7 @@ class RefineRunner:
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         arrays = batch.arrays() if isinstance(batch, InstanceBatch) else batch
-        return {k: torch.as_tensor(np.asarray(arrays[k])).to(self.device)
-                for k in _BATCH_KEYS}
+        return {k: to_device(arrays[k], self.device) for k in _BATCH_KEYS}
 
     def encode(self, arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
         left, right, gpl, gpr = assemble_instances(
@@ -72,10 +76,42 @@ class RefineRunner:
              host_outputs=None) -> Dict:
         """One refinement request.  Returns the outputs dict; the keys in
         ``host_outputs`` (default ``HOST_OUTPUTS``) come back as numpy, the
-        dense NCF / occupancy stay tensors on the device."""
+        dense NCF / occupancy stay tensors on the device.  With
+        ``host_outputs=()`` nothing waits for the card: the work is only
+        queued."""
         with torch.inference_mode():
             arrays = self._to_device(batch)
             out = self.finalize(self.heads(self.encode(arrays)), arrays)
         wanted = self.HOST_OUTPUTS if host_outputs is None else host_outputs
-        return {k: (v.cpu().numpy() if k in wanted and v is not None else v)
-                for k, v in out.items()}
+        return to_host(out, wanted)
+
+    def run(self, pipeline, writer=None, progress: bool = True,
+            max_batches: Optional[int] = None, prefetch: int = 0) -> None:
+        """Serve every batch of ``pipeline`` (a ``RefinementPipeline``) and
+        hand each batch's host outputs to ``writer.add_batch``, in batch
+        order.  ``prefetch > 0`` keeps that many batches queued on the card
+        before the oldest one's outputs are pulled, so the host builds the
+        next batches while the card works."""
+
+        def finish(bi, batch, out):
+            out = to_host(out, self.HOST_OUTPUTS)
+            if writer is not None:
+                writer.add_batch(batch, out)
+            if progress:
+                print(f"batch {bi}")
+
+        pending = deque()
+        for bi, batch in enumerate(pipeline.batches()):
+            if max_batches is not None and bi >= max_batches:
+                break
+            pending.append((bi, batch, self.step(batch, host_outputs=())))
+            while len(pending) > max(prefetch, 0):
+                finish(*pending.popleft())
+        while pending:
+            finish(*pending.popleft())
+
+
+def to_host(out: Mapping, wanted) -> Dict:
+    """``out`` with the tensors under the keys in ``wanted`` as numpy."""
+    return {k: (v.cpu().numpy() if k in wanted and isinstance(v, torch.Tensor)
+                else v) for k, v in out.items()}

@@ -17,6 +17,7 @@ from snvc_tpu_torch.ops.points_in_boxes import (
     occupancy_targets,
 )
 from snvc_tpu_torch.ops.warp import affine_resample_batch
+from snvc_tpu_torch.utils.device import constant
 
 
 def make_grid_local(cfg: VernierConfig) -> np.ndarray:
@@ -52,10 +53,8 @@ def assemble_instances(images_left, images_right, image_idx, trans_l,
     projections [B, G, 2] in ROI pixels."""
     if cfg.backbone.add_xy:
         raise NotImplementedError("add_xy ROI coordinate maps are not ported")
-    mean = torch.tensor(cfg.img_mean, dtype=torch.float32,
-                        device=images_left.device)
-    std = torch.tensor(cfg.img_std, dtype=torch.float32,
-                       device=images_left.device)
+    mean = constant(cfg.img_mean, images_left.device)
+    std = constant(cfg.img_std, images_left.device)
     idx = image_idx.long()
 
     def extract(images, trans):
@@ -76,8 +75,8 @@ def part_centers_in_grid(samples, gt_boxes, cfg: VernierConfig):
     metric offsets in the sample's object frame)."""
     P = cfg.num_parts
     nh, nw, nl = cfg.grid_resolution
-    parts = torch.tensor(np.stack([PART_X, PART_Y, PART_Z])[:, :P],
-                         dtype=torch.float32, device=samples.device)
+    parts = constant(np.stack([PART_X, PART_Y, PART_Z])[:, :P],
+                     samples.device)
     h, w, l = gt_boxes[:, 0:1], gt_boxes[:, 1:2], gt_boxes[:, 2:3]
     px, py, pz = parts[0] * l, parts[1] * h, parts[2] * w
     c, s = torch.cos(gt_boxes[:, 6:7]), torch.sin(gt_boxes[:, 6:7])

@@ -9,6 +9,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from snvc_tpu_torch.ops.heatmaps import hard_argmax_2d, soft_argmax_2d_ref
+from snvc_tpu_torch.utils.device import constant
 
 # object-frame part coordinates of a unit box (reference vernier.py:744-751)
 PART_X = (0.0, 0.5, 0.5, 0.5, 0.5, -0.5, -0.5, -0.5, -0.5)
@@ -85,8 +86,8 @@ def ncf_to_update(ncf, samples, x_range: Tuple[float, float],
     one_part[:, 3] = center_x + cam_x[:, 0]
     one_part[:, 5] = center_z + cam_z[:, 0]
 
-    px = torch.tensor(PART_X[:P], dtype=samples.dtype, device=dev)
-    pz = torch.tensor(PART_Z[:P], dtype=samples.dtype, device=dev)
+    px = constant(PART_X[:P], dev, samples.dtype)
+    pz = constant(PART_Z[:P], dev, samples.dtype)
     src_x = px[None] * l[:, None]
     src_z = pz[None] * w[:, None]
     src_cam_x = src_x * c[:, None] + src_z * s[:, None] + center_x[:, None]

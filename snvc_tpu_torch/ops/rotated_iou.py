@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from snvc_tpu_torch.utils.device import constant
+
 _EPS = 1e-8
 
 # corner offsets in the box frame
@@ -24,8 +26,8 @@ _CY = (0.5, 0.5, -0.5, -0.5)
 
 def bev_corners(boxes):
     """[..., 5] (cx, cy, w, h, angle) -> [..., 4, 2] corners (CCW)."""
-    cx = boxes.new_tensor(_CX)
-    cy = boxes.new_tensor(_CY)
+    cx = constant(_CX, boxes.device, boxes.dtype)
+    cy = constant(_CY, boxes.device, boxes.dtype)
     x4 = boxes[..., 2:3] * cx
     y4 = boxes[..., 3:4] * cy
     c = torch.cos(boxes[..., 4:5])

@@ -1,11 +1,14 @@
-"""The port imports nothing of JAX or of the JAX package.
+"""The port imports nothing of JAX or of the JAX package, and nothing the
+card's machine lacks.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax`` and ``snvc_tpu``, then imports every module
-of ``snvc_tpu_torch``, ``chip_smoke`` and the scripts that time its
-kernels (without running them).  Two more
-cases run ``chip_smoke.py`` where it must fail: with CUDA hidden, and
-alone in a directory that holds nothing else of the repo.
+``flax``, ``optax``, ``orbax``, ``snvc_tpu``, ``cv2``, ``PIL`` and
+``torchvision``, then imports every module of ``snvc_tpu_torch`` (the
+CLIs included: importing one must not run it), ``chip_smoke`` and every
+script under ``scripts/`` but the two that convert and compare JAX
+checkpoints on a host with JAX (``SCRIPTS_WITH_JAX``).  Two more cases run
+``chip_smoke.py`` where it must fail: with CUDA hidden, and alone in a
+directory that holds nothing else of the repo.
 """
 
 import os
@@ -18,11 +21,15 @@ from pathlib import Path
 import snvc_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# scripts that run on a CPU host with JAX, beside the port, not in it
+SCRIPTS_WITH_JAX = ("convert_jax_checkpoint", "two_stage_parity")
 
 _GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "snvc_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "snvc_tpu", "cv2",
+           "PIL", "torchvision")
+SCRIPTS = sys.argv[1:]
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -42,13 +49,17 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (imported, not run)
 sys.path.insert(0, "scripts")
-import k1_variants, k34_variants, kernel_ab  # noqa: E401,F401  (not run)
-import k4_bwd_losses, k4_bwd_variants  # noqa: E401,F401  (not run)
-import stereo_reference_drift  # noqa: F401  (not run)
+for name in SCRIPTS:
+    importlib.import_module(name)  # imported, not run
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
-print("imported", len(mods))
+print("imported", len(mods), "and scripts", len(SCRIPTS))
 """
+
+
+def _port_scripts():
+    return sorted(p.stem for p in (ROOT / "scripts").glob("*.py")
+                  if p.stem not in SCRIPTS_WITH_JAX)
 
 
 def _env(**extra):
@@ -59,13 +70,39 @@ def _env(**extra):
 
 
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT,
+    scripts = _port_scripts()
+    res = subprocess.run([sys.executable, "-c", _GUARD, *scripts], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
     n = len(list(pkgutil.walk_packages(snvc_tpu_torch.__path__,
                                        "snvc_tpu_torch.")))
-    assert f"imported {n + 1}" in res.stdout, res.stdout
+    assert f"imported {n + 1} and scripts {len(scripts)}" in res.stdout, \
+        res.stdout
+    assert "usage:" not in res.stdout + res.stderr  # no CLI ran
+
+
+def test_scripts_with_jax_exist():
+    """The scripts the guard leaves out are there, and every other script
+    is in its list."""
+    names = {p.stem for p in (ROOT / "scripts").glob("*.py")}
+    assert set(SCRIPTS_WITH_JAX) <= names
+    assert {"kernel_ab", "k1_variants"} <= set(_port_scripts())
+
+
+def test_walk_covers_the_serving_slice():
+    """The walk above imports the KITTI host layer, the pipelines, the
+    evaluator wrapper and the three CLIs."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.data.png", "snvc_tpu_torch.data.kitti",
+            "snvc_tpu_torch.data.instance_db",
+            "snvc_tpu_torch.data.stereo_pipeline",
+            "snvc_tpu_torch.inference.kitti_writer",
+            "snvc_tpu_torch.eval.kitti_ap", "snvc_tpu_torch.utils.logging",
+            "snvc_tpu_torch.tools.detect",
+            "snvc_tpu_torch.tools.inference_agnostic",
+            "snvc_tpu_torch.tools.evaluate"} <= names
 
 
 def test_walk_covers_stereo_training():

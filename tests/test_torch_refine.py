@@ -97,3 +97,17 @@ def test_runner_default_device_needs_cuda(runners):
     _, trun, cfg = runners
     with pytest.raises(RuntimeError, match="cuda"):
         TRunner(trun.model, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", [(0.485, 0.456, 0.406),
+                                    np.array([[0.0, 0.5], [-0.5, 1.65]])])
+def test_constant_equals_torch_tensor(values, dtype):
+    """The serving path's sync-free constants hold the bits that
+    ``torch.tensor(values, dtype=dtype)`` gives."""
+    from snvc_tpu_torch.utils.device import constant
+
+    got = constant(values, torch.device("cpu"), dtype)
+    want = torch.tensor(values, dtype=dtype)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)

@@ -20,7 +20,7 @@ import torch
 from snvc_tpu.config import tiny_stereo_config as jax_tiny
 from snvc_tpu.models import stereo_losses as J
 from snvc_tpu_torch.config import tiny_stereo_config
-from snvc_tpu_torch.data.synthetic import random_car_box
+from snvc_tpu_torch.data.synthetic import random_box
 from snvc_tpu_torch.models import stereo_losses as T
 from snvc_tpu_torch.models.stereonet import bev_locations
 
@@ -35,7 +35,7 @@ def _gt(seed, N=2, G=6, per_frame=(3, 2)):
     valid = np.zeros((N, G), bool)
     for n in range(N):
         for g in range(per_frame[n]):
-            b = random_car_box(rng)
+            b = random_box(rng)
             b[3] *= 0.5
             boxes[n, g] = b
             valid[n, g] = True
