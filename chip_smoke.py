@@ -120,7 +120,23 @@ Phases, each printing one line with its elapsed seconds:
                debug mode, which must see no host sync (the host's queueing
                ms beside the ms until the card is done), and ``run`` over
                the split at --prefetch 2 and 0 (median ms of 3 each).
-Then a {"kernels": [...]} line, nvidia-smi's line, and as the last line
+ 20. train_cli - the two training CLIs on that tree, at full width, into
+               experiment directories in the same temporary directory:
+               train_vernier at its default config for 4 steps, then
+               --resume to 6 (the loaded state must equal the saved one bit
+               for bit; metrics.jsonl 6 lines), with the offset and bbox
+               heads for 2 steps (their losses and gradients finite); per
+               step K1 1 + 1 backward, K2 3 + 3 dx, dw 3; train_stereo at
+               StereoConfig(), batch 1, --augment_flip --photometric_aug
+               for 4 steps (per step K3 1 + 1 backward, K4 1 + 1
+               backward); then detect on the trained stereo directory (K3 =
+               K4 = frames) and inference_agnostic --report_loss on the
+               trained Vernier one with the GT as proposals (K1 = batches,
+               K2 = 3 x batches; finite losses a batch); each CLI's median
+               step ms, wall seconds and checkpoint save seconds.
+Then a {"kernels": [...]} line (launches: the serving, detect and
+training phases' counts plus train_cli's), nvidia-smi's line, and as the
+last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -128,6 +144,7 @@ before the last line; without CUDA the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -222,11 +239,14 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
 from snvc_tpu_torch.tools import detect as cli_detect
 from snvc_tpu_torch.tools import evaluate as cli_evaluate
 from snvc_tpu_torch.tools import inference_agnostic as cli_refine
+from snvc_tpu_torch.tools import train_stereo as cli_train_stereo
+from snvc_tpu_torch.tools import train_vernier as cli_train_vernier
 from snvc_tpu_torch.tools._model_dir import load_model
 from snvc_tpu_torch.training.train import (
     batch_to_device,
     create_train_state,
     learning_rate,
+    load_checkpoint,
     make_train_step,
     save_checkpoint,
 )
@@ -1659,9 +1679,9 @@ def read_dir(d: str) -> dict:
     return {f: open(os.path.join(d, f)).read() for f in sorted(os.listdir(d))}
 
 
-def check_two_stage(dev) -> dict:
-    """Two-stage serving over a seeded KITTI tree through the port's CLIs
-    (``main(argv)``), at full width: the detect CLI with a seeded
+def check_two_stage(dev, root: str) -> dict:
+    """Two-stage serving over a seeded KITTI tree (written under ``root``)
+    through the port's CLIs (``main(argv)``), at full width: the detect CLI with a seeded
     StereoConfig() model (K3, K4), the inference_agnostic CLI with a
     seeded flagship Vernier model (K1, K2) over noisy-GT proposals and
     over stage 1's own, and the evaluate CLI.  Seeded weights, so the
@@ -1669,128 +1689,127 @@ def check_two_stage(dev) -> dict:
     counters, the files and the evaluator's value on the GT."""
     t = time.perf_counter()
     smi = nvidia_smi()
-    with tempfile.TemporaryDirectory() as root:
-        tree = write_kitti_tree(root)
-        # g++ builds the PNG row filter at first use: time it apart
-        t_png = time.perf_counter()
-        _build.build_host(_build.CSRC / "png_unfilter.cpp", shared=True)
-        png_build_s = time.perf_counter() - t_png
-        t_dec = time.perf_counter()
-        decoded = {path: decode_png(path) for path in tree["images"]}
-        decode_ms = (time.perf_counter() - t_dec) * 1e3 / TREE_FRAMES
-        for path, img in tree["images"].items():
-            assert np.array_equal(decoded[path], img), \
-                f"decode_png differs: {path}"
-        props = os.path.join(root, "props", "data")
-        write_predictions(props, tree["boxes"])
+    tree = write_kitti_tree(root)
+    # g++ builds the PNG row filter at first use: time it apart
+    t_png = time.perf_counter()
+    _build.build_host(_build.CSRC / "png_unfilter.cpp", shared=True)
+    png_build_s = time.perf_counter() - t_png
+    t_dec = time.perf_counter()
+    decoded = {path: decode_png(path) for path in tree["images"]}
+    decode_ms = (time.perf_counter() - t_dec) * 1e3 / TREE_FRAMES
+    for path, img in tree["images"].items():
+        assert np.array_equal(decoded[path], img), \
+            f"decode_png differs: {path}"
+    props = os.path.join(root, "props", "data")
+    write_predictions(props, tree["boxes"])
 
-        scfg = StereoConfig()
-        save_checkpoint(os.path.join(root, "stereo"), create_stereo_state(
-            StereoNet(scfg, device=dev,
-                      generator=torch.Generator().manual_seed(0)),
-            TrainConfig()), scfg, 0)
-        # the filter gate opened, so the seeded model's updates are
-        # written (its NCF would reject them all)
-        vcfg = flagship_vernier_config(filter_min=-1e9, filter_max=1e9)
-        save_checkpoint(os.path.join(root, "vernier"), create_train_state(
-            VernierScale(vcfg, device=dev,
-                         generator=torch.Generator().manual_seed(0)),
-            vcfg, TrainConfig()), vcfg, 0)
-        torch.cuda.empty_cache()
+    scfg = StereoConfig()
+    save_checkpoint(os.path.join(root, "stereo"), create_stereo_state(
+        StereoNet(scfg, device=dev,
+                  generator=torch.Generator().manual_seed(0)),
+        TrainConfig()), scfg, 0)
+    # the filter gate opened, so the seeded model's updates are
+    # written (its NCF would reject them all)
+    vcfg = flagship_vernier_config(filter_min=-1e9, filter_max=1e9)
+    save_checkpoint(os.path.join(root, "vernier"), create_train_state(
+        VernierScale(vcfg, device=dev,
+                     generator=torch.Generator().manual_seed(0)),
+        vcfg, TrainConfig()), vcfg, 0)
+    torch.cuda.empty_cache()
 
-        # stage 1: detect the split
-        max_boxes = 8
+    # stage 1: detect the split
+    max_boxes = 8
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cli_detect.main([
+        "--device", str(dev),
+        "--model_dir", os.path.join(root, "stereo"), "--data_path", root,
+        "--output_dir", os.path.join(root, "stage1"),
+        "--score_threshold", "0", "--max_boxes", str(max_boxes),
+        "--prefetch", "2"])
+    torch.cuda.synchronize()
+    s1 = time.perf_counter() - t1
+    counts1 = read_counts()
+    assert counts1 == counts_of(K3=TREE_FRAMES, K4=TREE_FRAMES), \
+        f"stage 1 launch counts {counts1}"
+    stage1 = os.path.join(root, "stage1", "data")
+    n_props = []
+    for f in sorted(os.listdir(stage1)):
+        labs = read_label(os.path.join(stage1, f))
+        assert len(labs) <= max_boxes, f"{f}: {len(labs)} lines"
+        assert all(np.isfinite(l.box3d).all() for l in labs), f
+        n_props.append(len(labs))
+    assert len(n_props) == TREE_FRAMES, n_props
+
+    # stage 2 (a): refine the noisy-GT proposals, prefetch 2 and 0
+    def refine(pred_dir, out, prefetch, *extra):
         reset_counts()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cli_detect.main([
+        t2 = time.perf_counter()
+        cli_refine.main([
             "--device", str(dev),
-            "--model_dir", os.path.join(root, "stereo"), "--data_path", root,
-            "--output_dir", os.path.join(root, "stage1"),
-            "--score_threshold", "0", "--max_boxes", str(max_boxes),
-            "--prefetch", "2"])
+            "--model_dir", os.path.join(root, "vernier"),
+            "--data_path", root, "--pred_dir", pred_dir,
+            "--output_dir", os.path.join(root, out),
+            "--pred_type", "one_part", "all_parts",
+            "--prefetch", str(prefetch), *extra])
         torch.cuda.synchronize()
-        s1 = time.perf_counter() - t1
-        counts1 = read_counts()
-        assert counts1 == counts_of(K3=TREE_FRAMES, K4=TREE_FRAMES), \
-            f"stage 1 launch counts {counts1}"
-        stage1 = os.path.join(root, "stage1", "data")
-        n_props = []
-        for f in sorted(os.listdir(stage1)):
-            labs = read_label(os.path.join(stage1, f))
-            assert len(labs) <= max_boxes, f"{f}: {len(labs)} lines"
-            assert all(np.isfinite(l.box3d).all() for l in labs), f
-            n_props.append(len(labs))
-        assert len(n_props) == TREE_FRAMES, n_props
+        return time.perf_counter() - t2, read_counts()
 
-        # stage 2 (a): refine the noisy-GT proposals, prefetch 2 and 0
-        def refine(pred_dir, out, prefetch, *extra):
-            reset_counts()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            cli_refine.main([
-                "--device", str(dev),
-                "--model_dir", os.path.join(root, "vernier"),
-                "--data_path", root, "--pred_dir", pred_dir,
-                "--output_dir", os.path.join(root, out),
-                "--pred_type", "one_part", "all_parts",
-                "--prefetch", str(prefetch), *extra])
-            torch.cuda.synchronize()
-            return time.perf_counter() - t2, read_counts()
+    s2, counts2 = refine(props, "refined", 2)
+    n_inst = TREE_FRAMES * TREE_BOXES
+    batches = TREE_FRAMES  # one frame a batch: 3 cars in 4 slots
+    assert counts2 == counts_of(K1=batches, K2=3 * batches), \
+        f"stage 2 launch counts {counts2}"
+    refined = read_dir(os.path.join(root, "refined", "all_parts", "data"))
+    assert refined != read_dir(props), "no box moved"
+    for f, text in read_dir(props).items():
+        assert len(refined[f].splitlines()) == len(text.splitlines()), f
+    s2_sync, _ = refine(props, "refined_sync", 0)
+    for t_ in ("one_part", "all_parts"):
+        a = read_dir(os.path.join(root, "refined", t_, "data"))
+        b = read_dir(os.path.join(root, "refined_sync", t_, "data"))
+        assert a == b, f"{t_}: prefetch 2 and 0 wrote different files"
 
-        s2, counts2 = refine(props, "refined", 2)
-        n_inst = TREE_FRAMES * TREE_BOXES
-        batches = TREE_FRAMES  # one frame a batch: 3 cars in 4 slots
-        assert counts2 == counts_of(K1=batches, K2=3 * batches), \
-            f"stage 2 launch counts {counts2}"
-        refined = read_dir(os.path.join(root, "refined", "all_parts", "data"))
-        assert refined != read_dir(props), "no box moved"
-        for f, text in read_dir(props).items():
-            assert len(refined[f].splitlines()) == len(text.splitlines()), f
-        s2_sync, _ = refine(props, "refined_sync", 0)
-        for t_ in ("one_part", "all_parts"):
-            a = read_dir(os.path.join(root, "refined", t_, "data"))
-            b = read_dir(os.path.join(root, "refined_sync", t_, "data"))
-            assert a == b, f"{t_}: prefetch 2 and 0 wrote different files"
+    # stage 2 (b): stage 1's own proposals, 2 batches
+    _, counts3 = refine(stage1, "chained", 2, "--max_batches", "2")
+    assert counts3 == counts_of(K1=2, K2=6), f"chained counts {counts3}"
 
-        # stage 2 (b): stage 1's own proposals, 2 batches
-        _, counts3 = refine(stage1, "chained", 2, "--max_batches", "2")
-        assert counts3 == counts_of(K1=2, K2=6), f"chained counts {counts3}"
-
-        # score: the evaluator (built here with g++) on the GT as
-        # predictions and on the noisy proposals, each against JAX's
-        # value, then on stage 2 (a)'s output
-        t_build = time.perf_counter()
-        build_evaluator()
-        build_s = time.perf_counter() - t_build
-        gt_dir = os.path.join(root, "training", "label_2")
-        write_gt_as_predictions(gt_dir, os.path.join(root, "gt_as_pred"))
-        for res_dir, want in (("gt_as_pred", GT_AS_PRED_AP3D),
-                              ("props", PROPOSALS_AP3D)):
-            got = cli_evaluate.main([gt_dir, os.path.join(
-                root, res_dir)])["car"]["detection_3d"]
-            assert got == want, f"{res_dir}: AP3D {got} != JAX's {want}"
-        res = cli_evaluate.main([gt_dir, os.path.join(root, "refined",
-                                                      "all_parts")])
-        metrics = ("detection", "detection_ground", "detection_3d",
-                   "orientation")
-        assert all(len(res["car"][m]["ap40"]) == 3 for m in metrics), res
-        phase("two_stage", t, decode_ms_per_frame=f"{decode_ms:.2f}",
-              stage1_cli_wall_s=f"{s1:.3f}",
-              stage1_proposals=",".join(map(str, n_props)),
-              stage2_cli_wall_s_prefetch2=f"{s2:.3f}",
-              stage2_cli_wall_s_prefetch0=f"{s2_sync:.3f}",
-              evaluator_build_s=f"{build_s:.2f}",
-              png_helper_build_s=f"{png_build_s:.2f}",
-              refined_ap3d_ap40=",".join(map(
-                  str, res["car"]["detection_3d"]["ap40"])),
-              note=repr(f"CLI wall seconds for {TREE_FRAMES} frames / "
-                        f"{n_inst} instances, checkpoint load and first "
-                        "call included"),
-              nvidia_smi=repr(smi),
-              launches=json.dumps(dict(stage1=counts1, refine=counts2,
-                                       chained=counts3)).replace(" ", ""))
-        check_two_stage_warm(root, props, dev)
+    # score: the evaluator (built here with g++) on the GT as
+    # predictions and on the noisy proposals, each against JAX's
+    # value, then on stage 2 (a)'s output
+    t_build = time.perf_counter()
+    build_evaluator()
+    build_s = time.perf_counter() - t_build
+    gt_dir = os.path.join(root, "training", "label_2")
+    write_gt_as_predictions(gt_dir, os.path.join(root, "gt_as_pred"))
+    for res_dir, want in (("gt_as_pred", GT_AS_PRED_AP3D),
+                          ("props", PROPOSALS_AP3D)):
+        got = cli_evaluate.main([gt_dir, os.path.join(
+            root, res_dir)])["car"]["detection_3d"]
+        assert got == want, f"{res_dir}: AP3D {got} != JAX's {want}"
+    res = cli_evaluate.main([gt_dir, os.path.join(root, "refined",
+                                                  "all_parts")])
+    metrics = ("detection", "detection_ground", "detection_3d",
+               "orientation")
+    assert all(len(res["car"][m]["ap40"]) == 3 for m in metrics), res
+    phase("two_stage", t, decode_ms_per_frame=f"{decode_ms:.2f}",
+          stage1_cli_wall_s=f"{s1:.3f}",
+          stage1_proposals=",".join(map(str, n_props)),
+          stage2_cli_wall_s_prefetch2=f"{s2:.3f}",
+          stage2_cli_wall_s_prefetch0=f"{s2_sync:.3f}",
+          evaluator_build_s=f"{build_s:.2f}",
+          png_helper_build_s=f"{png_build_s:.2f}",
+          refined_ap3d_ap40=",".join(map(
+              str, res["car"]["detection_3d"]["ap40"])),
+          note=repr(f"CLI wall seconds for {TREE_FRAMES} frames / "
+                    f"{n_inst} instances, checkpoint load and first "
+                    "call included"),
+          nvidia_smi=repr(smi),
+          launches=json.dumps(dict(stage1=counts1, refine=counts2,
+                                   chained=counts3)).replace(" ", ""))
+    check_two_stage_warm(root, props, dev)
     torch.cuda.empty_cache()
     return dict(counts=counts2)
 
@@ -1899,6 +1918,158 @@ def check_two_stage_warm(root: str, props: str, dev) -> None:
           nvidia_smi=repr(nvidia_smi()))
 
 
+# --------------------------------------------------------- train_cli ----
+def check_train_cli(dev, root: str) -> dict:
+    """Both training CLIs (``main(argv)``) on the tree ``check_two_stage``
+    wrote under ``root``, at full width, each run into an experiment
+    directory under ``root`` (a temporary directory): train_vernier at its
+    default config (VernierConfig(usage="train", sup_type="synthetic"), 8
+    instances, bf16) for 4 steps and then --resume to 6; with the offset
+    and bbox heads for 2 steps; train_stereo at StereoConfig(), batch 1,
+    --augment_flip --photometric_aug, for 4 steps; then detect on the
+    trained stereo directory and inference_agnostic --report_loss on the
+    trained Vernier one (the GT as proposals).  Warm-up 500 steps, so the
+    rate stays near 0: the gates are the counters, finite losses and
+    gradients, the resume and the files, not a falling loss."""
+    t = time.perf_counter()
+    smi = nvidia_smi()
+    torch.backends.cudnn.allow_tf32 = True  # the card's defaults
+    runs = os.path.join(root, "runs")
+    common = ["--device", str(dev), "--data_path", root, "--split", "val",
+              "--log_every", "1"]
+    total = counts_of()
+    timing = {}
+
+    def run(name, cli, argv, steps, want):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = cli(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts == want, f"{name}: launch counts {counts}"
+        for k, v in counts.items():
+            total[k] += v
+        assert rec["step"] - rec["start_step"] == steps, name
+        assert len(rec["metrics"]) == steps, name
+        for m in rec["metrics"]:
+            assert all(math.isfinite(v) for v in m.values()), f"{name}: {m}"
+        ckpt = os.path.join(argv[argv.index("--model_dir") + 1],
+                            "checkpoints", f"{rec['step']}.pt")
+        timing[name] = dict(
+            median_step_ms=float(np.median(rec["step_s"])) * 1e3,
+            wall_s=wall, save_s=rec["save_s"][-1],
+            checkpoint_mb=os.path.getsize(ckpt) / 2 ** 20)
+        return rec
+
+    def per_step(n, **kw):
+        return counts_of(**{k: v * n for k, v in kw.items()})
+
+    vernier = dict(K1=1, K1_bwd=1, K2=3, K2_dx=3, K2_dw=3)
+    vdir = os.path.join(runs, "vernier")
+    r1 = run("train_vernier", cli_train_vernier.main,
+             ["--model_dir", vdir, "--steps", "4"], 4, per_step(4, **vernier))
+    # what --resume loads is the state the run ended with, bit for bit
+    cfg = VernierConfig(usage="train", sup_type="synthetic")
+    fresh = create_train_state(VernierScale(cfg, device=dev), cfg,
+                               TrainConfig())
+    _, at = load_checkpoint(os.path.join(vdir, "checkpoints"), fresh)
+    assert at == 4 and fresh.step == r1["state"].step == 4
+    assert_states_equal(fresh, r1["state"])
+    del fresh, r1
+    r2 = run("train_vernier_resume", cli_train_vernier.main,
+             ["--model_dir", vdir, "--steps", "6", "--resume"], 2,
+             per_step(2, **vernier))
+    assert r2["start_step"] == 4 and r2["step"] == 6
+    with open(os.path.join(vdir, "metrics.jsonl")) as fh:
+        steps = [json.loads(line)["step"] for line in fh]
+    assert steps == [1, 2, 3, 4, 5, 6], steps
+    ckpts = sorted(os.listdir(os.path.join(vdir, "checkpoints")))
+    assert ckpts == ["4.pt", "6.pt", "config.json"], ckpts
+    del r2
+
+    heads = os.path.join(root, "heads.json")
+    with open(heads, "w") as fh:
+        json.dump(dataclasses.asdict(cfg.replace(
+            use_bbox_head=True, use_part_reg_head=True)), fh)
+    r3 = run("train_vernier_heads", cli_train_vernier.main,
+             ["--model_dir", os.path.join(runs, "heads"), "--config", heads,
+              "--steps", "2"], 2, per_step(2, **vernier))
+    assert all("offset" in m and "bbox" in m for m in r3["metrics"])
+    head_grads = [p.grad for n, p in r3["state"].model.named_parameters()
+                  if "FCModel" in n or "Conv3d_1" in n or "ConvNorm3d_5" in n]
+    assert head_grads and all(torch.isfinite(g).all() for g in head_grads)
+    del r3, head_grads
+    torch.cuda.empty_cache()
+
+    sdir = os.path.join(runs, "stereo")
+    r4 = run("train_stereo", cli_train_stereo.main,
+             ["--model_dir", sdir, "--steps", "4", "--augment_flip",
+              "--photometric_aug"], 4,
+             per_step(4, K3=1, K3_bwd=1, K4=1, K4_bwd=1))
+    assert all(m["depth"] > 0 and m["num_pos"] > 0 for m in r4["metrics"])
+    del r4
+    torch.cuda.empty_cache()
+
+    # the serving CLIs take the trained directories
+    reset_counts()
+    cli_detect.main(["--device", str(dev), "--model_dir", sdir,
+                     "--data_path", root, "--output_dir",
+                     os.path.join(root, "stage1_trained")])
+    counts = read_counts()
+    assert counts == counts_of(K3=TREE_FRAMES, K4=TREE_FRAMES), counts
+    for k, v in counts.items():
+        total[k] += v
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_refine.main([
+        "--device", str(dev), "--model_dir", vdir, "--data_path", root,
+        "--pred_dir", os.path.join(root, "gt_as_pred", "data"),
+        "--output_dir", os.path.join(root, "refined_trained"),
+        "--report_loss"])
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    counts = read_counts()
+    batches = TREE_FRAMES  # one frame a batch
+    assert counts == counts_of(K1=batches, K2=3 * batches), counts
+    for k, v in counts.items():
+        total[k] += v
+    assert len(res["losses"]) == batches, res["losses"]
+    for m in res["losses"]:
+        assert all(math.isfinite(v) for v in m.values()), m
+    torch.cuda.empty_cache()
+    phase("train_cli", t,
+          **{f"{name}_{k}": f"{v:.3f}" for name, d in timing.items()
+             for k, v in d.items()},
+          report_loss_wall_s=f"{report_s:.3f}",
+          val_total=",".join(f"{m['total']:.4f}" for m in res["losses"]),
+          note=repr("median step ms: wall per step, batch building "
+                    "included (--log_every 1 syncs each step); save_s / "
+                    "checkpoint_mb: the last checkpoint; wall_s: the CLI, "
+                    "model build and data included"),
+          nvidia_smi=repr(smi),
+          launches=json.dumps(total).replace(" ", ""))
+    return dict(counts=total)
+
+
+def assert_states_equal(a, b) -> None:
+    """Two TrainStates with the same step, parameters, BatchNorm
+    statistics and AdamW state, bit for bit."""
+    assert a.step == b.step, (a.step, b.step)
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    assert list(sa) == list(sb)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), f"state differs: {k}"
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert oa["param_groups"] == ob["param_groups"]
+    assert oa["state"] and list(oa["state"]) == list(ob["state"])
+    for i, st in oa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v.cpu(), ob["state"][i][k].cpu()), \
+                f"optimizer state differs: {i} {k}"
+
+
 def main() -> int:
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1945,54 +2116,61 @@ def main() -> int:
     k4_bwd = check_k4_bwd(gen, dev)
     check_stereo_train_reference(dev)
     stereo_train = check_stereo_train(dev, profile=profile)
-    check_two_stage(dev)
+    with tempfile.TemporaryDirectory() as root:
+        check_two_stage(dev, root)
+        cli = check_train_cli(dev, root)["counts"]
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:217",
-             launches=serving["counts"]["K1"], bound_by="bytes", **k1),
+             launches=serving["counts"]["K1"] + cli["K1"], bound_by="bytes",
+             **k1),
         dict(name="conv3d_large_tap", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:236",
-             launches=serving["counts"]["K2"], bound_by="operations", **k2),
+             launches=serving["counts"]["K2"] + cli["K2"],
+             bound_by="operations", **k2),
         dict(name="plane_sweep_volume", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
              replaces="snvc_tpu/ops/cost_volume.py:119",
-             launches=detect["counts"]["K3"], bound_by="bytes", **k3),
+             launches=detect["counts"]["K3"] + cli["K3"], bound_by="bytes",
+             **k3),
         dict(name="frustum_to_voxel", route="cuda",
              source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
              replaces="snvc_tpu/ops/frustum_pallas.py:125",
-             launches=detect["counts"]["K4"], bound_by="bytes", **k4),
+             launches=detect["counts"]["K4"] + cli["K4"], bound_by="bytes",
+             **k4),
         dict(name="stereo_voxel_sample_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:329",
-             launches=train["counts"]["K1_bwd"], bound_by="bytes", **k1_bwd),
+             launches=train["counts"]["K1_bwd"] + cli["K1_bwd"],
+             bound_by="bytes", **k1_bwd),
         dict(name="conv3d_large_tap_dx", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
-             launches=train["counts"]["K2_dx"], bound_by="operations",
-             **k2_bwd["dx"]),
+             launches=train["counts"]["K2_dx"] + cli["K2_dx"],
+             bound_by="operations", **k2_bwd["dx"]),
         dict(name="conv3d_weight_grad", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_weight_grad.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
-             launches=train["counts"]["K2_dw"], bound_by="operations",
-             **k2_bwd["dw"]),
+             launches=train["counts"]["K2_dw"] + cli["K2_dw"],
+             bound_by="operations", **k2_bwd["dw"]),
         dict(name="conv3d_k3", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_pallas.py:118",
-             launches=train["counts"]["K5"] + serving["counts"]["K5"],
-             bound_by="operations", **k5),
+             launches=(train["counts"]["K5"] + serving["counts"]["K5"]
+                       + cli["K5"]), bound_by="operations", **k5),
         dict(name="plane_sweep_volume_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
              replaces="snvc_tpu/ops/cost_volume.py:160",
-             launches=stereo_train["counts"]["K3_bwd"], bound_by="bytes",
-             **k3_bwd),
+             launches=stereo_train["counts"]["K3_bwd"] + cli["K3_bwd"],
+             bound_by="bytes", **k3_bwd),
         dict(name="frustum_to_voxel_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
              replaces="snvc_tpu/ops/frustum_pallas.py:271",
-             launches=stereo_train["counts"]["K4_bwd"], bound_by="bytes",
-             **k4_bwd),
+             launches=stereo_train["counts"]["K4_bwd"] + cli["K4_bwd"],
+             bound_by="bytes", **k4_bwd),
     ]
     print(f"[total] {time.perf_counter() - T0:.2f}s")
     print(json.dumps({"kernels": kernels}))

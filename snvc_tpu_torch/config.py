@@ -1,6 +1,6 @@
 """Typed configuration for the port (copy of the fields of
-snvc_tpu/config.py:116-230, :264-348 and :351-359 that the serving slices,
-the data pipelines and Vernier training read).
+snvc_tpu/config.py:116-230, :264-348 and :351-362 that serving, the data
+pipelines and the two trainings read).
 
 Frozen dataclasses, as in the JAX package; nothing here imports JAX or
 snvc_tpu.  ``load_config`` reads a ``config.json`` written by either
@@ -178,16 +178,20 @@ def flagship_vernier_config(**overrides) -> VernierConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and loss weights of training (JAX TrainConfig); the
+    """Training settings (JAX TrainConfig, same fields and defaults); the
     stereo step reads the optimizer's fields."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-4
     warmup_steps: int = 500
     total_steps: int = 80000
+    batch_size: int = 8  # global batch (instances for vernier, pairs for stereo)
     occupancy_weight: float = 1.0
     coordinate_weight: float = 0.1
     grad_clip: float = 10.0
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 1000
 
 
 @dataclass(frozen=True)
@@ -236,6 +240,9 @@ class StereoConfig:
     depth_offset: bool = False
     # score each positive's corners against both pi-rotated orderings
     reg_heading_sym: bool = False
+    # view-consistent colour jitter + PCA lighting in training
+    # (ops/augment.py, training/train_stereo.augment_normalize)
+    photometric_aug: bool = False
     input_size: Tuple[int, int] = (384, 1248)
     compute_dtype: str = "bfloat16"
 
@@ -278,7 +285,7 @@ _UNREAD = {
     "VernierConfig": ("head_reg_type", "aspect_ratio", "save", "debug"),
     "BackboneConfig": ("head_type", "init_weights", "pre_trained_path"),
     "StereoConfig": ("align_corners", "cv_feature_dim", "hourglass_3d",
-                     "num_3d_convs", "photometric_aug"),
+                     "num_3d_convs"),
 }
 # (class, field) -> the one value the port honours; any other is refused
 _REFUSED = {
@@ -286,7 +293,6 @@ _REFUSED = {
     ("VernierConfig", "feature_aggregation"): "concat",
     ("BackboneConfig", "head_type"): "default",
     ("BackboneConfig", "add_xy"): False,
-    ("StereoConfig", "photometric_aug"): False,
 }
 
 C = TypeVar("C")

@@ -13,19 +13,15 @@ import torch
 from snvc_tpu_torch.config import StereoConfig
 from snvc_tpu_torch.data.synthetic import random_box, surface_points
 from snvc_tpu_torch.geometry.calib import Calibration
-from snvc_tpu_torch.utils.device import constant
+from snvc_tpu_torch.ops.augment import normalize
 
-IMG_MEAN = (0.485, 0.456, 0.406)
-IMG_STD = (0.229, 0.224, 0.225)
 # KITTI's native image size, which a smaller input is downscaled from
 KITTI_HW = (375, 1242)
 
 
 def normalize_images(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 [..., 3] -> ImageNet-normalized float32."""
-    mean = constant(IMG_MEAN, img_u8.device)
-    std = constant(IMG_STD, img_u8.device)
-    return (img_u8.float() / 255.0 - mean) / std
+    return normalize(img_u8.float() / 255.0)
 
 
 def check_stereo_projections(P_left, P_right) -> None:

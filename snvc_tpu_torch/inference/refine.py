@@ -1,11 +1,13 @@
-"""Refinement serving runner (port of snvc_tpu/inference/refine.py:187-311,
-``RefineRunner.step`` and ``run``), serving only: no losses, no mesh.
+"""Refinement serving runner (port of snvc_tpu/inference/refine.py:89-118,
+:187-311, ``RefineRunner.step`` and ``run``), one device, no mesh.
 
 One step has the JAX runner's three parts:
   1. ``encode``: ``assemble_instances`` (ROI warps + grid projections) and
      ``VernierEncoder`` (HRNet on both views + stereo voxel sampler, K1);
   2. ``heads``: ``VernierHead`` (BEV_type3; its large-tap convs run K2);
-  3. ``finalize``: ``ncf_to_update`` -> refined boxes.
+  3. ``finalize``: ``ncf_to_update`` -> refined boxes, and with
+     ``with_targets`` the training targets and ``vernier_losses`` against
+     the batch's GT boxes and LiDAR (validation losses).
 
 ``run`` serves a ``RefinementPipeline`` into a ``PredictionWriter``, with
 up to ``prefetch`` batches queued on the card before the oldest one's
@@ -15,20 +17,27 @@ outputs are pulled to the host.
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from snvc_tpu_torch.config import VernierConfig
 from snvc_tpu_torch.data.pipeline import InstanceBatch
+from snvc_tpu_torch.models.losses import vernier_losses
 from snvc_tpu_torch.models.vernier import VernierScale
-from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
+from snvc_tpu_torch.ops.assemble import (
+    assemble_instances,
+    make_grid_local,
+    make_targets,
+)
 from snvc_tpu_torch.ops.registration import ncf_to_update
 from snvc_tpu_torch.utils.device import resolve_device, to_device
 
 _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
                "image_idx", "trans_l", "trans_r", "samples")
+# what the losses read besides
+_TARGET_KEYS = ("valid", "gt_boxes", "points", "points_valid")
 
 
 class RefineRunner:
@@ -36,7 +45,8 @@ class RefineRunner:
     raises without a GPU).  The model is moved to that device."""
 
     # outputs copied to the host as numpy by default: the serving payload
-    HOST_OUTPUTS = ("one_part", "all_parts", "confidence", "keep")
+    # (and the losses, with targets)
+    HOST_OUTPUTS = ("one_part", "all_parts", "confidence", "keep", "losses")
 
     def __init__(self, model: VernierScale, cfg: VernierConfig,
                  device="cuda"):
@@ -45,9 +55,11 @@ class RefineRunner:
         self.model = model.to(self.device).eval()
         self.grid_local = torch.from_numpy(make_grid_local(cfg)).to(self.device)
 
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch, with_targets: bool
+                   ) -> Dict[str, torch.Tensor]:
         arrays = batch.arrays() if isinstance(batch, InstanceBatch) else batch
-        return {k: to_device(arrays[k], self.device) for k in _BATCH_KEYS}
+        keys = _BATCH_KEYS + (_TARGET_KEYS if with_targets else ())
+        return {k: to_device(arrays[k], self.device) for k in keys}
 
     def encode(self, arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
         left, right, gpl, gpr = assemble_instances(
@@ -60,58 +72,88 @@ class RefineRunner:
     def heads(self, voxel: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.model.head(voxel)
 
-    def finalize(self, outputs, arrays) -> Dict[str, torch.Tensor]:
+    def finalize(self, outputs, arrays, with_targets: bool = False
+                 ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         upd = ncf_to_update(
             outputs["ncf"], arrays["samples"], cfg.x_range, cfg.z_range,
             coordinates=outputs.get("coordinates"),
             filter_min=cfg.filter_min, filter_max=cfg.filter_max,
             decode=cfg.ncf_decode)
-        return dict(one_part=upd.one_part, all_parts=upd.all_parts,
-                    confidence=upd.confidence, keep=upd.keep,
-                    occupancy=outputs.get("occupancy"), ncf=outputs["ncf"],
-                    coordinates=outputs.get("coordinates"))
+        out = dict(one_part=upd.one_part, all_parts=upd.all_parts,
+                   confidence=upd.confidence, keep=upd.keep,
+                   occupancy=outputs.get("occupancy"), ncf=outputs["ncf"],
+                   coordinates=outputs.get("coordinates"))
+        if with_targets:
+            targets = make_targets(arrays["samples"], arrays["gt_boxes"],
+                                   arrays["points"], arrays["points_valid"],
+                                   self.grid_local, cfg)
+            out["losses"] = vernier_losses(outputs, targets, arrays["valid"],
+                                           cfg)
+        return out
 
     def step(self, batch: Union[InstanceBatch, Mapping[str, np.ndarray]],
-             host_outputs=None) -> Dict:
+             with_targets: bool = False, host_outputs=None) -> Dict:
         """One refinement request.  Returns the outputs dict; the keys in
         ``host_outputs`` (default ``HOST_OUTPUTS``) come back as numpy, the
         dense NCF / occupancy stay tensors on the device.  With
         ``host_outputs=()`` nothing waits for the card: the work is only
-        queued."""
+        queued.  ``with_targets`` adds ``losses``, ``vernier_losses``
+        against the batch's ``gt_boxes`` and LiDAR ``points`` (a dict of
+        0-d values)."""
         with torch.inference_mode():
-            arrays = self._to_device(batch)
-            out = self.finalize(self.heads(self.encode(arrays)), arrays)
+            arrays = self._to_device(batch, with_targets)
+            out = self.finalize(self.heads(self.encode(arrays)), arrays,
+                                with_targets)
         wanted = self.HOST_OUTPUTS if host_outputs is None else host_outputs
         return to_host(out, wanted)
 
-    def run(self, pipeline, writer=None, progress: bool = True,
-            max_batches: Optional[int] = None, prefetch: int = 0) -> None:
+    def run(self, pipeline, writer=None, with_targets: bool = False,
+            progress: bool = True, max_batches: Optional[int] = None,
+            prefetch: int = 0) -> List[Dict[str, float]]:
         """Serve every batch of ``pipeline`` (a ``RefinementPipeline``) and
         hand each batch's host outputs to ``writer.add_batch``, in batch
         order.  ``prefetch > 0`` keeps that many batches queued on the card
         before the oldest one's outputs are pulled, so the host builds the
-        next batches while the card works."""
+        next batches while the card works.  With ``with_targets`` each
+        batch's losses are printed (with ``progress``) and returned, one
+        dict a batch."""
+        loss_log = []
 
         def finish(bi, batch, out):
             out = to_host(out, self.HOST_OUTPUTS)
             if writer is not None:
                 writer.add_batch(batch, out)
+            msg = f"batch {bi}"
+            if with_targets:
+                loss_log.append({k: float(v)
+                                 for k, v in out["losses"].items()})
+                msg += ": " + ", ".join(f"{k}={v:.4f}"
+                                        for k, v in loss_log[-1].items())
             if progress:
-                print(f"batch {bi}")
+                print(msg)
 
         pending = deque()
         for bi, batch in enumerate(pipeline.batches()):
             if max_batches is not None and bi >= max_batches:
                 break
-            pending.append((bi, batch, self.step(batch, host_outputs=())))
+            pending.append((bi, batch, self.step(
+                batch, with_targets=with_targets, host_outputs=())))
             while len(pending) > max(prefetch, 0):
                 finish(*pending.popleft())
         while pending:
             finish(*pending.popleft())
+        return loss_log
 
 
 def to_host(out: Mapping, wanted) -> Dict:
-    """``out`` with the tensors under the keys in ``wanted`` as numpy."""
-    return {k: (v.cpu().numpy() if k in wanted and isinstance(v, torch.Tensor)
-                else v) for k, v in out.items()}
+    """``out`` with the tensors under the keys in ``wanted`` as numpy (a
+    dict of tensors, such as ``losses``, as a dict of numpy)."""
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu().numpy()
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v
+
+    return {k: (host(v) if k in wanted else v) for k, v in out.items()}

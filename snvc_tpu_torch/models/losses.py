@@ -1,9 +1,11 @@
-"""Losses of the Vernier instance model (port of snvc_tpu/models/losses.py:
-17-162, the terms the BEV_type3 head trains with): masked means over a
-fixed-size padded batch with a per-instance validity mask.
-
-The bbox and part-offset terms are not ported: their heads train only
-with targets ``ops/assemble.make_targets`` does not build yet.
+"""Losses of the Vernier instance model (port of snvc_tpu/models/losses.py):
+masked means over a fixed-size padded batch with a per-instance validity
+mask.  ``vernier_losses`` is what the BEV_type3 head trains with: the
+heatmap, occupancy and coordinate terms, the part-offset term with
+``use_part_reg_head`` and the FC bbox head's BEV L1 with
+``use_bbox_head``.  The 3D bbox loss, its approximate 3D IoU and the
+disentangled corner loss are ported beside them; no training path of
+either package calls them.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from snvc_tpu_torch.models.stereo_losses import gt_corners_24
+from snvc_tpu_torch.ops.rotated_iou import pair_overlap
 
 
 def _masked_mean(x, mask):
@@ -53,6 +58,16 @@ def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25):
     return _masked_mean(loss, mask)
 
 
+def offset_loss(offset_pred, offset_target, occupancy_target, valid):
+    """L1 on the part offsets at the foreground voxels (JAX losses.py:51).
+    offset_pred [B, 3*P, nh, nw, nl] (the head's 27 channels), reshaped to
+    offset_target [B, 3, P, nh, nw, nl]; occupancy_target [B, nh, nw, nl]."""
+    err = (offset_pred.reshape(offset_target.shape) - offset_target).abs()
+    fg = (occupancy_target == 1.0)[:, None, None]
+    mask = fg & _per_instance(valid, err)
+    return _masked_mean(err, mask)
+
+
 def coordinate_loss(coords_pred, gt_corners_local, valid, x_range, z_range,
                     weight_l1: float = 1.0):
     """L1 between the sigmoid part coordinates [B, P, 2] and the GT parts'
@@ -78,11 +93,89 @@ def vernier_losses(outputs: Dict, targets: Dict, valid, cfg,
         lo = occupancy_loss(outputs["occupancy"], targets["occupancy"], valid)
         losses["occupancy"] = lo
         total = total + occupancy_weight * lo
+    if outputs.get("offset") is not None and "offset" in targets:
+        loff = offset_loss(outputs["offset"], targets["offset"],
+                           targets["occupancy"], valid)
+        losses["offset"] = loff
+        total = total + loff
     if outputs.get("coordinates") is not None:
         lc = coordinate_loss(outputs["coordinates"],
                              targets["gt_corners_local"], valid, cfg.x_range,
                              cfg.z_range)
         losses["coordinates"] = lc
         total = total + coordinate_weight * lc
+    if outputs.get("bbox") is not None and "gt_box_local" in targets:
+        lb = bbox_loss_2d(outputs["bbox"], targets["gt_box_local"],
+                          valid)["l1"]
+        losses["bbox"] = lb
+        total = total + lb
     losses["total"] = total
     return losses
+
+
+def _bev5_from_box3d(box3d):
+    """box3d [..., 7] -> (cx, cz, l, w, -ry) center-height BEV box."""
+    return torch.stack([box3d[..., 3], box3d[..., 5], box3d[..., 2],
+                        box3d[..., 1], -box3d[..., 6]], dim=-1)
+
+
+def approximated_iou3d(pred_box3d, gt_box3d):
+    """Elementwise 3D IoU as BEV overlap x height overlap (JAX
+    losses.py:178; reference approximated_3d_iou_pt).  [N, 7] x [N, 7]
+    -> [N]."""
+    ov_bev = pair_overlap(_bev5_from_box3d(pred_box3d),
+                          _bev5_from_box3d(gt_box3d))
+    top_p = pred_box3d[:, 4] - pred_box3d[:, 0]
+    top_g = gt_box3d[:, 4] - gt_box3d[:, 0]
+    ymax = torch.minimum(pred_box3d[:, 4], gt_box3d[:, 4])
+    ymin = torch.maximum(top_p, top_g)
+    inter = ov_bev * (ymax - ymin).clamp_min(0.0)
+    vol_p = pred_box3d[:, 0] * pred_box3d[:, 1] * pred_box3d[:, 2]
+    vol_g = gt_box3d[:, 0] * gt_box3d[:, 1] * gt_box3d[:, 2]
+    return inter / (vol_p + vol_g - inter).clamp_min(1e-6)
+
+
+def _smooth_l1(n, beta: float):
+    return torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
+
+
+def bbox_loss_3d(pred_box3d, gt_box3d, valid, beta: float = 0.2):
+    """Smooth-L1 on the 7 box parameters and 1 - IoU3D, over the valid
+    instances (JAX losses.py:198)."""
+    sl1 = _smooth_l1((pred_box3d - gt_box3d).abs(), beta).mean(dim=-1)
+    iou = approximated_iou3d(pred_box3d, gt_box3d)
+    m = valid.to(sl1.dtype)
+    denom = m.sum().clamp_min(1.0)
+    return {"sl1": 0.5 * (sl1 * m).sum() / denom,
+            "IoU3D": ((1.0 - iou) * m).sum() / denom}
+
+
+def bbox_loss_2d(pred_bev5, gt_bev5, valid):
+    """Plain L1 on the BEV box over the valid instances (JAX
+    losses.py:212; reference BboxLoss '2D' branch)."""
+    err = (pred_bev5 - gt_bev5).abs()
+    return {"l1": _masked_mean(err, _per_instance(valid, err))}
+
+
+def disentangled_corner_loss(pred7, target7, weights):
+    """Disentangled corner loss (JAX losses.py:220; reference
+    disentangled_loss): one parameter group at a time (dxyz, dims, angle)
+    of ``pred7`` swapped into ``target7``, each mapped to its 8 corners
+    and held to the target's by smooth-L1, weighted per row.  pred7 /
+    target7 [N, 7] = (dx, dy, dz, h, w, l, theta); weights [N]."""
+
+    def corners(p):
+        box3d = p[:, [3, 4, 5, 0, 1, 2, 6]]  # -> (h, w, l, x, y, z, ry)
+        return gt_corners_24(box3d).reshape(p.shape[0], 24)
+
+    gt_c = corners(target7)
+
+    def sl1(a, b):
+        per = _smooth_l1((a - b).abs(), 1.0 / 9).mean(dim=1)
+        return (per * weights).sum() / weights.sum().clamp_min(1e-6)
+
+    g1 = torch.cat([pred7[:, :3], target7[:, 3:]], dim=1)
+    g2 = torch.cat([target7[:, :3], pred7[:, 3:6], target7[:, 6:]], dim=1)
+    g3 = torch.cat([target7[:, :6], pred7[:, 6:]], dim=1)
+    return (sl1(corners(g1), gt_c) + sl1(corners(g2), gt_c)
+            + sl1(corners(g3), gt_c)) / 3.0

@@ -154,7 +154,11 @@ class VernierHead(nn.Module):
         # module itself would register it twice)
         self._hg3, self._hg2, self._post = hg3, hg2, f"ConvNorm3d_{k}"
 
-    def forward(self, voxel) -> Dict[str, Optional[torch.Tensor]]:
+    def forward(self, voxel,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        """``dropout_generator`` draws the bbox head's dropout masks in
+        train mode (models/fc_model.py)."""
         cfg = self.cfg
         vimg = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(voxel))
@@ -204,7 +208,8 @@ class VernierHead(nn.Module):
         coordinates = self.CoordHead_0(aug)
         bbox = None
         if cfg.use_bbox_head:
-            bbox = self.FCModel_0(coordinates.reshape(N, cfg.num_parts * 2))
+            bbox = self.FCModel_0(coordinates.reshape(N, cfg.num_parts * 2),
+                                  dropout_generator)
         out = dict(ncf=ncf, occupancy=occupancy, offset=offset,
                    coordinates=coordinates, bbox=bbox)
         return {k: (v.float() if v is not None else None)
@@ -232,7 +237,8 @@ class VernierScale(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def forward(self, left_roi, right_roi, grid_proj_left, grid_proj_right):
+    def forward(self, left_roi, right_roi, grid_proj_left, grid_proj_right,
+                dropout_generator: Optional[torch.Generator] = None):
         voxel = self.encoder(left_roi, right_roi, grid_proj_left,
                              grid_proj_right)
-        return self.head(voxel)
+        return self.head(voxel, dropout_generator)

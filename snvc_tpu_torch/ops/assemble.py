@@ -1,7 +1,8 @@
 """On-device batch assembly for the instance path (port of
 snvc_tpu/ops/assemble.py): ROI resampling of both views, the projection of
 the object-centric grid into each ROI, and the training targets (BEV part
-heatmaps, occupancy, part offsets) of the 2D grid type."""
+heatmaps, occupancy, the bbox head's BEV box, part offsets) of the 2D
+grid type."""
 
 from __future__ import annotations
 
@@ -97,17 +98,34 @@ def make_targets(samples, gt_boxes, points, points_valid, grid_local,
                  cfg: VernierConfig):
     """Training targets (JAX assemble.py:180), grid type "2D": ncf
     [B, P, nl, nw] BEV gaussians, occupancy [B, nh, nw, nl] (1 / 0 / -1)
-    and gt_corners_local [B, P, 3].  samples / gt_boxes [B, 7]; points
-    [B, Np, 3]; points_valid [B, Np] bool; grid_local [G, 3]."""
+    and gt_corners_local [B, P, 3]; with ``cfg.use_bbox_head``
+    gt_box_local [B, 5], and with ``cfg.use_part_reg_head`` offset
+    [B, 3, P, nh, nw, nl].  samples / gt_boxes [B, 7]; points [B, Np, 3];
+    points_valid [B, Np] bool; grid_local [G, 3].
+
+    gt_box_local is the 5-dof BEV target of the FC bbox head: the GT
+    center in the sample's object frame, the GT l / w, and pi/2 - (sample
+    ry - GT ry) (reference KITTIRefinement_dataset.py:744-749).  offset is
+    each voxel's displacement to each GT part in the object frame's
+    (w, h, l) axes over the grid's extent (reference offsets_local,
+    :758-766)."""
     if cfg.grid_type != "2D":
         raise NotImplementedError(f"grid_type {cfg.grid_type!r} is not ported")
-    if cfg.use_bbox_head or cfg.use_part_reg_head:
-        raise NotImplementedError("the bbox / part-offset targets are not "
-                                  "ported")
     nh, nw, nl = cfg.grid_resolution
     centers, local = part_centers_in_grid(samples, gt_boxes, cfg)
     ncf = bev_part_heatmaps(centers, (nw, nl), cfg.sigma,
                             quantize=not cfg.ncf_subvoxel)
     occ = occupancy_targets(points, points_valid, samples, gt_boxes,
                             grid_local, (nh, nw, nl), cfg.grid_range)
-    return dict(ncf=ncf, occupancy=occ, gt_corners_local=local)
+    out = dict(ncf=ncf, occupancy=occ, gt_corners_local=local)
+    if cfg.use_bbox_head:
+        out["gt_box_local"] = torch.stack(
+            [local[:, 0, 0], local[:, 0, 2], gt_boxes[:, 2], gt_boxes[:, 1],
+             0.5 * np.pi - (samples[:, 6] - gt_boxes[:, 6])], dim=1)
+    if cfg.use_part_reg_head:
+        B, P = local.shape[:2]
+        gh, gw, gl = cfg.grid_range
+        extent = constant((gw, gh, gl), samples.device)
+        diff = (local[:, :, None, :] - grid_local[None, None]) / extent
+        out["offset"] = diff.permute(0, 3, 1, 2).reshape(B, 3, P, nh, nw, nl)
+    return out

@@ -1,10 +1,12 @@
 """Rotated BEV IoU as fixed-shape masked math (port of the part of
-snvc_tpu/ops/rotated_iou.py that proposal decoding uses).
+snvc_tpu/ops/rotated_iou.py that proposal decoding and the bbox losses
+use).
 
 Per box pair: 24 candidate vertices (the 8 corners that lie inside the
 other box and the 16 edge-edge intersections), a masked angular sort
 around their centroid, and the shoelace area.  No data-dependent control
-flow, so every pair of a [N, M] set is computed at once.
+flow, so every pair of a [N, M] set (or of two [N] lists) is computed at
+once.
 
 BEV box convention: (cx, cz, w = along the heading, h = across, angle),
 angle counter-clockwise positive; ``bev_from_box3d`` converts KITTI boxes
@@ -98,19 +100,24 @@ def _masked_convex_area(pts, mask):
     return 0.5 * cross.sum(-1).abs()
 
 
-def bev_overlap(boxes_a, boxes_b):
-    """Pairwise intersection areas [N, M] of BEV boxes [N, 5] x [M, 5]."""
-    N, M = boxes_a.shape[0], boxes_b.shape[0]
-    a = boxes_a[:, None].expand(N, M, 5)
-    b = boxes_b[None, :].expand(N, M, 5)
-    ca, cb = bev_corners(a), bev_corners(b)
+def pair_overlap(boxes_a, boxes_b):
+    """Intersection areas [...] of BEV boxes paired elementwise,
+    [..., 5] x [..., 5] (JAX ``_pair_overlap``)."""
+    ca, cb = bev_corners(boxes_a), bev_corners(boxes_b)
     ipts, ivalid = _edge_intersections(ca, cb)
-    pts = torch.cat([ca, cb, ipts], dim=-2)  # [N, M, 24, 2]
-    mask = torch.cat([_points_in_rect(ca, b), _points_in_rect(cb, a), ivalid],
-                     dim=-1)
+    pts = torch.cat([ca, cb, ipts], dim=-2)  # [..., 24, 2]
+    mask = torch.cat([_points_in_rect(ca, boxes_b),
+                      _points_in_rect(cb, boxes_a), ivalid], dim=-1)
     area = _masked_convex_area(pts, mask)
     # fewer than 3 vertices -> no overlap
     return torch.where(mask.sum(-1) >= 3, area, torch.zeros_like(area))
+
+
+def bev_overlap(boxes_a, boxes_b):
+    """Pairwise intersection areas [N, M] of BEV boxes [N, 5] x [M, 5]."""
+    N, M = boxes_a.shape[0], boxes_b.shape[0]
+    return pair_overlap(boxes_a[:, None].expand(N, M, 5),
+                        boxes_b[None, :].expand(N, M, 5))
 
 
 def bev_iou(boxes_a, boxes_b):

@@ -9,7 +9,9 @@ The two-stage pipeline end to end:
   python -m snvc_tpu_torch.tools.evaluate data/kitti/training/label_2 \
       outputs/all_parts
 
-``--model_dir`` holds ``<step>.pt`` and ``config.json`` (a StereoConfig).
+``--model_dir`` holds ``config.json`` (a StereoConfig) and the
+checkpoints: ``checkpoints/<step>.pt`` as ``train_stereo`` writes them, or
+``<step>.pt`` beside the config.
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions.
 """
 

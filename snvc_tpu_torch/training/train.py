@@ -22,7 +22,8 @@ The optimizer is written to optax's semantics (JAX train.py:44-55):
 The model's parameters, BatchNorm statistics and the optimizer's moments
 live in torch objects and are updated in place; ``TrainState`` holds them
 with the step count.  Checkpoints are ``torch.save`` files with the
-config's JSON beside them.
+config's JSON beside them, for either model.  The bbox head's dropout
+draws from a generator seeded per step (``dropout_generator``).
 """
 
 from __future__ import annotations
@@ -98,9 +99,6 @@ def make_optimizer(model: nn.Module, tc: TrainConfig) -> torch.optim.AdamW:
 def create_train_state(model: VernierScale, cfg: VernierConfig,
                        tc: TrainConfig) -> TrainState:
     """Puts ``model`` in train mode and pairs it with a new optimizer."""
-    if cfg.use_bbox_head or cfg.use_part_reg_head:
-        raise NotImplementedError("training the bbox / part-offset heads is "
-                                  "not ported")
     model.train()
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(model, tc))
@@ -114,12 +112,20 @@ def batch_to_device(batch: Mapping[str, np.ndarray],
             for k in BATCH_KEYS}
 
 
+def dropout_generator(device, seed: int, step: int) -> torch.Generator:
+    """The generator of the bbox head's dropout masks at ``step``, on
+    ``device``: seeded by (seed, step), so a resumed run draws the masks
+    an unbroken run draws.  (JAX splits a key per step in its CLI.)"""
+    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + step)
+
+
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                cfg: VernierConfig, tc: TrainConfig,
                grid_local: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One step on ``batch`` (tensors on the model's device): updates
     ``state`` in place and returns the losses and the gradients' global
-    norm (before clipping), as 0-d tensors."""
+    norm (before clipping), as 0-d tensors.  The bbox head's dropout
+    draws from ``dropout_generator(tc.seed, state.step)``."""
     model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
@@ -128,7 +134,9 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     targets = make_targets(batch["samples"], batch["gt_boxes"],
                            batch["points"], batch["points_valid"], grid_local,
                            cfg)
-    outputs = model(left, right, gpl, gpr)
+    gen = (dropout_generator(grid_local.device, tc.seed, state.step)
+           if cfg.use_bbox_head else None)
+    outputs = model(left, right, gpl, gpr, dropout_generator=gen)
     losses = vernier_losses(outputs, targets, batch["valid"], cfg,
                             occupancy_weight=tc.occupancy_weight,
                             coordinate_weight=tc.coordinate_weight)
@@ -168,10 +176,12 @@ def make_train_step(cfg: VernierConfig, tc: TrainConfig, device):
                              grid_local=grid_local)
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: VernierConfig,
+def save_checkpoint(ckpt_dir: str, state: TrainState, cfg,
                     step: int) -> str:
-    """``ckpt_dir/<step>.pt`` holding the parameters, BatchNorm statistics
-    and optimizer state, and ``ckpt_dir/config.json``.  Returns the file."""
+    """``ckpt_dir/<step>.pt`` holding the step count, the parameters,
+    BatchNorm statistics and AdamW state (moments and per-parameter step
+    counts), and ``ckpt_dir/config.json`` (``cfg``: a VernierConfig or a
+    StereoConfig).  Returns the file."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"{step}.pt")
     torch.save(dict(step=state.step, model=state.model.state_dict(),
@@ -184,7 +194,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: VernierConfig,
 def load_checkpoint(ckpt_dir: str, state: Optional[TrainState] = None):
     """The latest checkpoint of ``ckpt_dir``: returns (tree, step), where
     tree holds ``model`` and ``optimizer`` state dicts; with ``state``,
-    also restores them into it."""
+    also restores them into it, bit for bit, with its step count (which
+    sets the next step's rate)."""
     steps = [int(f[:-3]) for f in os.listdir(ckpt_dir)
              if f.endswith(".pt") and f[:-3].isdigit()]
     if not steps:

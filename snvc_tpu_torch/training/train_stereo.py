@@ -1,8 +1,8 @@
 """Training step of the global stereo detector (port of
 snvc_tpu/training/train_stereo.py, one device, no mesh).
 
-One step does what the JAX ``stereo_train_step`` does: image
-normalization, the StereoNet forward in train mode (the plane sweep K3
+One step does what the JAX ``stereo_train_step`` does: the photometric
+jitter (``cfg.photometric_aug``) and image normalization, the StereoNet forward in train mode (the plane sweep K3
 and the frustum resample K4 with their backward kernels on the card;
 BatchNorm statistics of the small backbones move inside the forward),
 on-device RPN target assignment, depth supervision, the backward, and
@@ -27,10 +27,7 @@ import numpy as np
 import torch
 
 from snvc_tpu_torch.config import StereoConfig, TrainConfig
-from snvc_tpu_torch.data.stereo import (
-    check_stereo_projections,
-    normalize_images,
-)
+from snvc_tpu_torch.data.stereo import check_stereo_projections
 from snvc_tpu_torch.models.stereo_losses import (
     depth_multistage_sl1_loss,
     depth_sl1_loss,
@@ -38,6 +35,7 @@ from snvc_tpu_torch.models.stereo_losses import (
     rpn3d_loss,
 )
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
+from snvc_tpu_torch.ops.augment import color_jitter, draw_jitter, normalize
 from snvc_tpu_torch.training.train import (
     TrainState,
     apply_gradients,
@@ -49,12 +47,22 @@ STEREO_BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
 
 
 def augment_normalize(img_l_u8, img_r_u8, cfg: StereoConfig, step: int):
-    """ImageNet normalization of both views.  JAX first applies the
-    view-consistent photometric jitter when ``cfg.photometric_aug`` is
-    set; the port has neither that field nor ``ops/augment.py`` yet, and
-    a config that adds the field must raise NotImplementedError here
-    until they are ported."""
-    return normalize_images(img_l_u8), normalize_images(img_r_u8)
+    """The photometric jitter when ``cfg.photometric_aug`` is set, then
+    ImageNet normalization of both views (JAX train_stereo.py:44-63).
+
+    Both views get the same draw, so appearance moves without corrupting
+    the left / right comparison of the plane sweep; the draw is one per
+    step, shared across the batch.  It comes from a generator seeded by
+    ``step``, so a resumed run draws what an unbroken run draws.  JAX
+    keys it by ``PRNGKey(step)``: the draws differ from JAX's (see
+    ops/augment.py)."""
+    left = img_l_u8.float() / 255.0
+    right = img_r_u8.float() / 255.0
+    if cfg.photometric_aug:
+        jitter = draw_jitter(torch.Generator().manual_seed(step))
+        left = color_jitter(left, jitter)
+        right = color_jitter(right, jitter)
+    return normalize(left), normalize(right)
 
 
 def _depth_loss(out, depth_gt, cfg: StereoConfig):

@@ -113,6 +113,17 @@ def test_walk_covers_stereo_training():
             "snvc_tpu_torch.training.train_stereo"} <= names
 
 
+def test_walk_covers_the_training_clis():
+    """The walk above imports the training CLIs and what they added."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.tools.train_vernier",
+            "snvc_tpu_torch.tools.train_stereo",
+            "snvc_tpu_torch.tools._train_loop",
+            "snvc_tpu_torch.ops.augment",
+            "snvc_tpu_torch.utils.seeding"} <= names
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout
 

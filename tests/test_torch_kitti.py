@@ -186,7 +186,7 @@ def test_every_jax_field_is_held_or_listed_unread(cls, jcls):
 
 
 @pytest.mark.parametrize("cls,key,value", [
-    (tconfig.StereoConfig, "photometric_aug", True),
+    (tconfig.StereoConfig, "no_such_field", True),
     (tconfig.VernierConfig, "vernier_type", "BEV_type2"),
     (tconfig.VernierConfig, "feature_aggregation", "concat-atten"),
     (tconfig.VernierConfig, "backbone.head_type", "heatmap_regression"),
@@ -203,3 +203,12 @@ def test_load_config_refuses(tmp_path, cls, key, value):
     p.write_text(json.dumps(d))
     with pytest.raises(ValueError, match=key.split(".")[-1]):
         tconfig.load_config(str(p), cls)
+
+
+def test_load_config_takes_photometric_aug(tmp_path):
+    """A stereo config.json with the jitter on loads with it on (the port
+    trains with it: training/train_stereo.augment_normalize)."""
+    d = dataclasses.asdict(jconfig.StereoConfig(photometric_aug=True))
+    p = tmp_path / "config.json"
+    p.write_text(json.dumps(d))
+    assert tconfig.load_config(str(p), tconfig.StereoConfig).photometric_aug
