@@ -24,7 +24,10 @@ Phases, each printing one line with its elapsed seconds:
                version (small shapes with shared and per-sample shift
                tables, shifts of 0, integer, fractional and past the row;
                the detect shape with a [2, 64] table), with kernel / plain
-               times and the memory bound;
+               / library times and the memory bound; the library call
+               (a 5-D F.grid_sample of the right half + a cat, bf16) is
+               first held to the plain version in float32 at the edge
+               table (its relative error printed);
   6. K4      - the frustum -> voxel kernel against its plain version (small
                and detect shapes), with kernel / plain / F.grid_sample
                times and the memory bound;
@@ -74,7 +77,8 @@ Phases, each printing one line with its elapsed seconds:
                shifts; the training shape [1, 64, 96, 312, 64] bf16 at the
                default calibration's table, and N = 2 with a [2, 64] edge
                table), within 2 bf16 ulp of the largest value, with kernel
-               / plain times and the memory bound;
+               / plain / library (K3's library call's backward) times and
+               the memory bound;
  15. K4_bwd  - the frustum resample's backward (d volume: a plan kernel,
                then the main kernel) against its plain version (small
                shapes with per-sample calibration; planes and feature rows
@@ -134,9 +138,25 @@ Phases, each printing one line with its elapsed seconds:
                trained Vernier one with the GT as proposals (K1 = batches,
                K2 = 3 x batches; finite losses a batch); each CLI's median
                step ms, wall seconds and checkpoint save seconds.
+ 21. variants - the other Vernier heads and inputs: K1 and its backward
+               at C = 48 and K2 / dx / dw at the hrnet-w48 head's widths
+               (96 -> 48, 48 -> 48) against their plain versions, with
+               kernel / plain / library times and bounds; a small model of
+               each head (3D, BEV, BEV_type2, BEV_type3 with add_xy and
+               concat-atten) on the card against the CPU, float32 within
+               1e-3 of scale, then bf16 under phase reference's rule;
+               flagship serving (1 warm-up + 3 requests) of BEV_type2 (K1
+               x1, K2 x3 a request), BEV (K1 x1) and w48 (BEV_type3,
+               hrnet-w48, add_xy, concat-atten: K1 x1, K2 x3); the 3D
+               head's forward at the flagship width ([4, 9, 32, 192, 192]
+               finite, K1 x1) and RefineRunner's refusal of it; 8 training
+               steps at VernierConfig() of 3D (grid_type "3D"), BEV_type2,
+               BEV and w48 (per step K1 1 + 1 backward; K2, dx, dw 3 each
+               for BEV_type2 and w48); median request / step ms and peak
+               memory each, beside nvidia-smi's name and power limit.
 Then a {"kernels": [...]} line (launches: the serving, detect and
-training phases' counts plus train_cli's), nvidia-smi's line, and as the
-last line
+training phases' counts plus train_cli's and variants'), nvidia-smi's
+line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -162,6 +182,7 @@ import torch.nn.functional as F
 
 from snvc_tpu_torch import _build
 from snvc_tpu_torch.config import (
+    BackboneConfig,
     StereoConfig,
     TrainConfig,
     VernierConfig,
@@ -400,25 +421,46 @@ def check_k1(gen, dev) -> dict:
     gl, gr = batch_projections(cfg, 0, dev)
     max_err = 0.0
     for label, pl, pr in (("random", rgl, rgr), ("path", gl, gr)):
-        got = stereo_voxel_sample(lf, rf, pl, pr, roi, grid)
-        want = sample_stereo_voxel(lf, rf, pl, pr, roi, grid)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5).all()), \
-            f"K1 flagship {label}: max err {err.max().item()}"
-        max_err = max(max_err, err.max().item())
-        del want
+        max_err = max(max_err, assert_k1(f"K1 flagship {label}", lf, rf, pl,
+                                         pr, roi, grid))
     ms_random = cuda_ms(lambda: stereo_voxel_sample(lf, rf, rgl, rgr, roi,
                                                     grid), 20)
+    times = k1_times(lf, rf, gl, gr, roi, grid)
+    phase("K1", t, max_abs_err=f"{max_err:.3e}",
+          kernel_ms_random=f"{ms_random:.4f}", **times_fields(times))
+    return dict(max_abs_err=max_err, **times)
+
+
+def times_fields(times: dict) -> dict:
+    """A kernel's numbers as phase fields (``ms`` printed as kernel_ms)."""
+    return {("kernel_ms" if k == "ms" else k):
+            f"{v:.3e}" if k == "max_abs_err" else f"{v:.4f}"
+            for k, v in times.items()}
+
+
+def assert_k1(label, lf, rf, gl, gr, roi, grid) -> float:
+    """K1 against its plain version: within one bf16 ulp (2^-7 relative)
+    plus 1e-5.  Returns the largest error."""
+    got = stereo_voxel_sample(lf, rf, gl, gr, roi, grid)
+    want = sample_stereo_voxel(lf, rf, gl, gr, roi, grid)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5).all()), \
+        f"{label}: max err {err.max().item()}"
+    return err.max().item()
+
+
+def k1_times(lf, rf, gl, gr, roi, grid) -> dict:
+    """K1's kernel / plain / library ms at these inputs and its bound.
+    Library: F.grid_sample per view (NCHW view of the same NHWC data,
+    normalized grid [N, 1, P, 2]) and the concat, timed only."""
     ms = cuda_ms(lambda: stereo_voxel_sample(lf, rf, gl, gr, roi, grid), 20)
     plain_ms = cuda_ms(lambda: sample_stereo_voxel(lf, rf, gl, gr, roi,
                                                    grid), 3)
-    # library: F.grid_sample per view (NCHW view of the same NHWC data,
-    # normalized grid [N, 1, P, 2]) and the concat, timed only
     lft, rft = lf.permute(0, 3, 1, 2), rf.permute(0, 3, 1, 2)
-    scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=dev)
-    ngl = (gl * scale - 1.0)[:, None].to(torch.bfloat16)
-    ngr = (gr * scale - 1.0)[:, None].to(torch.bfloat16)
+    scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=lf.device)
+    ngl = (gl * scale - 1.0)[:, None].to(lf.dtype)
+    ngr = (gr * scale - 1.0)[:, None].to(lf.dtype)
 
     def library():
         a = F.grid_sample(lft, ngl, align_corners=False, padding_mode="zeros")
@@ -426,14 +468,13 @@ def check_k1(gen, dev) -> dict:
         return torch.cat([a, b], dim=1)
 
     library_ms = cuda_ms(library, 3)
-    # float32 multiply-adds: 4 taps per output element
-    bound_ms = max(nbytes(lf, rf, gl, gr, got) / PEAK_BYTES,
-                   8.0 * got.numel() / PEAK_F32_FLOPS) * 1e3
-    phase("K1", t, max_abs_err=f"{max_err:.3e}", kernel_ms=f"{ms:.4f}",
-          kernel_ms_random=f"{ms_random:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, library_ms=library_ms)
+    # bytes: both feature maps and grids read, the voxel written; float32
+    # multiply-adds: 4 taps per output element
+    out = gl.shape[0] * gl.shape[1] * 2 * lf.shape[-1]
+    bound_ms = max((nbytes(lf, rf, gl, gr) + out * lf.element_size())
+                   / PEAK_BYTES, 8.0 * out / PEAK_F32_FLOPS) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
 
 
 # ---------------------------------------------------------------- K2 ----
@@ -460,51 +501,59 @@ def check_k2(gen, dev) -> dict:
     ]
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     max_err = 0.0
-    for name, shape, kernel, F_out, dil, timed in cases:
-        tc = time.perf_counter()
-        x, w = k2_case(gen, shape, kernel, F_out, dev)
-        got = conv3d_large_tap(x, w, dil).float()
-        ref = conv3d_pertap(x.float(), w.float(), dil)
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        # kernel: exact bf16 products summed in f32, rounded once to bf16
-        # (half an ulp, 2^-8 relative); 2^-7 relative plus 1e-3 of the
-        # output scale leaves room for the f32 summation order
-        tol = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
-        assert bool((err <= tol).all()), \
-            f"K2 {name}: max err {err.max().item()}"
-        max_err = max(max_err, err.max().item())
-        fields = dict(max_abs_err=f"{err.max().item():.3e}")
-        del got, ref
-        if timed:
-            N, D, H, W, C = shape
-            # multiply-adds with padding zeros are not work the conv needs
-            flops = 2.0 * N * F_out * C * math.prod(
-                valid_taps(n, k, dil) for n, k in zip((D, H, W), kernel))
-            out_bytes = N * D * H * W * F_out * 2
-            ms = cuda_ms(lambda: conv3d_large_tap(x, w, dil), 3)
-            plain_ms = cuda_ms(lambda: conv3d_pertap(x, w, dil), 2)
-            xt = x.permute(0, 4, 1, 2, 3)
-            wt = w.permute(4, 3, 0, 1, 2).contiguous()
-            pad = tuple((k - 1) // 2 * dil for k in kernel)
-            library_ms = cuda_ms(
-                lambda: F.conv3d(xt, wt, None, 1, pad, dil), 2)
-            bound_ms = max(flops / PEAK_BF16_FLOPS,
-                           (nbytes(x, w) + out_bytes) / PEAK_BYTES) * 1e3
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("bound_ms", bound_ms), ("library_ms", library_ms)):
-                tot[k] += v
-            fields.update(kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-                          library_ms=f"{library_ms:.3f}",
-                          bound_ms=f"{bound_ms:.3f}",
-                          tflops=f"{flops / ms / 1e9:.1f}",
-                          pct_of_bound=f"{100 * bound_ms / ms:.1f}")
-        phase(f"K2 {name}", tc, **fields)
-        del x, w
-        torch.cuda.empty_cache()
+    for case in cases:
+        err, times = run_k2_case(gen, dev, *case)
+        max_err = max(max_err, err)
+        for k, v in times.items():
+            tot[k] += v
     phase("K2", t, max_abs_err=f"{max_err:.3e}",
           **{k: f"{v:.3f}" for k, v in tot.items()})
     return dict(max_abs_err=max_err, **tot)
+
+
+def run_k2_case(gen, dev, name, shape, kernel, F_out, dil, timed):
+    """One K2 case against the per-tap float32 conv; when ``timed``, its
+    kernel / plain / F.conv3d ms and bound.  Prints a phase line;
+    returns (max error, times or {})."""
+    tc = time.perf_counter()
+    x, w = k2_case(gen, shape, kernel, F_out, dev)
+    got = conv3d_large_tap(x, w, dil).float()
+    ref = conv3d_pertap(x.float(), w.float(), dil)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    # kernel: exact bf16 products summed in f32, rounded once to bf16
+    # (half an ulp, 2^-8 relative); 2^-7 relative plus 1e-3 of the
+    # output scale leaves room for the f32 summation order
+    tol = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().max()
+    assert bool((err <= tol).all()), f"K2 {name}: max err {err.max().item()}"
+    max_err = err.max().item()
+    fields = dict(max_abs_err=f"{max_err:.3e}")
+    del got, ref, err, tol
+    times = {}
+    if timed:
+        N, D, H, W, C = shape
+        # multiply-adds with padding zeros are not work the conv needs
+        flops = conv_flops(shape, kernel, F_out, dil)
+        out_bytes = N * D * H * W * F_out * 2
+        ms = cuda_ms(lambda: conv3d_large_tap(x, w, dil), 3)
+        plain_ms = cuda_ms(lambda: conv3d_pertap(x, w, dil), 2)
+        xt = x.permute(0, 4, 1, 2, 3)
+        wt = w.permute(4, 3, 0, 1, 2).contiguous()
+        pad = tuple((k - 1) // 2 * dil for k in kernel)
+        library_ms = cuda_ms(lambda: F.conv3d(xt, wt, None, 1, pad, dil), 2)
+        bound_ms = max(flops / PEAK_BF16_FLOPS,
+                       (nbytes(x, w) + out_bytes) / PEAK_BYTES) * 1e3
+        times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     library_ms=library_ms)
+        fields.update(kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+                      library_ms=f"{library_ms:.3f}",
+                      bound_ms=f"{bound_ms:.3f}",
+                      tflops=f"{flops / ms / 1e9:.1f}",
+                      pct_of_bound=f"{100 * bound_ms / ms:.1f}")
+    phase(f"K2 {name}", tc, **fields)
+    del x, w
+    torch.cuda.empty_cache()
+    return max_err, times
 
 
 def bf16_ulp(x: float) -> float:
@@ -534,6 +583,44 @@ def k3_edge_table(N, D, W, gen):
     return t
 
 
+def k3_library(lf, rf, shifts):
+    """K3's function as PyTorch calls: F.grid_sample, 5-D, of the right
+    features (an NCDHW view with one depth plane) at column x - shift[n,
+    d] of each plane, bilinear, zeros padding, align_corners=True (so
+    pixel centres map to themselves), concatenated after the left half
+    broadcast over the planes.  The grid is built here, in the features'
+    dtype.  Returns ``call(lf, rf)`` -> [N, 2C, D, H, W]."""
+    N, H, W, C = lf.shape
+    s = shifts.float().expand(N, -1)  # [D] or [N, D] -> [N, D]
+    D = s.shape[1]
+    dev = lf.device
+    x = torch.arange(W, device=dev) - s[:, :, None, None]  # [N, D, 1, W]
+    y = torch.arange(H, device=dev)[None, None, :, None].float()
+    grid = torch.stack([(2 * x / (W - 1) - 1).expand(N, D, H, W),
+                        (2 * y / (H - 1) - 1).expand(N, D, H, W),
+                        torch.zeros((N, D, H, W), device=dev)],
+                       dim=-1).to(lf.dtype)
+
+    def call(left, right):
+        r = F.grid_sample(right.permute(0, 3, 1, 2)[:, :, None], grid,
+                          mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+        lt = left.permute(0, 3, 1, 2)[:, :, None].expand(N, C, D, H, W)
+        return torch.cat([lt, r], dim=1)
+
+    return call
+
+
+def k3_library_err(lf, rf, table) -> float:
+    """The library call's largest difference from K3's plain version in
+    float32 (features and grid), relative to the largest value: the
+    check that it computes the same function, edge shifts included."""
+    lf, rf = lf.float(), rf.float()
+    got = k3_library(lf, rf, table)(lf, rf).permute(0, 2, 3, 4, 1)
+    want = plane_sweep_shifted(lf, rf, table)
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def check_k3(gen, dev) -> dict:
     t = time.perf_counter()
     # small shapes, f32 and bf16, shared [D] and per-sample [N, D] tables
@@ -557,6 +644,7 @@ def check_k3(gen, dev) -> dict:
     err = assert_within_ulps("K3 detect [2, D]",
                              plane_sweep_volume_k3(lf, rf, table),
                              plane_sweep_shifted(lf, rf, table))
+    lib_err = k3_library_err(lf, rf, table)
     # the request's own shift table, one sample
     Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
     Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
@@ -569,16 +657,19 @@ def check_k3(gen, dev) -> dict:
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: plane_sweep_volume_k3(l1, r1, shifts), 20)
     plain_ms = cuda_ms(lambda: plane_sweep_shifted(l1, r1, shifts), 3)
+    # library: the 5-D F.grid_sample + cat in bf16, timed only (its bf16
+    # grid rounds the columns, as K1's and K4's library grids do)
+    call = k3_library(l1, r1, shifts)
+    library_ms = cuda_ms(lambda: call(l1, r1), 3)
     # f32 lerp of the right half: 2 multiplies and an add per element
     bound_ms = max(nbytes(l1, r1, shifts, got) / PEAK_BYTES,
                    1.5 * got.numel() / PEAK_F32_FLOPS) * 1e3
     phase("K3", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          library_ms="none")
-    # no single PyTorch call builds a plane-sweep volume (a gather, a lerp
-    # and a concat at least): library_ms is null
+          library_ms=f"{library_ms:.4f}",
+          library_f32_rel_err=f"{lib_err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=None)
+                library_ms=library_ms)
 
 
 # ---------------------------------------------------------------- K4 ----
@@ -686,8 +777,16 @@ def read_counts() -> dict:
 
 
 def check_serving(dev, profile: bool = False) -> dict:
+    return serve(flagship_vernier_config(), dev, "serving", 3, profile)
+
+
+def serve(cfg, dev, label: str, k2_per_request: int,
+          profile: bool = False) -> dict:
+    """A RefineRunner of ``cfg`` with seeded weights: one warm-up and
+    three requests, each timed on the host clock around a synchronized
+    step; the outputs' shapes, finite values and the launch counters (K1
+    once and K2 ``k2_per_request`` times a request)."""
     t = time.perf_counter()
-    cfg = flagship_vernier_config()
     model = VernierScale(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0))
     runner = RefineRunner(model, cfg, device=dev)
@@ -697,16 +796,19 @@ def check_serving(dev, profile: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     times = []
-    I = cfg.max_instances
+    I, P = cfg.max_instances, cfg.num_parts
     nh, nw, nl = cfg.grid_resolution
+    shapes = dict(one_part=(I, 7), all_parts=(I, 7), confidence=(I, P),
+                  keep=(I,), ncf=(I, P, nl, nw), occupancy=(I, nh, nw, nl))
+    if cfg.vernier_type == "BEV_type3":
+        shapes["coordinates"] = (I, P, 2)
     for b in batches:
         t_req = time.perf_counter()
         out = runner.step(b)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t_req) * 1e3)
-        shapes = dict(one_part=(I, 7), all_parts=(I, 7), confidence=(I, 9),
-                      keep=(I,), ncf=(I, 9, nl, nw),
-                      occupancy=(I, nh, nw, nl), coordinates=(I, 9, 2))
+        if "coordinates" not in shapes:
+            assert out["coordinates"] is None, "coordinates"
         for k, s in shapes.items():
             v = out[k]
             assert tuple(v.shape) == s, f"{k}: {tuple(v.shape)} != {s}"
@@ -715,17 +817,19 @@ def check_serving(dev, profile: bool = False) -> dict:
                 assert np.isfinite(arr).all(), f"{k} is not finite"
     counts = read_counts()
     n = len(batches)
-    assert counts == counts_of(K1=n, K2=3 * n), f"launch counts {counts}"
+    assert counts == counts_of(K1=n, K2=k2_per_request * n), \
+        f"{label} launch counts {counts}"
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     med = sorted(times)[len(times) // 2]
-    phase("serving", t, request_ms=",".join(f"{v:.1f}" for v in times),
-          inst_per_s=f"{I / (med / 1e3):.2f}", peak_mem_gb=f"{peak_gb:.2f}",
+    phase(label, t, request_ms=",".join(f"{v:.1f}" for v in times),
+          median_ms=f"{med:.1f}", inst_per_s=f"{I / (med / 1e3):.2f}",
+          peak_mem_gb=f"{peak_gb:.2f}",
           launches=json.dumps(counts).replace(" ", ""))
     if profile:
         profile_request(lambda: runner.step(batches[0]))
     del runner, model
     torch.cuda.empty_cache()
-    return dict(counts=counts, request_ms=times)
+    return dict(counts=counts, request_ms=times, peak_gb=peak_gb)
 
 
 def profile_request(request) -> None:
@@ -918,14 +1022,7 @@ def check_k1_bwd(gen, dev) -> dict:
         lf, rf, gl, gr = k1_case(gen, 2, 16, 16, 32, (4, 8, 8), (64, 64),
                                  dtype, dev)
         g = torch.randn((2, 4, 8, 8, 64), generator=gen).to(dev, dtype)
-        got = stereo_voxel_sample_bwd(lf, rf, gl, gr, g, (64, 64))
-        want = sample_stereo_voxel_bwd(lf.float(), rf.float(), gl, gr,
-                                       g.float(), (64, 64))
-        rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-        for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"),
-                              got, want):
-            assert_k1_grad(f"K1_bwd small {dtype} {name}", a, b,
-                           rel if name[1] != "g" else 1e-5)
+        assert_k1_bwd(f"K1_bwd small {dtype}", lf, rf, gl, gr, g, (64, 64))
     # training shape: [8, 64, 64, 32] bf16 features, 16x96x96 grid, and the
     # projections of a training batch (where they cluster, the adds
     # contend: uniform random points would understate the time)
@@ -948,36 +1045,54 @@ def check_k1_bwd(gen, dev) -> dict:
                               ("train", gl, gr)):
             if label == "train" and dtype == torch.float32:
                 continue  # f32 at the training projections: the small cases
-            got = stereo_voxel_sample_bwd(lf, rf, pl.contiguous(),
-                                          pr.contiguous(), g, roi)
-            want = sample_stereo_voxel_bwd(lf.float(), rf.float(), pl, pr,
-                                           g.float(), roi)
-            torch.cuda.synchronize()
-            rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-            for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"),
-                                  got, want):
-                e = assert_k1_grad(f"K1_bwd {label} {dtype} {name}", a, b,
-                                   rel if name[1] != "g" else 1e-5)
-                if name[1] != "g":
-                    max_err = max(max_err, e)
-            del got, want
+            max_err = max(max_err, assert_k1_bwd(
+                f"K1_bwd {label} {dtype}", lf, rf, pl, pr, g, roi))
     patch = patch.contiguous()
     ms_one_patch = cuda_ms(lambda: stereo_voxel_sample_bwd(
         lf, rf, patch, patch, g, roi, need_grid=False), 5)
-    # timed as training runs it: no grid gradient
+    times = k1_bwd_times(lf, rf, gl, gr, g, roi)
+    phase("K1_bwd", t, max_abs_err=f"{max_err:.3e}",
+          kernel_ms_one_patch=f"{ms_one_patch:.4f}", **times_fields(times))
+    return dict(max_abs_err=max_err, **times)
+
+
+def assert_k1_bwd(label, lf, rf, gl, gr, g, roi) -> float:
+    """K1's backward (with the grids' gradient) against its plain version
+    in float32: ``assert_k1_grad`` at 1e-5 relative (float32 features) or
+    2^-7 (bf16) for the features' gradients, 1e-5 for the grids'.
+    Returns the largest error of the features' gradients."""
+    got = stereo_voxel_sample_bwd(lf, rf, gl.contiguous(), gr.contiguous(),
+                                  g, roi)
+    want = sample_stereo_voxel_bwd(lf.float(), rf.float(), gl, gr,
+                                   g.float(), roi)
+    torch.cuda.synchronize()
+    rel = 1e-5 if lf.dtype == torch.float32 else 2.0 ** -7
+    err = 0.0
+    for name, a, b in zip(("dleft", "dright", "dgrid_l", "dgrid_r"), got,
+                          want):
+        e = assert_k1_grad(f"{label} {name}", a, b,
+                           rel if name[1] != "g" else 1e-5)
+        if name[1] != "g":
+            err = max(err, e)
+    return err
+
+
+def k1_bwd_times(lf, rf, gl, gr, g, roi) -> dict:
+    """K1's backward kernel / plain / library ms, timed as training runs
+    it (no grid gradient), and its bound.  Library: the backward of
+    F.grid_sample per view (NCHW views of the NHWC features), timed
+    only."""
     ms = cuda_ms(lambda: stereo_voxel_sample_bwd(lf, rf, gl, gr, g, roi,
                                                  need_grid=False), 20)
     plain_ms = cuda_ms(lambda: sample_stereo_voxel_bwd(
         lf, rf, gl, gr, g, roi, need_grid=False), 3)
-    # library: the backward of F.grid_sample per view (NCHW views of the
-    # NHWC features), timed only
-    C = lf.shape[-1]
-    scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=dev)
+    N, C = lf.shape[0], lf.shape[-1]
+    scale = torch.tensor([2.0 / roi[1], 2.0 / roi[0]], device=lf.device)
     leaves = [f.detach().requires_grad_() for f in (lf, rf)]
     outs, gouts = [], []
     for leaf, gp, half in ((leaves[0], gl, g[..., :C]),
                            (leaves[1], gr, g[..., C:])):
-        ng = (gp * scale - 1.0)[:, None].to(torch.bfloat16)
+        ng = (gp * scale - 1.0)[:, None].to(lf.dtype)
         outs.append(F.grid_sample(leaf.permute(0, 3, 1, 2), ng,
                                   align_corners=False, padding_mode="zeros"))
         gouts.append(half.reshape(N, 1, -1, C).permute(0, 3, 1, 2))
@@ -987,12 +1102,8 @@ def check_k1_bwd(gen, dev) -> dict:
     # written; float32 work: 4 taps x (multiply + add) per gradient element
     bound_ms = max(nbytes(g, gl, gr, lf, rf) / PEAK_BYTES,
                    8.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
-    phase("K1_bwd", t, max_abs_err=f"{max_err:.3e}", kernel_ms=f"{ms:.4f}",
-          kernel_ms_one_patch=f"{ms_one_patch:.4f}",
-          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, library_ms=library_ms)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
 
 
 # ------------------------------------------------------------ K2 bwd ----
@@ -1035,59 +1146,68 @@ def check_k2_bwd(gen, dev) -> dict:
     ]
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    max_abs_err=0.0) for k in ("dx", "dw")}
-    for name, xs, kernel, F_out, dil, timed in cases:
-        tc = time.perf_counter()
-        x, w = k2_case(gen, xs, kernel, F_out, dev)
-        g = torch.randn(xs[:-1] + (F_out,), generator=gen).to(
-            dev, torch.bfloat16)
-        dx = conv3d_input_grad(g, w, dil)
-        dw = conv3d_weight_grad(x, g, kernel, dil)
-        ref_dx, ref_dw = conv_grads_ref(x, w, g, dil)
-        torch.cuda.synchronize()
-        errs = dict(dx=assert_conv(f"K2_bwd {name} dx", dx, ref_dx),
-                    dw=assert_conv(f"K2_bwd {name} dw", dw, ref_dw))
-        del dx, dw, ref_dx, ref_dw
-        fields = {f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()}
-        for k, v in errs.items():
-            tot[k]["max_abs_err"] = max(tot[k]["max_abs_err"], v)
-        if timed:
-            flops = conv_flops(xs, kernel, F_out, dil)
-            pad = tuple((k - 1) // 2 * dil for k in kernel)
-            xt, gt = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-            wt = w.permute(4, 3, 0, 1, 2).contiguous()
-            wf = flip_weight(w)
-            times = dict(
-                dx=(cuda_ms(lambda: conv3d_input_grad(g, w, dil), 3),
-                    cuda_ms(lambda: conv3d_pertap(g, wf, dil), 2),
-                    cuda_ms(lambda: torch.nn.grad.conv3d_input(
-                        xt.shape, wt, gt, 1, pad, dil), 2),
-                    nbytes(g, w, x)),
-                dw=(cuda_ms(lambda: conv3d_weight_grad(x, g, kernel, dil), 3),
-                    cuda_ms(lambda: conv3d_weight_grad_plain(
-                        x, g, kernel, dil), 1),
-                    cuda_ms(lambda: torch.nn.grad.conv3d_weight(
-                        xt, wt.shape, gt, 1, pad, dil), 2),
-                    nbytes(x, g, w)))
-            for k, (ms, plain_ms, library_ms, moved) in times.items():
-                bound_ms = max(flops / PEAK_BF16_FLOPS,
-                               moved / PEAK_BYTES) * 1e3
-                for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                               ("library_ms", library_ms),
-                               ("bound_ms", bound_ms)):
-                    tot[k][key] += v
-                fields.update({f"{k}_ms": f"{ms:.3f}",
-                               f"{k}_plain_ms": f"{plain_ms:.3f}",
-                               f"{k}_cudnn_ms": f"{library_ms:.3f}",
-                               f"{k}_bound_ms": f"{bound_ms:.3f}",
-                               f"{k}_tflops": f"{flops / ms / 1e9:.1f}",
-                               f"{k}_pct_of_bound":
-                                   f"{100 * bound_ms / ms:.1f}"})
-        phase(f"K2_bwd {name}", tc, **fields)
-        del x, w, g
-        torch.cuda.empty_cache()
+    for case in cases:
+        for k, d in run_k2_bwd_case(gen, dev, *case).items():
+            tot[k]["max_abs_err"] = max(tot[k]["max_abs_err"],
+                                        d.pop("max_abs_err"))
+            for key, v in d.items():
+                tot[k][key] += v
     phase("K2_bwd", t, **{f"{k}_{key}": f"{v:.3f}" for k, d in tot.items()
                           for key, v in d.items() if key != "max_abs_err"})
     return tot
+
+
+def run_k2_bwd_case(gen, dev, name, xs, kernel, F_out, dil, timed) -> dict:
+    """dx (the K2 kernel on flipped weights) and dw of one conv against
+    the per-tap conv's float32 autograd; when ``timed``, kernel / plain /
+    cuDNN ms and bound of each.  Prints a phase line; returns {"dx": {..},
+    "dw": {..}} with max_abs_err and the times."""
+    tc = time.perf_counter()
+    x, w = k2_case(gen, xs, kernel, F_out, dev)
+    g = torch.randn(xs[:-1] + (F_out,), generator=gen).to(dev, torch.bfloat16)
+    dx = conv3d_input_grad(g, w, dil)
+    dw = conv3d_weight_grad(x, g, kernel, dil)
+    ref_dx, ref_dw = conv_grads_ref(x, w, g, dil)
+    torch.cuda.synchronize()
+    out = dict(dx=dict(max_abs_err=assert_conv(f"K2_bwd {name} dx", dx,
+                                               ref_dx)),
+               dw=dict(max_abs_err=assert_conv(f"K2_bwd {name} dw", dw,
+                                               ref_dw)))
+    del dx, dw, ref_dx, ref_dw
+    fields = {f"{k}_max_abs_err": f"{v['max_abs_err']:.3e}"
+              for k, v in out.items()}
+    if timed:
+        flops = conv_flops(xs, kernel, F_out, dil)
+        pad = tuple((k - 1) // 2 * dil for k in kernel)
+        xt, gt = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        wt = w.permute(4, 3, 0, 1, 2).contiguous()
+        wf = flip_weight(w)
+        times = dict(
+            dx=(cuda_ms(lambda: conv3d_input_grad(g, w, dil), 3),
+                cuda_ms(lambda: conv3d_pertap(g, wf, dil), 2),
+                cuda_ms(lambda: torch.nn.grad.conv3d_input(
+                    xt.shape, wt, gt, 1, pad, dil), 2),
+                nbytes(g, w, x)),
+            dw=(cuda_ms(lambda: conv3d_weight_grad(x, g, kernel, dil), 3),
+                cuda_ms(lambda: conv3d_weight_grad_plain(
+                    x, g, kernel, dil), 1),
+                cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                    xt, wt.shape, gt, 1, pad, dil), 2),
+                nbytes(x, g, w)))
+        for k, (ms, plain_ms, library_ms, moved) in times.items():
+            bound_ms = max(flops / PEAK_BF16_FLOPS, moved / PEAK_BYTES) * 1e3
+            out[k].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms)
+            fields.update({f"{k}_ms": f"{ms:.3f}",
+                           f"{k}_plain_ms": f"{plain_ms:.3f}",
+                           f"{k}_cudnn_ms": f"{library_ms:.3f}",
+                           f"{k}_bound_ms": f"{bound_ms:.3f}",
+                           f"{k}_tflops": f"{flops / ms / 1e9:.1f}",
+                           f"{k}_pct_of_bound": f"{100 * bound_ms / ms:.1f}"})
+    phase(f"K2_bwd {name}", tc, **fields)
+    del x, w, g
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- K5 ----
@@ -1283,11 +1403,18 @@ def assert_bf16_step(ref: dict, cpu_bf16: dict, got: dict) -> dict:
 
 
 def check_train(dev, profile: bool = False, steps: int = 12) -> dict:
-    """The JAX CLI's default training config, full width and depth, on
-    one seeded batch; rate warm-up 2 steps (500 would keep the rate ~0)."""
+    """The JAX CLI's default training config, full width and depth."""
+    return train_steps(VernierConfig(), dev, "train", 3, steps, profile)
+
+
+def train_steps(cfg, dev, label: str, k2_per_step: int, steps: int,
+                profile: bool = False) -> dict:
+    """``steps`` training steps of ``cfg`` with seeded weights on one
+    seeded batch; rate warm-up 2 steps (500 would keep the rate ~0).  The
+    loss must be finite and fall; per step K1 1 + 1 backward and K2, dx,
+    dw ``k2_per_step`` each."""
     t = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = True  # the card's defaults
-    cfg = VernierConfig()
     tc = TrainConfig(warmup_steps=2)
     model = VernierScale(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0))
@@ -1305,15 +1432,15 @@ def check_train(dev, profile: bool = False, steps: int = 12) -> dict:
         times.append((time.perf_counter() - t_step) * 1e3)
         losses.append(float(m["total"]))
     counts = read_counts()
-    n = steps
-    assert counts == counts_of(K1=n, K1_bwd=n, K2=3 * n, K2_dx=3 * n,
-                               K2_dw=3 * n), f"launch counts {counts}"
-    assert all(math.isfinite(v) for v in losses), f"losses {losses}"
-    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    n, k = steps, k2_per_step
+    assert counts == counts_of(K1=n, K1_bwd=n, K2=k * n, K2_dx=k * n,
+                               K2_dw=k * n), f"{label} launch counts {counts}"
+    assert all(math.isfinite(v) for v in losses), f"{label} losses {losses}"
+    assert losses[-1] < losses[0], f"{label} loss did not fall: {losses}"
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     q1, med, q3 = np.percentile(times, [25, 50, 75])
     I = cfg.max_instances
-    phase("train", t, note="TrainConfig.warmup_steps=2",
+    phase(label, t, note="TrainConfig.warmup_steps=2",
           loss=",".join(f"{v:.4f}" for v in losses),
           step_ms=",".join(f"{v:.1f}" for v in times),
           median_ms=f"{med:.1f}", q1_ms=f"{q1:.1f}", q3_ms=f"{q3:.1f}",
@@ -1324,7 +1451,7 @@ def check_train(dev, profile: bool = False, steps: int = 12) -> dict:
         profile_request(lambda: step(state, batch))
     del state, model, step, batch
     torch.cuda.empty_cache()
-    return dict(counts=counts, step_ms=times)
+    return dict(counts=counts, step_ms=times, peak_gb=peak_gb)
 
 
 # ------------------------------------------------------ K3 / K4 bwd ----
@@ -1355,6 +1482,16 @@ def check_k3_bwd(gen, dev) -> dict:
                           plane_sweep_volume_k3_bwd(g, table, W),
                           plane_sweep_shifted_bwd(g, table, W)):
         err = max(err, assert_within_ulps(f"K3_bwd [2, D] {name}", a, b))
+    # the library's backward in float32 against the plain one (the
+    # features' values do not enter a linear map's gradient)
+    leaves = [torch.zeros((2, H, W, C), device=dev, requires_grad=True)
+              for _ in range(2)]
+    gf = g.float()
+    lib = torch.autograd.grad(k3_library(*leaves, table)(*leaves), leaves,
+                              gf.permute(0, 4, 1, 2, 3))
+    lib_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in
+                  zip(lib, plane_sweep_shifted_bwd(gf, table, W)))
+    del lib, leaves, gf
     g = g[:1].contiguous()
     Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
     Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
@@ -1367,6 +1504,13 @@ def check_k3_bwd(gen, dev) -> dict:
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: plane_sweep_volume_k3_bwd(g, shifts, W), 20)
     plain_ms = cuda_ms(lambda: plane_sweep_shifted_bwd(g, shifts, W), 3)
+    # library: the backward of k3_library's calls in bf16, timed only
+    leaves = [torch.zeros((1, H, W, C), device=dev, dtype=torch.bfloat16,
+                          requires_grad=True) for _ in range(2)]
+    out = k3_library(*leaves, shifts)(*leaves)
+    gt = g.permute(0, 4, 1, 2, 3)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, gt, retain_graph=True), 3)
     # bytes: the gradient read once, both feature gradients written once;
     # f32 work: an add per left element and a plane, two multiplies and
     # two adds per right element and a plane
@@ -1374,10 +1518,10 @@ def check_k3_bwd(gen, dev) -> dict:
                    2.5 * g.numel() / PEAK_F32_FLOPS) * 1e3
     phase("K3_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          library_ms="none")
-    # no PyTorch call computes the plane sweep's transpose: library_ms null
+          library_ms=f"{library_ms:.4f}",
+          library_f32_rel_err=f"{lib_err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def k4_bwd_near_case(gen, dev):
@@ -2053,6 +2197,197 @@ def check_train_cli(dev, root: str) -> dict:
     return dict(counts=total)
 
 
+# ---------------------------------------------------------- variants ----
+# the Vernier variants of the serving and training phases: name ->
+# (VernierConfig fields, K2 launches a request or step); "w48" is
+# BEV_type3 with the widest backbone, the coordinate-map input and the
+# gated aggregation
+W48 = dict(backbone=BackboneConfig(name="hrnet-w48", add_xy=True),
+           feature_aggregation="concat-atten")
+VARIANTS = {"BEV_type2": (dict(vernier_type="BEV_type2"), 3),
+            "BEV": (dict(vernier_type="BEV"), 0),
+            "w48": (W48, 3)}
+TRAIN_VARIANTS = {"3D": (dict(vernier_type="3D", grid_type="3D"), 0),
+                  **VARIANTS}
+VARIANT_STEPS = 8
+
+
+def check_variants(gen, dev) -> dict:
+    """Phase ``variants``: the kernels at the w48 widths, a small model of
+    each head on the card against the CPU, flagship serving of BEV_type2,
+    BEV and w48, the 3D head's forward (and RefineRunner's refusal of
+    it), and VARIANT_STEPS training steps of each variant at
+    VernierConfig().  Returns the kernel numbers and the summed launch
+    counts of the serving and training runs."""
+    t = time.perf_counter()
+    kernels = check_variant_kernels(gen, dev)
+    check_variant_reference(dev)
+    counts = counts_of()
+    with torch.inference_mode():
+        for name, (kw, k2) in VARIANTS.items():
+            res = serve(flagship_vernier_config(**kw), dev,
+                        f"variants serving {name}", k2)
+            counts = {k: v + res["counts"][k] for k, v in counts.items()}
+        res = check_3d_forward(dev)
+        counts = {k: v + res[k] for k, v in counts.items()}
+    for name, (kw, k2) in TRAIN_VARIANTS.items():
+        res = train_steps(VernierConfig(**kw), dev, f"variants train {name}",
+                          k2, VARIANT_STEPS)
+        counts = {k: v + res["counts"][k] for k, v in counts.items()}
+    phase("variants", t, nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(counts).replace(" ", ""))
+    return dict(counts=counts, **kernels)
+
+
+def check_variant_kernels(gen, dev) -> dict:
+    """K1 and its backward at C = 48, and K2 / dx / dw at the w48 head's
+    widths (96 -> 48 at k7, 48 -> 48 at k5 and k5 d2: F = 48 takes a full
+    and a half-empty 32-wide feature block), each against its plain
+    version at the w48 paths' shapes, with kernel / plain / library ms
+    and the bound."""
+    t = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = flagship_vernier_config(**W48)
+    C = cfg.backbone.output_channel
+    grid, roi = cfg.grid_resolution, cfg.resolution
+    lf, rf, _, _ = k1_case(gen, cfg.max_instances, 64, 64, C, (1, 1, 1),
+                           roi, bf16, dev)
+    gl, gr = batch_projections(cfg, 0, dev)
+    err = assert_k1("K1 w48", lf, rf, gl, gr, roi, grid)
+    k1 = dict(max_abs_err=err, **k1_times(lf, rf, gl, gr, roi, grid))
+    phase("variants K1 w48", t, **times_fields(k1))
+    del lf, rf, gl, gr
+    tc = time.perf_counter()
+    tcfg = VernierConfig(**W48)
+    N, tgrid = tcfg.max_instances, tcfg.grid_resolution
+    gl, gr = batch_projections(tcfg, 0, dev)
+    lf, rf, _, _ = k1_case(gen, N, 64, 64, C, (1, 1, 1), roi, bf16, dev)
+    g = torch.randn((N,) + tgrid + (2 * C,), generator=gen).to(dev, bf16)
+    err = assert_k1_bwd("K1_bwd w48", lf, rf, gl, gr, g, roi)
+    k1_bwd = dict(max_abs_err=err, **k1_bwd_times(lf, rf, gl, gr, g, roi))
+    phase("variants K1_bwd w48", tc, **times_fields(k1_bwd))
+    del lf, rf, gl, gr, g
+    torch.cuda.empty_cache()
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   max_abs_err=0.0) for k in ("K2", "dx", "dw")}
+    serve_shape = (cfg.max_instances,) + grid
+    train_shape = (N,) + tgrid
+    convs = (("conv1_k7", 2 * C, (7, 7, 7), 1), ("conv2_k5", C, (5, 5, 5), 1),
+             ("conv3_k5_d2", C, (5, 5, 5), 2))
+    for name, cin, kernel, dil in convs:
+        err, times = run_k2_case(gen, dev, f"w48 {name}",
+                                 serve_shape + (cin,), kernel, C, dil, True)
+        results = dict(K2=dict(max_abs_err=err, **times))
+        results.update(run_k2_bwd_case(gen, dev, f"w48 {name}",
+                                       train_shape + (cin,), kernel, C, dil,
+                                       True))
+        for k, d in results.items():
+            for key, v in d.items():
+                tot[k][key] = (max(tot[k][key], v) if key == "max_abs_err"
+                               else tot[k][key] + v)
+    for k, d in tot.items():
+        phase(f"variants {k} w48", t, **times_fields(d))
+    return dict(K1=k1, K1_bwd=k1_bwd, **tot)
+
+
+def check_3d_forward(dev) -> dict:
+    """The 3D head at the flagship width (9 parts): RefineRunner refuses
+    it before any device work (JAX's _finalize fails on its 5-D fields),
+    then one forward through the runner's encode and heads gives finite
+    fields [4, 9, 32, 192, 192] with K1 once and K2 never.  Returns the
+    counts."""
+    t = time.perf_counter()
+    cfg = flagship_vernier_config(vernier_type="3D")
+    model = VernierScale(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    runner = RefineRunner(model, cfg, device=dev)
+    batch = synthetic_batch_arrays(cfg, seed=1)
+    reset_counts()
+    try:
+        runner.step(batch)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("RefineRunner served the 3D head")
+    assert read_counts() == counts_of(), "the refusal launched kernels"
+    arrays = batch_to_device(batch, dev)
+    runner.heads(runner.encode(arrays))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t_fwd = time.perf_counter()
+    out = runner.heads(runner.encode(arrays))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_fwd) * 1e3
+    counts = read_counts()
+    nh, nw, nl = cfg.grid_resolution
+    shape = (cfg.max_instances, cfg.num_parts, nh, nw, nl)
+    assert tuple(out["ncf"].shape) == shape, tuple(out["ncf"].shape)
+    assert bool(torch.isfinite(out["ncf"]).all()), "3D ncf is not finite"
+    assert all(out[k] is None for k in out if k != "ncf"), "3D outputs"
+    assert counts == counts_of(K1=1), f"3D launch counts {counts}"
+    phase("variants 3D", t, ncf=list(shape), forward_ms=f"{ms:.1f}",
+          refused=repr(refusal[:40]))
+    del runner, model, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_variant_reference(dev) -> None:
+    """A small model of each head (hrnet-tiny, 8x32x32 grid: 3D, BEV,
+    BEV_type2, and BEV_type3 with add_xy and concat-atten) on the card
+    against the same weights on the CPU: in float32 (TF32 off) within
+    1e-3 of each output's scale (float32 reordering through ~60 layers),
+    then in bf16 within three times the CPU's own bf16 drift plus 1 % of
+    the scale (phase ``reference``'s rule)."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads = {"3D": (dict(vernier_type="3D"), 0),
+             "BEV": (dict(vernier_type="BEV"), 0),
+             "BEV_type2": (dict(vernier_type="BEV_type2"), 3),
+             "xy_atten": (dict(
+                 backbone=BackboneConfig(name="hrnet-tiny", add_xy=True),
+                 feature_aggregation="concat-atten"), 3)}
+    fields = {}
+    for name, (kw, k2) in heads.items():
+        small = tiny_vernier_config(grid_resolution=(8, 32, 32),
+                                    image_size=(128, 256), max_instances=2,
+                                    **kw)
+        batch = synthetic_batch_arrays(small, seed=7)
+
+        def run(cfg, device):
+            model = VernierScale(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(1))
+            runner = RefineRunner(model, cfg, device=device)
+            with torch.inference_mode():
+                out = runner.heads(runner.encode(
+                    batch_to_device(batch, device)))
+            return {k: v.cpu().numpy() for k, v in out.items()
+                    if v is not None}
+
+        bf16 = small.replace(compute_dtype="bfloat16")
+        ref = run(small, "cpu")
+        reset_counts()
+        got32 = run(small, dev)
+        assert read_counts() == counts_of(K1=1), f"{name} f32 launches"
+        cpu_bf16 = run(bf16, "cpu")
+        reset_counts()
+        got = run(bf16, dev)
+        assert read_counts() == counts_of(K1=1, K2=k2), f"{name} launches"
+        for k in ref:
+            scale = max(float(np.abs(ref[k]).max()), 1e-6)
+            err32 = float(np.abs(got32[k] - ref[k]).max()) / scale
+            err = float(np.abs(got[k] - ref[k]).max()) / scale
+            drift = float(np.abs(cpu_bf16[k] - ref[k]).max()) / scale
+            assert np.isfinite(got[k]).all(), f"{name} {k} not finite"
+            assert err32 <= 1e-3, f"{name} {k}: f32 card rel err {err32}"
+            assert err <= 3.0 * drift + 0.01, \
+                f"{name} {k}: card rel err {err:.4f}, cpu bf16 {drift:.4f}"
+            fields[f"{name}_{k}"] = f"{err32:.1e}/{err:.4f}/{drift:.4f}"
+    phase("variants reference", t, note="f32_err/bf16_err/cpu_bf16_drift",
+          **fields)
+
+
 def assert_states_equal(a, b) -> None:
     """Two TrainStates with the same step, parameters, BatchNorm
     statistics and AdamW state, bit for bit."""
@@ -2119,17 +2454,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         check_two_stage(dev, root)
         cli = check_train_cli(dev, root)["counts"]
+    var = check_variants(gen, dev)["counts"]
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:217",
-             launches=serving["counts"]["K1"] + cli["K1"], bound_by="bytes",
+             launches=serving["counts"]["K1"] + cli["K1"] + var["K1"],
+             bound_by="bytes",
              **k1),
         dict(name="conv3d_large_tap", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:236",
-             launches=serving["counts"]["K2"] + cli["K2"],
+             launches=serving["counts"]["K2"] + cli["K2"] + var["K2"],
              bound_by="operations", **k2),
         dict(name="plane_sweep_volume", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
@@ -2144,23 +2481,27 @@ def main() -> int:
         dict(name="stereo_voxel_sample_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:329",
-             launches=train["counts"]["K1_bwd"] + cli["K1_bwd"],
+             launches=train["counts"]["K1_bwd"] + cli["K1_bwd"]
+             + var["K1_bwd"],
              bound_by="bytes", **k1_bwd),
         dict(name="conv3d_large_tap_dx", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
-             launches=train["counts"]["K2_dx"] + cli["K2_dx"],
+             launches=train["counts"]["K2_dx"] + cli["K2_dx"]
+             + var["K2_dx"],
              bound_by="operations", **k2_bwd["dx"]),
         dict(name="conv3d_weight_grad", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_weight_grad.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
-             launches=train["counts"]["K2_dw"] + cli["K2_dw"],
+             launches=train["counts"]["K2_dw"] + cli["K2_dw"]
+             + var["K2_dw"],
              bound_by="operations", **k2_bwd["dw"]),
         dict(name="conv3d_k3", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_pallas.py:118",
              launches=(train["counts"]["K5"] + serving["counts"]["K5"]
-                       + cli["K5"]), bound_by="operations", **k5),
+                       + cli["K5"] + var["K5"]), bound_by="operations",
+             **k5),
         dict(name="plane_sweep_volume_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
              replaces="snvc_tpu/ops/cost_volume.py:160",

@@ -1,11 +1,11 @@
 """Typed configuration for the port (copy of the fields of
-snvc_tpu/config.py:116-230, :264-348 and :351-362 that serving, the data
+snvc_tpu/config.py:60-230, :264-348 and :351-362 that serving, the data
 pipelines and the two trainings read).
 
 Frozen dataclasses, as in the JAX package; nothing here imports JAX or
 snvc_tpu.  ``load_config`` reads a ``config.json`` written by either
 package: it drops the JAX fields that nothing in the port reads
-(``_UNREAD``) and refuses values the port cannot honour (``_REFUSED``).
+(``_UNREAD``) and refuses a field neither package knows.
 """
 
 from __future__ import annotations
@@ -36,6 +36,15 @@ def hrnet_w32_stages() -> Tuple[HRNetStageConfig, ...]:
     )
 
 
+def hrnet_w48_stages() -> Tuple[HRNetStageConfig, ...]:
+    return (
+        HRNetStageConfig(1, 1, "bottleneck", (4,), (64,)),
+        HRNetStageConfig(1, 2, "basic", (4, 4), (48, 96)),
+        HRNetStageConfig(4, 3, "basic", (4, 4, 4), (48, 96, 192)),
+        HRNetStageConfig(3, 4, "basic", (4, 4, 4, 4), (48, 96, 192, 384)),
+    )
+
+
 def hrnet_tiny_stages() -> Tuple[HRNetStageConfig, ...]:
     """Small stages for tests (not in the reference)."""
     return (
@@ -46,14 +55,33 @@ def hrnet_tiny_stages() -> Tuple[HRNetStageConfig, ...]:
     )
 
 
-_STAGES = {"hrnet-w32": hrnet_w32_stages, "hrnet-tiny": hrnet_tiny_stages}
+def hrnet_multi_stages() -> Tuple[HRNetStageConfig, ...]:
+    """Small stages with repeated modules (2 / 3 / 2) and a 4-branch last
+    stage: the w32 / w48 enumeration at test size (JAX
+    ``hrnet_multi_stages``), which pins the converter's ordering of
+    repeated modules."""
+    return (
+        HRNetStageConfig(1, 1, "bottleneck", (2,), (16,)),
+        HRNetStageConfig(2, 2, "basic", (2, 2), (8, 16)),
+        HRNetStageConfig(3, 3, "basic", (2, 2, 2), (8, 16, 32)),
+        HRNetStageConfig(2, 4, "basic", (2, 2, 2, 2), (8, 16, 32, 64)),
+    )
+
+
+_STAGES = {"hrnet-w32": hrnet_w32_stages, "hrnet-w48": hrnet_w48_stages,
+           "hrnet-tiny": hrnet_tiny_stages,
+           "hrnet-test-multi": hrnet_multi_stages}
 
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    """2D feature extractor config (reference: hrnet.get_model)."""
+    """2D feature extractor config (reference: hrnet.get_model).
+    ``head_type`` is the head an ``HRNet`` built without one gets; the
+    Vernier model names its HRNets' heads itself, as JAX's does."""
 
-    name: str = "hrnet-w32"  # hrnet-w32 | hrnet-tiny
+    # hrnet-w48 | hrnet-w32 | hrnet-tiny | hrnet-test-multi
+    name: str = "hrnet-w32"
+    head_type: str = "default"  # default | classification | heatmap_regression
     add_xy: bool = False
 
     def stages(self) -> Tuple[HRNetStageConfig, ...]:
@@ -72,14 +100,14 @@ class VernierConfig:
     VernierConfig that the serving path reads, with the same defaults)."""
 
     # --- model ---
-    vernier_type: str = "BEV_type3"  # only BEV_type3 is ported
+    vernier_type: str = "BEV_type3"  # 3D | BEV | BEV_type2 | BEV_type3
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     gn: bool = True
     gn_groups: int = 32
     num_parts: int = 9
     use_bbox_head: bool = False
     use_part_reg_head: bool = False
-    feature_aggregation: str = "concat"
+    feature_aggregation: str = "concat"  # concat | concat-atten
     # NCF heatmap loss: "mse" or "mse_weighted" (models/losses.py)
     ncf_loss: str = "mse"
     # --- instance grid: (nh, nw, nl) samples along (height, width, length)
@@ -90,7 +118,7 @@ class VernierConfig:
     # --- training targets (ops/assemble.make_targets) ---
     sigma: int = 2  # gaussian radius (voxels) of the part heatmaps
     ncf_subvoxel: bool = False  # draw at fractional voxel coordinates
-    grid_type: str = "2D"  # only the BEV ("2D") targets are ported
+    grid_type: str = "2D"  # "2D" (BEV heatmaps) | "3D" (3D fields)
     # --- ROI cropping ---
     resolution: Tuple[int, int] = (256, 256)  # (height, width) of the ROI
     roi_enlarge: float = 1.1
@@ -283,16 +311,9 @@ def tiny_stereo_config(**overrides) -> StereoConfig:
 # of them either, or only its training CLIs do); ``load_config`` drops them.
 _UNREAD = {
     "VernierConfig": ("head_reg_type", "aspect_ratio", "save", "debug"),
-    "BackboneConfig": ("head_type", "init_weights", "pre_trained_path"),
+    "BackboneConfig": ("init_weights", "pre_trained_path"),
     "StereoConfig": ("align_corners", "cv_feature_dim", "hourglass_3d",
                      "num_3d_convs"),
-}
-# (class, field) -> the one value the port honours; any other is refused
-_REFUSED = {
-    ("VernierConfig", "vernier_type"): "BEV_type3",
-    ("VernierConfig", "feature_aggregation"): "concat",
-    ("BackboneConfig", "head_type"): "default",
-    ("BackboneConfig", "add_xy"): False,
 }
 
 C = TypeVar("C")
@@ -304,12 +325,8 @@ def _as_tuple(v):
 
 def _from_dict(cls: Type[C], d: Dict[str, Any]) -> C:
     """``cls`` from a JSON dict of the JAX package or of the port; raises
-    on a field neither knows and on a value the port cannot honour."""
+    on a field neither knows."""
     name = cls.__name__
-    for (owner, key), allowed in _REFUSED.items():
-        if owner == name and key in d and d[key] != allowed:
-            raise ValueError(f"{name}.{key}={d[key]!r}: the port supports "
-                             f"only {allowed!r}")
     fields = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - fields - set(_UNREAD.get(name, ()))
     if unknown:

@@ -4,14 +4,22 @@
 One step has the JAX runner's three parts:
   1. ``encode``: ``assemble_instances`` (ROI warps + grid projections) and
      ``VernierEncoder`` (HRNet on both views + stereo voxel sampler, K1);
-  2. ``heads``: ``VernierHead`` (BEV_type3; its large-tap convs run K2);
-  3. ``finalize``: ``ncf_to_update`` -> refined boxes, and with
+  2. ``heads``: ``VernierHead`` (BEV_type2 / BEV_type3: its large-tap
+     convs run K2; BEV runs no K2);
+  3. ``finalize``: ``ncf_to_update`` -> refined boxes (heads without
+     ``coordinates`` decode the NCF by argmax even under
+     ``ncf_decode="coordinates"``, as JAX does), and with
      ``with_targets`` the training targets and ``vernier_losses`` against
      the batch's GT boxes and LiDAR (validation losses).
 
 ``run`` serves a ``RefinementPipeline`` into a ``PredictionWriter``, with
 up to ``prefetch`` batches queued on the card before the oldest one's
 outputs are pulled to the host.
+
+The ``3D`` head's fields [N, P, nh, nw, nl] have no pose update: JAX's
+``_finalize`` fails on them in ``hard_argmax_2d``'s 4-D unpack
+(snvc_tpu/ops/heatmaps.py:67).  ``step`` refuses such a model with a
+``ValueError`` before any device work.
 """
 
 from __future__ import annotations
@@ -100,7 +108,11 @@ class RefineRunner:
         ``host_outputs=()`` nothing waits for the card: the work is only
         queued.  ``with_targets`` adds ``losses``, ``vernier_losses``
         against the batch's ``gt_boxes`` and LiDAR ``points`` (a dict of
-        0-d values)."""
+        0-d values).  Raises ValueError for the ``3D`` head."""
+        if self.cfg.vernier_type == "3D":
+            raise ValueError("vernier_type '3D' gives 5-D NCF fields "
+                             "[N, P, nh, nw, nl], which have no pose update "
+                             "(ncf_to_update decodes [N, P, nl, nw] BEV maps)")
         with torch.inference_mode():
             arrays = self._to_device(batch, with_targets)
             out = self.finalize(self.heads(self.encode(arrays)), arrays,

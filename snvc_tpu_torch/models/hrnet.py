@@ -1,5 +1,6 @@
-"""HRNet 2D backbone, NHWC (port of snvc_tpu/models/hrnet.py, head_type
-"default": the highest-resolution branch at stride 4).
+"""HRNet 2D backbone, NHWC (port of snvc_tpu/models/hrnet.py): the
+stride-4 feature extractor (head_type "default"), the heatmap-regression
+head of the ``BEV`` Vernier head, and the classification head.
 
 BatchNorm follows the module's mode: running statistics in eval mode, batch
 statistics (and flax's running-average update) in train mode.
@@ -8,14 +9,18 @@ All 3x3 convs pad (1, 1) explicitly, as the JAX modules do (hrnet.py:47).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from snvc_tpu_torch.config import BackboneConfig, HRNetStageConfig
-from snvc_tpu_torch.models.layers import BatchNorm, conv2d_nhwc
+from snvc_tpu_torch.models.layers import (
+    BatchNorm,
+    conv2d_nhwc,
+    pixel_shuffle_2d,
+)
 
 
 class _Named(nn.Module):
@@ -32,9 +37,9 @@ class _Named(nn.Module):
         self.add_module(f"{kind}_{i}", mod)
         return mod
 
-    def _conv(self, cin, cout, k, stride=1):
+    def _conv(self, cin, cout, k, stride=1, bias=False):
         return self._add("Conv", nn.Conv2d(cin, cout, k, stride, (k - 1) // 2,
-                                           bias=False))
+                                           bias=bias))
 
     def _bn(self, c):
         return self._add("BatchNorm", BatchNorm(c))
@@ -196,23 +201,49 @@ class Transition(_Named):
 
 
 class HRNet(_Named):
-    """HRNet, ``head_type="default"`` (JAX hrnet.py:197): returns the
-    highest-resolution feature map [N, H/4, W/4, C]."""
+    """HRNet (JAX hrnet.py:197).  ``head_type`` (default
+    ``cfg.head_type``):
 
-    def __init__(self, cfg: BackboneConfig, in_channels: int = 3):
+      * "default": the highest-resolution branch, [N, H/4, W/4, C];
+      * "heatmap_regression": no stem and no stage 1, the input is a
+        feature map of ``in_channels``; a biased 1x1 ``Conv_0`` to
+        ``num_heatmaps * 4`` channels, then ``pixel_shuffle_2d`` x2:
+        [N, 2 H', 2 W', num_heatmaps] for an [N, H', W', in_channels]
+        input;
+      * "classification": incremental ``Bottleneck``s over the branches,
+        biased stride-2 3x3 convs + BatchNorm + relu between them, a
+        2048-wide 1x1 conv, the spatial mean and ``Dense_0``:
+        [N, num_classes].
+
+    With ``cfg.add_xy`` the stem takes ``in_channels + 2`` channels: the
+    ROIs' coordinate maps (``ops/assemble.roi_xy_maps``), or, for an
+    input of ``in_channels`` alone, [-1, 1] ramps over the crop (JAX
+    hrnet.py:223-241)."""
+
+    def __init__(self, cfg: BackboneConfig, head_type: Optional[str] = None,
+                 num_heatmaps: int = 9, num_classes: int = 1000,
+                 in_channels: int = 3):
         super().__init__()
-        if cfg.add_xy:
-            raise NotImplementedError("add_xy backbone input is not ported")
+        head = head_type or cfg.head_type
+        if head not in ("default", "heatmap_regression", "classification"):
+            raise NotImplementedError(head)
+        self.head = head
         stages = cfg.stages()
-        self.stem = [(self._conv(in_channels, 64, 3, 2), self._bn(64)),
-                     (self._conv(64, 64, 3, 2), self._bn(64))]
-        s1 = stages[0]
-        block = _BLOCKS[s1.block]
-        self.stage1, cin = [], 64
-        for _ in range(s1.num_blocks[0]):
-            self.stage1.append(self._add(block.__name__,
-                                         block(cin, s1.num_channels[0])))
-            cin = s1.num_channels[0] * block.expansion
+        self.stem, self.stage1 = [], []
+        self.add_xy = cfg.add_xy and head != "heatmap_regression"
+        self.in_channels = in_channels
+        cin = in_channels
+        if head != "heatmap_regression":
+            stem_in = in_channels + 2 if self.add_xy else in_channels
+            self.stem = [(self._conv(stem_in, 64, 3, 2), self._bn(64)),
+                         (self._conv(64, 64, 3, 2), self._bn(64))]
+            s1 = stages[0]
+            block = _BLOCKS[s1.block]
+            cin = 64
+            for _ in range(s1.num_blocks[0]):
+                self.stage1.append(self._add(block.__name__,
+                                             block(cin, s1.num_channels[0])))
+                cin = s1.num_channels[0] * block.expansion
         prev = (cin,)
         self.stages = []
         for st in stages[1:]:
@@ -226,8 +257,30 @@ class HRNet(_Named):
                 mods.append(m)
             self.stages.append((trans, mods))
             prev = cur
+        if head == "heatmap_regression":
+            self._conv(prev[0], num_heatmaps * 4, 1, bias=True)
+        elif head == "classification":
+            hc = (32, 64, 128, 256)
+            # lists: an attribute holding a child would register it twice
+            self.first = [self._add("Bottleneck", Bottleneck(prev[0], hc[0]))]
+            self.steps, ch = [], hc[0] * 4
+            for i in range(len(prev) - 1):
+                incre = self._add("Bottleneck",
+                                  Bottleneck(prev[i + 1], hc[i + 1]))
+                down = self._conv(ch, hc[i + 1] * 4, 3, 2, bias=True)
+                ch = hc[i + 1] * 4
+                self.steps.append((incre, down, self._bn(ch)))
+            self.final = (self._conv(ch, 2048, 1, bias=True), self._bn(2048))
+            self.Dense_0 = nn.Linear(2048, num_classes)
 
     def forward(self, x):
+        if self.add_xy and x.shape[-1] == self.in_channels:
+            N, H, W = x.shape[:3]
+            f32 = dict(dtype=torch.float32, device=x.device)
+            xm = torch.linspace(-1.0, 1.0, W, **f32).to(x.dtype)
+            ym = torch.linspace(-1.0, 1.0, H, **f32).to(x.dtype)
+            x = torch.cat([x, xm[None, None, :, None].expand(N, H, W, 1),
+                           ym[None, :, None, None].expand(N, H, W, 1)], -1)
         for conv, bn in self.stem:
             x = F.relu(bn(conv2d_nhwc(x, conv)))
         for b in self.stage1:
@@ -237,4 +290,14 @@ class HRNet(_Named):
             xs = trans(xs)
             for m in mods:
                 xs = m(xs)
+        if self.head == "heatmap_regression":
+            return pixel_shuffle_2d(conv2d_nhwc(xs[0], self.Conv_0), 2)
+        if self.head == "classification":
+            y = self.first[0](xs[0])
+            for (incre, down, bn), h in zip(self.steps, xs[1:]):
+                y = incre(h) + F.relu(bn(conv2d_nhwc(y, down)))
+            conv, bn = self.final
+            y = F.relu(bn(conv2d_nhwc(y, conv))).mean(dim=(1, 2))
+            w, b = self.Dense_0.weight, self.Dense_0.bias
+            return F.linear(y, w.to(y.dtype), b.to(y.dtype))
         return xs[0]

@@ -125,7 +125,8 @@ class BatchNorm(nn.Module):
     (``nn.BatchNorm(momentum=0.9)``, JAX hrnet.py:44).
 
     Eval mode reads the running statistics.  Train mode normalizes with
-    the batch's float32 mean and biased variance E[x^2] - E[x]^2 (clamped
+    the batch's mean and biased variance E[x^2] - E[x]^2, both in float32
+    or wider as flax promotes them (float64 stays float64) (clamped
     at 0) and moves the running statistics by ``r = 0.9 r + 0.1 batch``,
     the variance biased too (``F.batch_norm`` would store the unbiased
     one)."""
@@ -142,12 +143,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        wide = torch.promote_types(x.dtype, torch.float32)
         if not self.training:
             a = torch.rsqrt(self.running_var + self.eps) * self.weight
             b = self.bias - self.running_mean * a
-            return (x.float() * a + b).to(x.dtype)
+            return (x.to(wide) * a + b).to(x.dtype)
         red = tuple(range(x.ndim - 1))
-        xf = x.float()
+        xf = x.to(wide)
         mean = xf.mean(red)
         var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
         if not self.stats_frozen:

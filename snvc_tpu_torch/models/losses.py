@@ -1,11 +1,11 @@
 """Losses of the Vernier instance model (port of snvc_tpu/models/losses.py):
 masked means over a fixed-size padded batch with a per-instance validity
-mask.  ``vernier_losses`` is what the BEV_type3 head trains with: the
-heatmap, occupancy and coordinate terms, the part-offset term with
-``use_part_reg_head`` and the FC bbox head's BEV L1 with
-``use_bbox_head``.  The 3D bbox loss, its approximate 3D IoU and the
-disentangled corner loss are ported beside them; no training path of
-either package calls them.
+mask.  ``vernier_losses`` is what every Vernier head trains with: the
+heatmap term (BEV maps or the ``3D`` head's fields: the masked means
+take any rank), and the occupancy, coordinate, part-offset and FC bbox
+terms of the heads that give those outputs.  The 3D bbox loss, its
+approximate 3D IoU and the disentangled corner loss are ported beside
+them; no training path of either package calls them.
 """
 
 from __future__ import annotations

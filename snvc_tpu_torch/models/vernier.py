@@ -1,22 +1,23 @@
 """Vernier-scale instance refinement network (port of
-snvc_tpu/models/vernier.py:89-314, the ``BEV_type3`` head with ``concat``
-aggregation).
+snvc_tpu/models/vernier.py:89-314: the ``3D``, ``BEV``, ``BEV_type2`` and
+``BEV_type3`` heads, ``concat`` and ``concat-atten`` aggregation).
 
 Voxel volumes are NDHWC [N, nh, nw, nl, C]; heatmaps come out as
-[N, P, nl, nw]; outputs are float32 whatever the compute dtype.  The
-stereo voxel is sampled by ``stereo_voxel_sample`` (kernel K1 on the card)
-and the head's conv1_k7 / conv2_k5 / conv3_k5_d2 run through
-``Conv3d`` -> ``conv3d_large_tap`` (kernel K2 on the card).
+[N, P, nl, nw] (the ``3D`` head's fields as [N, P, nh, nw, nl]); outputs
+are float32 whatever the compute dtype.  The stereo voxel is sampled by
+``stereo_voxel_sample`` (kernel K1 on the card), and the BEV_type2 /
+BEV_type3 heads' conv1_k7 / conv2_k5 / conv3_k5_d2 run through
+``Conv3d`` -> ``conv3d_large_tap`` (kernel K2 on the card); the ``3D``
+and ``BEV`` heads have no large-tap conv.
 
 Child names follow the Flax modules (``ConvNorm3d_0`` ...), see
-models/layers.py.  The ``3D``, ``BEV`` and ``BEV_type2`` heads are not
-ported yet and raise ``NotImplementedError``.
+models/layers.py.
 
 The module's mode is the JAX ``train`` flag: in train mode BatchNorm uses
 batch statistics (over both views stacked, as the encoder runs one HRNet
-pass over both) and, with ``cfg.remat``, the 3D hourglass is
-rematerialized in the backward (``torch.utils.checkpoint``), as JAX's
-``nn.remat`` does (vernier.py:188-202).
+pass over both) and, with ``cfg.remat``, the BEV_type2 / BEV_type3 3D
+hourglass is rematerialized in the backward (``torch.utils.checkpoint``),
+as JAX's ``nn.remat`` does (vernier.py:188-202).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from snvc_tpu_torch.models.layers import (
     frozen_batch_stats,
     init_weights,
 )
+from snvc_tpu_torch.ops.grid_sample import cosine_gate
 from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
 
@@ -85,42 +87,128 @@ def _coord_maps(n: int, nl: int, nw: int, dtype, device):
 
 class VernierEncoder(nn.Module):
     """ROIs -> object-centric voxel: a shared HRNet over both views, then
-    the stereo voxel sampler (JAX vernier.py:89)."""
+    the stereo voxel sampler (JAX vernier.py:89).  With
+    ``feature_aggregation="concat-atten"`` the sampled voxel is gated by
+    the clamped cosine similarity of its two halves, in its dtype, outside
+    the kernel, as JAX gates the Pallas output (vernier.py:136-148)."""
 
     def __init__(self, cfg: VernierConfig):
         super().__init__()
-        if cfg.feature_aggregation != "concat":
+        if cfg.feature_aggregation not in ("concat", "concat-atten"):
             raise NotImplementedError(cfg.feature_aggregation)
         self.cfg = cfg
-        self.HRNet_0 = HRNet(cfg.backbone)
+        self.HRNet_0 = HRNet(cfg.backbone, head_type="default")
 
     def forward(self, left_roi, right_roi, grid_proj_left, grid_proj_right):
         dt = compute_dtype(self.cfg.compute_dtype)
         n = left_roi.shape[0]
         both = torch.cat([left_roi.to(dt), right_roi.to(dt)], dim=0)
         feats = self.HRNet_0(both).contiguous()
-        return stereo_voxel_sample(
+        voxel = stereo_voxel_sample(
             feats[:n], feats[n:], grid_proj_left.float().contiguous(),
             grid_proj_right.float().contiguous(), self.cfg.resolution,
             self.cfg.grid_resolution)
+        if self.cfg.feature_aggregation == "concat-atten":
+            C = voxel.shape[-1] // 2
+            voxel = voxel * cosine_gate(voxel[..., :C], voxel[..., C:])
+        return voxel
+
+
+def _strided_depth(d: int) -> int:
+    """Depth after a k3 stride-2 conv with padding 1."""
+    return (d - 1) // 2 + 1
 
 
 class VernierHead(nn.Module):
-    """Voxel -> NCF / occupancy / coordinates, ``BEV_type3``
-    (JAX vernier.py:149, ``_head_bev_type23``)."""
+    """Voxel -> NCF / occupancy / offset / coordinates / bbox, by
+    ``cfg.vernier_type`` (JAX vernier.py:149-314):
+
+      * "3D" (``_head_3d``): two ConvNorm3d, a two-level ``Hourglass``
+        (whatever the grid width, never rematerialized), a 1x1x1 conv to
+        ``num_parts`` fields: ncf [N, P, nh, nw, nl]; nothing else;
+      * "BEV" (``_head_bev``): two depth-strided ConvNorm3d, the height
+        pooled by 2 into a BEV map, a 2D ``Hourglass``, the occupancy
+        conv to nh channels (occupancy [N, nh, nw, nl]), and a stride-2
+        ConvNorm into ``HRNet(head_type="heatmap_regression")``: ncf
+        [N, P, nl, nw];
+      * "BEV_type2" / "BEV_type3" (``_head_bev_type23``): the large-tap
+        prelude (K2), the 3D hourglass (rematerialized in training with
+        ``cfg.remat``), occupancy, the optional offset head, the BEV 2D
+        hourglass and ncf [N, P, nl, nw]; BEV_type3 adds the
+        ``CoordHead`` and, with ``use_bbox_head``, the FC bbox head.
+
+    Child names are Flax's automatic names of each head."""
 
     def __init__(self, cfg: VernierConfig, voxel_channels: int):
         super().__init__()
-        if cfg.vernier_type != "BEV_type3":
-            raise NotImplementedError(
-                f"vernier_type {cfg.vernier_type!r} is not ported")
         self.cfg = cfg
+        vt = cfg.vernier_type
+        if vt == "3D":
+            self._build_3d(voxel_channels)
+        elif vt == "BEV":
+            self._build_bev(voxel_channels)
+        elif vt in ("BEV_type2", "BEV_type3"):
+            self._build_bev_type23(voxel_channels, vt == "BEV_type3")
+        else:
+            raise NotImplementedError(f"vernier_type {vt!r}")
+
+    # --- '3D' (JAX vernier.py:211) -------------------------------------
+    def _build_3d(self, dim: int):
+        cfg = self.cfg
+        g, gn = cfg.gn_groups, cfg.gn
+        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)
+        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)
+        self.Hourglass_0 = Hourglass(dim, ndim=3, gn=gn)
+        self.Conv3d_0 = Conv3d(dim, cfg.num_parts, (1, 1, 1))
+
+    def _head_3d(self, voxel):
+        x = F.relu(self.ConvNorm3d_0(voxel))
+        x = F.relu(self.ConvNorm3d_1(x))
+        x = x + self.Hourglass_0(x, None, None)[0]
+        ncf = self.Conv3d_0(x).movedim(-1, 1)  # [N, P, nh, nw, nl]
+        return dict(ncf=ncf, occupancy=None, offset=None, coordinates=None,
+                    bbox=None)
+
+    # --- 'BEV' (JAX vernier.py:230) ------------------------------------
+    def _build_bev(self, dim: int):
+        cfg = self.cfg
+        g, gn = cfg.gn_groups, cfg.gn
+        nh = cfg.grid_resolution[0]
+        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g)
+        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g)
+        h = _strided_depth(_strided_depth(nh)) // 2
+        self.ConvNorm_0 = ConvNorm(h * dim, dim * 2, 3, gn=gn, groups=g)
+        self.Hourglass_0 = Hourglass(dim * 2, ndim=2, gn=gn)
+        self.ConvNorm_1 = ConvNorm(dim * 2, dim * 2, 3, gn=gn, groups=g)
+        self.Conv_0 = nn.Conv2d(dim * 2, nh, 3, padding=1, bias=False)
+        self.ConvNorm_2 = ConvNorm(dim * 2, dim * 4, 3, 2, gn=gn, groups=g)
+        self.HRNet_0 = HRNet(cfg.backbone, head_type="heatmap_regression",
+                             num_heatmaps=cfg.num_parts, in_channels=dim * 4)
+
+    def _head_bev(self, voxel):
+        x = F.relu(self.ConvNorm3d_0(voxel))
+        x = F.relu(self.ConvNorm3d_1(x))
+        x = avg_pool_height(x, 2)
+        N, H, W, L, C = x.shape
+        bev = x.permute(0, 2, 3, 1, 4).reshape(N, W, L, H * C)
+        bev = F.relu(self.ConvNorm_0(bev))
+        bev = bev + self.Hourglass_0(bev, None, None)[0]
+        occ = F.relu(self.ConvNorm_1(bev))
+        occ = torch.sigmoid(conv2d_nhwc(occ, self.Conv_0))  # [N, W, L, nh]
+        hm = F.relu(self.ConvNorm_2(bev))
+        hm = self.HRNet_0(hm)  # [N, W, L, P]
+        return dict(ncf=hm.permute(0, 3, 2, 1), occupancy=occ.movedim(-1, 1),
+                    offset=None, coordinates=None, bbox=None)
+
+    # --- 'BEV_type2' / 'BEV_type3' (JAX vernier.py:261) ----------------
+    def _build_bev_type23(self, two_dim: int, with_coords: bool):
+        cfg = self.cfg
         nh, nw, nl = cfg.grid_resolution
-        two_dim = voxel_channels
         dim = two_dim // 2
         g, gn = cfg.gn_groups, cfg.gn
+        self.with_coords = with_coords
         self.ConvNorm3d_0 = ConvNorm3d(two_dim, dim, 1, 1, 1, gn, g)  # vimg
-        self.ConvNorm3d_1 = ConvNorm3d(two_dim, dim, 7, 1, 1, gn, g)  # conv1_k7
+        self.ConvNorm3d_1 = ConvNorm3d(two_dim, dim, 7, 1, 1, gn, g)  # k7
         self.ConvNorm3d_2 = ConvNorm3d(dim, dim, 5, 1, 1, gn, g)  # conv2_k5
         self.ConvNorm3d_3 = ConvNorm3d(dim, dim, 5, 1, 2, gn, g)  # conv3_k5_d2
         # hourglass choice by grid width (JAX _hg3d/_hg2d); the JAX model's
@@ -146,19 +234,16 @@ class VernierHead(nn.Module):
         self.ConvNorm_0 = ConvNorm((nh // 4) * dim, 64, 3, gn=gn, groups=g)
         self.add_module(hg2, cls(64, ndim=2, gn=gn))
         self.Conv_0 = nn.Conv2d(64, cfg.num_parts, 3, padding=1, bias=False)
-        self.CoordHead_0 = CoordHead(cfg.num_parts, nl, nw)
-        if cfg.use_bbox_head:
-            self.FCModel_0 = FCModel(cfg.num_parts * 2, num_neurons=128,
-                                     num_blocks=1, output_size=5)
+        if with_coords:
+            self.CoordHead_0 = CoordHead(cfg.num_parts, nl, nw)
+            if cfg.use_bbox_head:
+                self.FCModel_0 = FCModel(cfg.num_parts * 2, num_neurons=128,
+                                         num_blocks=1, output_size=5)
         # child names, looked up at call time (an attribute holding the
         # module itself would register it twice)
         self._hg3, self._hg2, self._post = hg3, hg2, f"ConvNorm3d_{k}"
 
-    def forward(self, voxel,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Optional[torch.Tensor]]:
-        """``dropout_generator`` draws the bbox head's dropout masks in
-        train mode (models/fc_model.py)."""
+    def _head_bev_type23(self, voxel, dropout_generator):
         cfg = self.cfg
         vimg = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(voxel))
@@ -201,17 +286,37 @@ class VernierHead(nn.Module):
         ncf_maps = conv2d_nhwc(hm, self.Conv_0)  # [N, nl, nw, P]
         ncf = ncf_maps.movedim(-1, 1)
 
-        aug = torch.cat([ncf_maps, _coord_maps(N, ncf_maps.shape[1],
-                                               ncf_maps.shape[2],
-                                               ncf_maps.dtype, x.device)],
-                        dim=-1)
-        coordinates = self.CoordHead_0(aug)
-        bbox = None
-        if cfg.use_bbox_head:
-            bbox = self.FCModel_0(coordinates.reshape(N, cfg.num_parts * 2),
-                                  dropout_generator)
-        out = dict(ncf=ncf, occupancy=occupancy, offset=offset,
-                   coordinates=coordinates, bbox=bbox)
+        coordinates, bbox = None, None
+        if self.with_coords:
+            aug = torch.cat([ncf_maps, _coord_maps(
+                N, ncf_maps.shape[1], ncf_maps.shape[2], ncf_maps.dtype,
+                x.device)], dim=-1)
+            coordinates = self.CoordHead_0(aug)
+            if cfg.use_bbox_head:
+                bbox = self.FCModel_0(
+                    coordinates.reshape(N, cfg.num_parts * 2),
+                    dropout_generator)
+        return dict(ncf=ncf, occupancy=occupancy, offset=offset,
+                    coordinates=coordinates, bbox=bbox)
+
+    @property
+    def has_bbox(self) -> bool:
+        """Whether the head has the FC bbox head (BEV_type3 with
+        ``use_bbox_head``)."""
+        return hasattr(self, "FCModel_0")
+
+    def forward(self, voxel,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        """``dropout_generator`` draws the bbox head's dropout masks in
+        train mode (models/fc_model.py).  Outputs are float32."""
+        vt = self.cfg.vernier_type
+        if vt == "3D":
+            out = self._head_3d(voxel)
+        elif vt == "BEV":
+            out = self._head_bev(voxel)
+        else:
+            out = self._head_bev_type23(voxel, dropout_generator)
         return {k: (v.float() if v is not None else None)
                 for k, v in out.items()}
 

@@ -1,8 +1,9 @@
 """On-device batch assembly for the instance path (port of
-snvc_tpu/ops/assemble.py): ROI resampling of both views, the projection of
-the object-centric grid into each ROI, and the training targets (BEV part
-heatmaps, occupancy, the bbox head's BEV box, part offsets) of the 2D
-grid type."""
+snvc_tpu/ops/assemble.py): ROI resampling of both views (with
+``add_xy``, each ROI's global-frame coordinate maps appended), the
+projection of the object-centric grid into each ROI, and the training
+targets (BEV part heatmaps or, with grid type "3D", 3D part fields;
+occupancy; the bbox head's BEV box; part offsets)."""
 
 from __future__ import annotations
 
@@ -11,13 +12,13 @@ import torch
 
 from snvc_tpu_torch.config import VernierConfig
 from snvc_tpu_torch.geometry.boxes import PART_X, PART_Y, PART_Z
-from snvc_tpu_torch.ops.heatmaps import bev_part_heatmaps
+from snvc_tpu_torch.ops.heatmaps import bev_part_heatmaps, heatmaps_3d
 from snvc_tpu_torch.ops.points_in_boxes import (
     _local_coords,
     grid_to_cam,
     occupancy_targets,
 )
-from snvc_tpu_torch.ops.warp import affine_resample_batch
+from snvc_tpu_torch.ops.warp import affine_resample_batch, invert_affine
 from snvc_tpu_torch.utils.device import constant
 
 
@@ -43,6 +44,26 @@ def grid_projections(samples, P, trans, grid_local):
     return uv @ trans[:, :, :2].transpose(1, 2) + trans[:, None, :, 2]
 
 
+def roi_xy_maps(trans, roi_hw, image_size):
+    """Global-frame coordinate maps of each ROI's pixels (JAX
+    assemble.py:72): trans [B, 2, 3] source->ROI crop affines (scale +
+    translate), roi_hw = (oh, ow), image_size = (H, W) of the frame the
+    affines act in.  Returns [B, oh, ow, 2]: x = 2 u / W - 1 and
+    y = 2 v / H - 1 of each ROI pixel's source position (the reference's
+    generate_xy_map)."""
+    oh, ow = roi_hw
+    gh, gw = image_size
+    inv = invert_affine(trans.float())  # ROI -> source
+    oy = torch.arange(oh, dtype=torch.float32, device=trans.device)
+    ox = torch.arange(ow, dtype=torch.float32, device=trans.device)
+    su = inv[:, 0, 0:1] * ox[None] + inv[:, 0, 2:3]  # [B, ow]
+    sv = inv[:, 1, 1:2] * oy[None] + inv[:, 1, 2:3]  # [B, oh]
+    B = trans.shape[0]
+    xm = (2.0 * su / gw - 1.0)[:, None, :].expand(B, oh, ow)
+    ym = (2.0 * sv / gh - 1.0)[:, :, None].expand(B, oh, ow)
+    return torch.stack([xm, ym], dim=-1)
+
+
 def assemble_instances(images_left, images_right, image_idx, trans_l,
                        trans_r, samples, P_left, P_right, grid_local,
                        cfg: VernierConfig):
@@ -50,10 +71,10 @@ def assemble_instances(images_left, images_right, image_idx, trans_l,
 
     images_* [B_img, H, W, 3] uint8; image_idx [B] int; trans_* [B, 2, 3];
     samples [B, 7]; P_* [B_img, 3, 4].  Returns (left_rois, right_rois,
-    grid_proj_l, grid_proj_r): ROIs [B, oh, ow, 3] float32 normalized,
-    projections [B, G, 2] in ROI pixels."""
-    if cfg.backbone.add_xy:
-        raise NotImplementedError("add_xy ROI coordinate maps are not ported")
+    grid_proj_l, grid_proj_r): ROIs [B, oh, ow, 3] float32 normalized
+    (with ``cfg.backbone.add_xy``, [B, oh, ow, 5]: ``roi_xy_maps`` of the
+    view's crop appended after the normalization), projections [B, G, 2]
+    in ROI pixels."""
     mean = constant(cfg.img_mean, images_left.device)
     std = constant(cfg.img_std, images_left.device)
     idx = image_idx.long()
@@ -65,6 +86,11 @@ def assemble_instances(images_left, images_right, image_idx, trans_l,
 
     left = extract(images_left, trans_l)
     right = extract(images_right, trans_r)
+    if cfg.backbone.add_xy:
+        left = torch.cat([left, roi_xy_maps(trans_l, cfg.resolution,
+                                            cfg.image_size)], dim=-1)
+        right = torch.cat([right, roi_xy_maps(trans_r, cfg.resolution,
+                                              cfg.image_size)], dim=-1)
     gpl = grid_projections(samples, P_left[idx], trans_l, grid_local)
     gpr = grid_projections(samples, P_right[idx], trans_r, grid_local)
     return left, right, gpl, gpr
@@ -73,7 +99,8 @@ def assemble_instances(images_left, images_right, image_idx, trans_l,
 def part_centers_in_grid(samples, gt_boxes, cfg: VernierConfig):
     """The GT boxes' parts in each sample's grid (JAX assemble.py:143):
     ([B, P, 2] (x = w index, z = l index) voxel coordinates, [B, P, 3]
-    metric offsets in the sample's object frame)."""
+    metric offsets in the sample's object frame, [B, P, 3] (y, x, z)
+    voxel coordinates)."""
     P = cfg.num_parts
     nh, nw, nl = cfg.grid_resolution
     parts = constant(np.stack([PART_X, PART_Y, PART_Z])[:, :P],
@@ -87,17 +114,22 @@ def part_centers_in_grid(samples, gt_boxes, cfg: VernierConfig):
     center = torch.stack([samples[:, 3], samples[:, 4] - 0.5 * samples[:, 0],
                           samples[:, 5]], dim=-1)
     local = _local_coords(cam, center, samples[:, 6])  # (w, h, l)
+    spa_y = (cfg.y_range[1] - cfg.y_range[0]) / (nh - 1)
     spa_x = (cfg.x_range[1] - cfg.x_range[0]) / (nw - 1)
     spa_z = (cfg.z_range[1] - cfg.z_range[0]) / (nl - 1)
+    iy = local[..., 1] / spa_y + 0.5 * (nh - 1)
     jx = local[..., 0] / spa_x + 0.5 * (nw - 1)
     kz = local[..., 2] / spa_z + 0.5 * (nl - 1)
-    return torch.stack([jx, kz], dim=-1), local
+    return (torch.stack([jx, kz], dim=-1), local,
+            torch.stack([iy, jx, kz], dim=-1))
 
 
 def make_targets(samples, gt_boxes, points, points_valid, grid_local,
                  cfg: VernierConfig):
-    """Training targets (JAX assemble.py:180), grid type "2D": ncf
-    [B, P, nl, nw] BEV gaussians, occupancy [B, nh, nw, nl] (1 / 0 / -1)
+    """Training targets (JAX assemble.py:180): ncf [B, P, nl, nw] BEV
+    gaussians (``cfg.grid_type`` "2D") or [B, P, nh, nw, nl] 3D gaussians
+    ("3D", the targets of the ``3D`` head), occupancy [B, nh, nw, nl]
+    (1 / 0 / -1)
     and gt_corners_local [B, P, 3]; with ``cfg.use_bbox_head``
     gt_box_local [B, 5], and with ``cfg.use_part_reg_head`` offset
     [B, 3, P, nh, nw, nl].  samples / gt_boxes [B, 7]; points [B, Np, 3];
@@ -109,12 +141,13 @@ def make_targets(samples, gt_boxes, points, points_valid, grid_local,
     each voxel's displacement to each GT part in the object frame's
     (w, h, l) axes over the grid's extent (reference offsets_local,
     :758-766)."""
-    if cfg.grid_type != "2D":
-        raise NotImplementedError(f"grid_type {cfg.grid_type!r} is not ported")
     nh, nw, nl = cfg.grid_resolution
-    centers, local = part_centers_in_grid(samples, gt_boxes, cfg)
-    ncf = bev_part_heatmaps(centers, (nw, nl), cfg.sigma,
-                            quantize=not cfg.ncf_subvoxel)
+    centers, local, idx3 = part_centers_in_grid(samples, gt_boxes, cfg)
+    quant = not cfg.ncf_subvoxel
+    if cfg.grid_type == "3D":
+        ncf = heatmaps_3d(idx3, (nh, nw, nl), cfg.sigma, quantize=quant)
+    else:
+        ncf = bev_part_heatmaps(centers, (nw, nl), cfg.sigma, quantize=quant)
     occ = occupancy_targets(points, points_valid, samples, gt_boxes,
                             grid_local, (nh, nw, nl), cfg.grid_range)
     out = dict(ncf=ncf, occupancy=occ, gt_corners_local=local)

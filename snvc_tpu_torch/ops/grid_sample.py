@@ -7,6 +7,8 @@ x = ((g + 1) * S - 1) / 2; each of the four taps outside the image
 contributes zero.  Coordinates and interpolation weights are float32;
 the weighted sum is taken in float32 and rounded once to the feature dtype
 (the CUDA kernel does the same).  Layout is NHWC, as in JAX.
+``aggregate="concat-atten"`` gates both halves by the clamped cosine
+similarity of the two views (``cosine_gate``), outside the sampling.
 
 The backward's plain version (``sample_stereo_voxel_bwd``) is written out
 as the CUDA backward computes it: each tap's weighted output gradient is
@@ -99,19 +101,36 @@ def normalize_projections(grid_proj, roi_hw):
     return grid_proj.float() * scale - 1.0
 
 
+def cosine_gate(sl, sr):
+    """[..., C] x2 -> [..., 1]: the cosine similarity of the two views'
+    features clamped at 0 (JAX grid_sample.py:95-115, vernier.py:140-146;
+    reference vernier.py:341-344), in their dtype."""
+    num = (sl * sr).sum(-1, keepdim=True)
+    den = (torch.linalg.vector_norm(sl, dim=-1, keepdim=True)
+           * torch.linalg.vector_norm(sr, dim=-1, keepdim=True))
+    return (num / den.clamp_min(1e-8)).clamp_min(0.0)
+
+
 def sample_stereo_voxel(left_feat, right_feat, grid_proj_left,
-                        grid_proj_right, roi_hw, grid_resolution):
-    """Object-centric voxel from both views (concat aggregation).
+                        grid_proj_right, roi_hw, grid_resolution,
+                        aggregate: str = "concat"):
+    """Object-centric voxel from both views.
 
     left_feat/right_feat: [N, Hf, Wf, C]; grid_proj_*: [N, P, 2] projected
     grid points in ROI pixels (h-major ravel of (nh, nw, nl)); roi_hw: the
     ROI (H, W) used for normalization.  Returns [N, nh, nw, nl, 2C], left
-    view first.
+    view first; ``aggregate`` "concat" or "concat-atten" (both halves
+    times ``cosine_gate``).
     """
     nh, nw, nl = grid_resolution
     sl = grid_sample_2d(left_feat, normalize_projections(grid_proj_left, roi_hw))
     sr = grid_sample_2d(right_feat,
                         normalize_projections(grid_proj_right, roi_hw))
+    if aggregate == "concat-atten":
+        gate = cosine_gate(sl, sr)
+        sl, sr = sl * gate, sr * gate
+    elif aggregate != "concat":
+        raise NotImplementedError(aggregate)
     vox = torch.cat([sl, sr], dim=-1)
     return vox.reshape(vox.shape[0], nh, nw, nl, -1)
 

@@ -1,5 +1,6 @@
 """NCF heatmap targets and decoding (port of snvc_tpu/ops/heatmaps.py:
-``bev_part_heatmaps`` for training, the decoders for serving)."""
+``bev_part_heatmaps`` and ``heatmaps_3d`` for training, the decoders for
+serving)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,29 @@ def bev_part_heatmaps(centers_xz, grid_wl, sigma, quantize: bool = True):
     g = torch.exp(-(dx2 + dz2) / (2.0 * float(sigma) ** 2))
     r2 = float((3 * sigma) ** 2)
     return torch.where((dx2 <= r2) & (dz2 <= r2), g, torch.zeros_like(g))
+
+
+def heatmaps_3d(centers_yxz, grid_hwl, sigma, quantize: bool = True):
+    """Gaussian 3D part fields (JAX heatmaps.py:41; grid_type "3D").
+
+    centers_yxz [N, P, 3]: part positions in voxel index units (y along
+    nh, x along nw, z along nl); grid_hwl = (nh, nw, nl).  Returns
+    [N, P, nh, nw, nl] float32, zero outside 3 sigma per axis;
+    ``quantize`` floors the centers first."""
+    nh, nw, nl = grid_hwl
+    c = torch.floor(centers_yxz) if quantize else centers_yxz
+    cy, cx, cz = (c[..., i][..., None, None, None] for i in range(3))
+    f32 = dict(dtype=torch.float32, device=c.device)
+    ys = torch.arange(nh, **f32)[:, None, None]
+    xs = torch.arange(nw, **f32)[None, :, None]
+    zs = torch.arange(nl, **f32)[None, None, :]
+    dy2 = (ys - cy) ** 2
+    dx2 = (xs - cx) ** 2
+    dz2 = (zs - cz) ** 2
+    g = torch.exp(-(dy2 + dx2 + dz2) / (2.0 * float(sigma) ** 2))
+    r2 = float((3 * sigma) ** 2)
+    inside = (dy2 <= r2) & (dx2 <= r2) & (dz2 <= r2)
+    return torch.where(inside, g, torch.zeros_like(g))
 
 
 def hard_argmax_2d(heatmaps):

@@ -54,7 +54,13 @@ def ncf_to_update(ncf, samples, x_range: Tuple[float, float],
                   filter_min: float = -1.0, filter_max: float = 2.0,
                   decode: str = "argmax") -> NcfUpdate:
     """NCF [N, P, nl, nw] + proposals [N, 7] -> refined boxes (JAX
-    registration.py:69; decode "coordinates" | "argmax" | "soft-argmax")."""
+    registration.py:69; decode "coordinates" | "argmax" | "soft-argmax";
+    "coordinates" decodes by argmax when ``coordinates`` is None).  A 5-D
+    NCF (the ``3D`` head's) raises ValueError, as JAX's 4-D unpack
+    does."""
+    if ncf.ndim != 4:
+        raise ValueError(f"ncf must be [N, P, nl, nw] BEV maps, got "
+                         f"{tuple(ncf.shape)}")
     N, P, nl, nw = ncf.shape
     dev = ncf.device
     flat = ncf.reshape(N, P, -1)

@@ -5,9 +5,11 @@ around the GT boxes with gaussian noise.
   python -m snvc_tpu_torch.tools.train_vernier --model_dir runs/vernier \
       --data_path data/kitti --split train --steps 80000
 
-``--model_dir`` becomes an experiment directory (``config.json``,
-``training.log``, ``metrics.jsonl``, ``checkpoints/<step>.pt``), which
-the serving CLIs take as ``--model_dir``.  One device: the card by
+``--config`` takes a config.json of either package: any head, backbone
+or aggregation.  ``--model_dir`` becomes an experiment directory
+(``config.json``, ``training.log``, ``metrics.jsonl``,
+``checkpoints/<step>.pt``), which the serving CLIs take as
+``--model_dir``.  One device: the card by
 default, ``--device cpu`` for the plain PyTorch versions.  The JAX CLI's
 data parallelism over several devices is not ported.
 """

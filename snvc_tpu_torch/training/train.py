@@ -124,8 +124,9 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                grid_local: torch.Tensor) -> Dict[str, torch.Tensor]:
     """One step on ``batch`` (tensors on the model's device): updates
     ``state`` in place and returns the losses and the gradients' global
-    norm (before clipping), as 0-d tensors.  The bbox head's dropout
-    draws from ``dropout_generator(tc.seed, state.step)``."""
+    norm (before clipping), as 0-d tensors.  The bbox head's dropout,
+    where the head has one, draws from ``dropout_generator(tc.seed,
+    state.step)``; targets follow ``cfg.grid_type``."""
     model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
@@ -135,7 +136,7 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                            batch["points"], batch["points_valid"], grid_local,
                            cfg)
     gen = (dropout_generator(grid_local.device, tc.seed, state.step)
-           if cfg.use_bbox_head else None)
+           if model.head.has_bbox else None)
     outputs = model(left, right, gpl, gpr, dropout_generator=gen)
     losses = vernier_losses(outputs, targets, batch["valid"], cfg,
                             occupancy_weight=tc.occupancy_weight,

@@ -56,7 +56,7 @@ RAGGED = [  # shape, kernel, dilation, features: C and F off the 8 / 16 grid
 
 @pytest.mark.parametrize("kernel,C,Fo,nb", [
     ((7, 7, 7), 64, 32, 32), ((5, 3, 7), 40, 24, 32), ((5, 5, 5), 12, 10, 16),
-    ((3, 3, 3), 32, 64, 32), ((1, 1, 1), 8, 40, 32)])
+    ((3, 3, 3), 32, 64, 32), ((1, 1, 1), 8, 40, 32), ((7, 7, 7), 96, 48, 32)])
 def test_pack_conv_weight_round_trips(kernel, C, Fo, nb):
     w = torch.from_numpy(_conv(0, (1, 1, 1, 1, C), kernel, Fo)[1])
     wpk = pack_conv_weight(w, nb)
@@ -126,6 +126,9 @@ FWD_SHAPES = [  # x shape, kernel, dilation, output channels (multiple of 8)
     ((1, 64, 96, 312, 64), (3, 3, 3), 1, 32),    # K5, stereo stack
     ((2, 9, 10, 70, 40), (5, 3, 7), 2, 24),      # ragged
     ((1, 7, 6, 33, 16), (5, 5, 5), 1, 16),       # ragged_scalar, padded
+    ((4, 32, 192, 192, 96), (7, 7, 7), 1, 48),   # hrnet-w48 conv1_k7
+    ((4, 32, 192, 192, 48), (5, 5, 5), 2, 48),   # hrnet-w48 conv3_k5_d2
+    ((8, 16, 96, 96, 48), (7, 7, 7), 1, 96),     # hrnet-w48 conv1_k7's dx
 ]
 
 
@@ -143,7 +146,8 @@ def test_conv_tiling_fits_the_card(shape, kernel, dil, feats):
 
 
 @pytest.mark.parametrize("shape,feats", [
-    ((2, 3, 17, 70, 8), 24), ((1, 2, 8, 64, 8), 64), ((1, 1, 33, 33, 8), 10)])
+    ((2, 3, 17, 70, 8), 24), ((1, 2, 8, 64, 8), 64), ((1, 1, 33, 33, 8), 10),
+    ((1, 2, 8, 64, 8), 48)])
 def test_conv_tiles_cover_every_output_once(shape, feats):
     N, D, H, W = shape[:4]
     f8 = _round8(feats)
@@ -169,7 +173,8 @@ DW_SHAPES = [  # W, channels, features (multiples of 8), kernel, dilation
     (96, 64, 32, (7, 7, 7), 1), (96, 32, 32, (5, 5, 5), 1),
     (96, 32, 32, (5, 5, 5), 2), (96, 32, 64, (7, 7, 7), 1),
     (312, 64, 32, (3, 3, 3), 1), (70, 40, 24, (5, 3, 7), 2),
-    (33, 16, 16, (5, 5, 5), 1), (192, 128, 64, (7, 7, 7), 2)]
+    (33, 16, 16, (5, 5, 5), 1), (192, 128, 64, (7, 7, 7), 2),
+    (96, 96, 48, (7, 7, 7), 1), (96, 48, 48, (5, 5, 5), 2)]  # hrnet-w48
 
 
 @pytest.mark.parametrize("W,C,Fo,kernel,dil", DW_SHAPES)

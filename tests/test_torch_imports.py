@@ -124,6 +124,18 @@ def test_walk_covers_the_training_clis():
             "snvc_tpu_torch.utils.seeding"} <= names
 
 
+def test_walk_covers_the_variants():
+    """The walk above imports the modules the Vernier variants run
+    through: the heads, the HRNet heads, the 3D targets, the gated
+    sampler."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.models.vernier", "snvc_tpu_torch.models.hrnet",
+            "snvc_tpu_torch.ops.heatmaps", "snvc_tpu_torch.ops.assemble",
+            "snvc_tpu_torch.ops.grid_sample",
+            "snvc_tpu_torch.inference.refine"} <= names
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout
 

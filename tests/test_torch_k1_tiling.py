@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from snvc_tpu_torch.config import (
+    BackboneConfig,
     VernierConfig,
     flagship_vernier_config,
     tiny_vernier_config,
@@ -35,7 +36,9 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
 
 H100_SMS = 132
 CONFIGS = {"default": VernierConfig, "flagship": flagship_vernier_config,
-           "tiny": tiny_vernier_config}
+           "tiny": tiny_vernier_config,
+           "w48": lambda: VernierConfig(backbone=BackboneConfig(
+               name="hrnet-w48", add_xy=True))}
 
 
 def _feature_shape(cfg):

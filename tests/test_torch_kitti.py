@@ -185,24 +185,42 @@ def test_every_jax_field_is_held_or_listed_unread(cls, jcls):
             assert getattr(td, name) == getattr(jd, name), name
 
 
-@pytest.mark.parametrize("cls,key,value", [
-    (tconfig.StereoConfig, "no_such_field", True),
-    (tconfig.VernierConfig, "vernier_type", "BEV_type2"),
-    (tconfig.VernierConfig, "feature_aggregation", "concat-atten"),
-    (tconfig.VernierConfig, "backbone.head_type", "heatmap_regression"),
-    (tconfig.VernierConfig, "backbone.add_xy", True),
-    (tconfig.VernierConfig, "no_such_field", 1),
-])
-def test_load_config_refuses(tmp_path, cls, key, value):
-    d = dataclasses.asdict(cls())
+def _config_file(tmp_path, d, key, value):
     if key.startswith("backbone."):
         d["backbone"][key.split(".")[1]] = value
     else:
         d[key] = value
     p = tmp_path / "config.json"
     p.write_text(json.dumps(d))
+    return str(p)
+
+
+@pytest.mark.parametrize("cls,key,value", [
+    (tconfig.StereoConfig, "no_such_field", True),
+    (tconfig.VernierConfig, "no_such_field", 1),
+])
+def test_load_config_refuses(tmp_path, cls, key, value):
+    p = _config_file(tmp_path, dataclasses.asdict(cls()), key, value)
     with pytest.raises(ValueError, match=key.split(".")[-1]):
-        tconfig.load_config(str(p), cls)
+        tconfig.load_config(p, cls)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("vernier_type", "3D"),
+    ("vernier_type", "BEV"),
+    ("vernier_type", "BEV_type2"),
+    ("feature_aggregation", "concat-atten"),
+    ("backbone.head_type", "heatmap_regression"),
+    ("backbone.head_type", "classification"),
+    ("backbone.add_xy", True),
+    ("backbone.name", "hrnet-w48"),
+])
+def test_load_config_takes_variants(tmp_path, key, value):
+    """A JAX config.json of each variant loads with its value."""
+    p = _config_file(tmp_path, jconfig.VernierConfig().to_dict(), key, value)
+    cfg = tconfig.load_config(p, tconfig.VernierConfig)
+    owner = cfg.backbone if key.startswith("backbone.") else cfg
+    assert getattr(owner, key.split(".")[-1]) == value
 
 
 def test_load_config_takes_photometric_aug(tmp_path):

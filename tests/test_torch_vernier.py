@@ -60,11 +60,23 @@ def test_vernier_scale_matches_jax(grid, extra_heads):
                                    atol=1e-4 * np.abs(w_k).max(), err_msg=k)
 
 
-def test_other_heads_raise():
+@pytest.mark.parametrize("vt", ["3D", "BEV", "BEV_type2"])
+def test_other_heads_build_and_run(vt):
+    """The heads the port once refused build and run on the CPU (their
+    parity with JAX: tests/test_torch_variants.py)."""
     cfg = torch_vernier_config(__graft_entry__._tiny_cfg())
-    for vt in ("3D", "BEV", "BEV_type2"):
-        with pytest.raises(NotImplementedError):
-            TVernier(cfg.replace(vernier_type=vt), device="cpu")
+    cfg = cfg.replace(vernier_type=vt)
+    model = TVernier(cfg, device="cpu")
+    H, W = cfg.resolution
+    nh, nw, nl = cfg.grid_resolution
+    rois = torch.zeros((1, H, W, 3))
+    proj = torch.full((1, nh * nw * nl, 2), W / 2.0)
+    with torch.no_grad():
+        out = model(rois, rois, proj, proj)
+    ncf = (1, 9, nh, nw, nl) if vt == "3D" else (1, 9, nl, nw)
+    assert tuple(out["ncf"].shape) == ncf
+    assert torch.isfinite(out["ncf"]).all()
+    assert out["coordinates"] is None and out["bbox"] is None
 
 
 def test_default_device_needs_cuda():
