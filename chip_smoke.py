@@ -154,9 +154,31 @@ Phases, each printing one line with its elapsed seconds:
                BEV and w48 (per step K1 1 + 1 backward; K2, dx, dw 3 each
                for BEV_type2 and w48); median request / step ms and peak
                memory each, beside nvidia-smi's name and power limit.
+ 22. synthetic_world - the port's renderer (no cv2) on the host: a
+               4-frame KITTI tree (3 cars a frame) and a 6-frame moving-car
+               sequence, seconds a frame (files included) and a view
+               (render alone); the tree rendered again from its seed gives
+               the same bytes; every PNG decodes (``decode_png``) to the
+               array rendered.
+ 23. track   - the tracking CLI (``tools/track.py``) over that sequence
+               with a seeded flagship model (BEV_type3, hrnet-w32,
+               32x192x192, bf16) saved as a model directory, at --motion
+               static and cv (wall seconds, model load included): K1 =
+               frames and K2 = 3 x frames a run, finite boxes; then the
+               loaded tracker warm over the sequence, ms a frame.
+ 24. demos   - the three end-metric demos through ``main(argv)`` at cut
+               sizes (each cut in the phase's line): demo_ap_lift (20
+               steps, 4 train frames, 2 val frames), demo_tracking (20
+               steps, 4 train frames, 4 sequence frames), demo_two_stage
+               (10 stereo + 10 Vernier steps, 4 train frames, 2 val
+               frames); each writes its JSON with JAX's keys and finite
+               values; counters per Vernier step K1 1 + 1 backward, K2 3 +
+               3 dx, dw 3, per stereo step K3 1 + 1, K4 1 + 1, and per
+               served batch / frame K1 x1, K2 x3 / K3 x1, K4 x1; wall
+               seconds each.
 Then a {"kernels": [...]} line (launches: the serving, detect and
-training phases' counts plus train_cli's and variants'), nvidia-smi's
-line, and as the last line
+training phases' counts plus train_cli's, variants', track's and
+demos'), nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -187,6 +209,7 @@ from snvc_tpu_torch.config import (
     TrainConfig,
     VernierConfig,
     flagship_vernier_config,
+    save_config,
     tiny_stereo_config,
     tiny_vernier_config,
 )
@@ -196,11 +219,14 @@ from snvc_tpu_torch.data.pipeline import RefinementPipeline
 from snvc_tpu_torch.data.png import decode_png, encode_png
 from snvc_tpu_torch.data.stereo import normalize_images, synthetic_stereo_request
 from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
+from snvc_tpu_torch.data import synthetic
 from snvc_tpu_torch.data.synthetic import (
     IMG_H,
     IMG_W,
     box2d_of,
     calib_text,
+    make_synthetic_kitti,
+    make_synthetic_sequence,
     random_box,
     surface_points,
     synthetic_batch_arrays,
@@ -216,6 +242,7 @@ from snvc_tpu_torch.geometry.calib import (
 )
 from snvc_tpu_torch.inference.detect import DetectRunner
 from snvc_tpu_torch.inference.refine import RefineRunner
+from snvc_tpu_torch.inference.track import Tracker
 from snvc_tpu_torch.models.stereonet import (
     StereoNet,
     _bev_axes,
@@ -257,9 +284,11 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample,
     stereo_voxel_sample_bwd,
 )
+from snvc_tpu_torch.tools import demo_ap_lift, demo_tracking, demo_two_stage
 from snvc_tpu_torch.tools import detect as cli_detect
 from snvc_tpu_torch.tools import evaluate as cli_evaluate
 from snvc_tpu_torch.tools import inference_agnostic as cli_refine
+from snvc_tpu_torch.tools import track as cli_track
 from snvc_tpu_torch.tools import train_stereo as cli_train_stereo
 from snvc_tpu_torch.tools import train_vernier as cli_train_vernier
 from snvc_tpu_torch.tools._model_dir import load_model
@@ -2388,6 +2417,233 @@ def check_variant_reference(dev) -> None:
           **fields)
 
 
+# --------------------------------------------------- synthetic world ----
+WORLD_FRAMES, SEQ_FRAMES = 4, 6
+
+
+def check_synthetic_world(root: str) -> dict:
+    """Phase ``synthetic_world``: a WORLD_FRAMES-frame tree (3 cars a
+    frame, seed 7) and a SEQ_FRAMES-frame sequence (seed 99) rendered by
+    the port on the host; the tree rendered again gives the same bytes;
+    each PNG decodes to the array rendered.  Returns the sequence's root
+    and GT boxes."""
+    t = time.perf_counter()
+    rendered, render_s = [], []
+    real = synthetic.render_scene
+
+    def capture(*args, **kw):
+        t0 = time.perf_counter()
+        img = real(*args, **kw)
+        render_s.append(time.perf_counter() - t0)
+        rendered.append(img)
+        return img
+
+    synthetic.render_scene = capture
+    try:
+        tree, seq = os.path.join(root, "world"), os.path.join(root, "seq")
+        t0 = time.perf_counter()
+        make_synthetic_kitti(tree, WORLD_FRAMES, 3, seed=7, reuse=False)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seq_boxes = make_synthetic_sequence(seq, SEQ_FRAMES, seed=99)
+        seq_s = time.perf_counter() - t0
+    finally:
+        synthetic.render_scene = real
+    assert len(rendered) == 2 * (WORLD_FRAMES + SEQ_FRAMES), len(rendered)
+    views = [(tree, i) for i in range(WORLD_FRAMES)] + \
+        [(seq, i) for i in range(SEQ_FRAMES)]
+    t0 = time.perf_counter()
+    for k, (r, i) in enumerate(views):
+        for v, cam in enumerate(("image_2", "image_3")):
+            png = os.path.join(r, "training", cam, f"{i:06d}.png")
+            assert np.array_equal(decode_png(png), rendered[2 * k + v]), png
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * len(views))
+    again = os.path.join(root, "world_again")
+    make_synthetic_kitti(again, WORLD_FRAMES, 3, seed=7, reuse=False)
+    assert tree_bytes(tree) == tree_bytes(again), "a second render differs"
+    phase("synthetic_world", t, tree_s_per_frame=f"{tree_s / WORLD_FRAMES:.3f}",
+          seq_s_per_frame=f"{seq_s / SEQ_FRAMES:.3f}",
+          render_s_per_view=f"{np.median(render_s):.3f}",
+          decode_ms_per_view=f"{decode_ms:.2f}",
+          frames=f"{WORLD_FRAMES}+{SEQ_FRAMES}",
+          note=repr("s a frame: both views, labels, calib, LiDAR and PNG "
+                    "writes; render alone: median a view; host CPU"))
+    return dict(seq=seq, seq_boxes=seq_boxes,
+                tree_s=tree_s / WORLD_FRAMES, seq_s=seq_s / SEQ_FRAMES)
+
+
+def tree_bytes(root: str) -> dict:
+    """{path under ``root``: bytes} of every file below ``root``."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def check_track(dev, root: str, world: dict) -> dict:
+    """Phase ``track``: tools/track.py over the sequence with a seeded
+    flagship model saved as a model directory, at --motion static and cv
+    (K1 = frames, K2 = 3 x frames a run, finite boxes), then the loaded
+    tracker warm, ms a frame.  Returns the summed counts."""
+    t = time.perf_counter()
+    cfg = flagship_vernier_config()
+    mdir = os.path.join(root, "flagship_model")
+    os.makedirs(mdir)
+    model = VernierScale(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    torch.save({"step": 0, "model": model.state_dict()},
+               os.path.join(mdir, "0.pt"))
+    save_config(cfg, os.path.join(mdir, "config.json"))
+    del model
+    n = SEQ_FRAMES
+    init = world["seq_boxes"][0][0]
+    total = counts_of()
+    fields = {}
+
+    def counted(label, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts == counts_of(K1=n, K2=3 * n), f"{label}: {counts}"
+        for k, v in counts.items():
+            total[k] += v
+        assert len(states) == n and all(
+            st.box.shape == (7,) and np.isfinite(st.box).all()
+            for st in states), label
+        return states, wall
+
+    for motion in ("static", "cv"):
+        argv = ["--model_dir", mdir, "--data_path", world["seq"],
+                "--frames", *[str(i) for i in range(n)], "--init_box",
+                *[str(float(v)) for v in init], "--motion", motion,
+                "--device", str(dev)]
+        states, wall = counted(f"track {motion}",
+                               lambda: cli_track.main(argv))
+        fields[f"cli_{motion}_wall_s"] = f"{wall:.3f}"
+        fields[f"{motion}_kept"] = sum(st.kept for st in states)
+    cfg1, model, _ = load_model(mdir, VernierConfig, VernierScale, dev)
+    cfg1 = cfg1.replace(max_instances=1)
+    tracker = Tracker(RefineRunner(model, cfg1, device=dev), cfg1)
+    scenes = KittiDataset(world["seq"], "val").scenes()
+    tracker.step_frame(scenes[0], init)  # warm-up
+    _, warm = counted("track warm", lambda: tracker.track(scenes, init))
+    del tracker, model
+    torch.cuda.empty_cache()
+    phase("track", t, frames=n, ms_per_frame=f"{warm * 1e3 / n:.1f}",
+          **fields, nvidia_smi=repr(nvidia_smi()),
+          note=repr("cli wall: model load and first call included; "
+                    "ms_per_frame: warm, a synchronized step a frame"),
+          launches=json.dumps(total).replace(" ", ""))
+    return dict(counts=total, ms_per_frame=warm * 1e3 / n)
+
+
+# the keys of JAX's result JSON (tools/demo_ap_lift.py:178-198,
+# demo_tracking.py:225-236, demo_two_stage.py:526-553)
+DEMO_KEYS = {
+    "demo_ap_lift": (
+        "ap3d_proposals", "apbev_proposals", "steps", "noise_m",
+        "ap3d_refined_one_part", "apbev_refined_one_part",
+        "ap3d_refined_all_parts", "apbev_refined_all_parts",
+        "lift_3d_moderate", "mean_center_err_proposal_m",
+        "mean_center_err_refined_m"),
+    "demo_tracking": (
+        "seq_frames", "motion_m_per_frame", "tracker_err_m",
+        "static_prior_err_m", "tracker_err_mean_m", "tracker_err_max_m",
+        "static_prior_err_final_m", "kept_frames", "train_steps", "motion"),
+    "demo_two_stage": (
+        "ap3d_proposals", "apbev_proposals", "ap3d_proposals_iou50",
+        "stereo_steps", "vernier_steps", "proposal_noise_loc_m",
+        "proposal_noise_rot_deg", "ncf_decode", "ncf_subvoxel",
+        "ap3d_refined_one_part", "apbev_refined_one_part",
+        "ap3d_refined_one_part_iou50", "ap3d_refined_all_parts",
+        "apbev_refined_all_parts", "ap3d_refined_all_parts_iou50",
+        "ap3d_moderate_proposals", "ap3d_moderate_refined_best",
+        "lift_3d_moderate"),
+}
+# each demo's cut: its flags (the JAX defaults are 3000 / 600 / 6000 +
+# 1500 steps over 48 / 48 / 192 train frames)
+DEMO_CUTS = {
+    "demo_ap_lift": ["--steps", "20", "--train_frames", "4",
+                     "--val_frames", "2"],
+    "demo_tracking": ["--steps", "20", "--train_frames", "4",
+                      "--seq_frames", "4"],
+    "demo_two_stage": ["--stereo_steps", "10", "--vernier_steps", "10",
+                       "--train_frames", "4", "--val_frames", "2"],
+}
+VERNIER_STEP = dict(K1=1, K1_bwd=1, K2=3, K2_dx=3, K2_dw=3)
+
+
+def demo_counts(name: str, work: str) -> dict:
+    """The launches a demo's cut must make: its training steps, and K1 x1,
+    K2 x3 a refined batch (one frame's proposals) / K3, K4 x1 a detected
+    frame."""
+    def per(n, **kw):
+        return {k: v * n for k, v in kw.items()}
+
+    def plus(*ds):
+        return counts_of(**{k: sum(d.get(k, 0) for d in ds)
+                            for k in KERNELS})
+
+    if name == "demo_ap_lift":  # 2 val frames, refined then re-served
+        return plus(per(20, **VERNIER_STEP), per(2 * 2, K1=1, K2=3))
+    if name == "demo_tracking":  # one request a sequence frame
+        return plus(per(20, **VERNIER_STEP), per(4, K1=1, K2=3))
+    data = os.path.join(work, "proposals", "data")
+    batches = sum(1 for f in os.listdir(data)
+                  if open(os.path.join(data, f)).read().strip())
+    return plus(per(10, K3=1, K3_bwd=1, K4=1, K4_bwd=1),
+                per(2, K3=1, K4=1), per(10, **VERNIER_STEP),
+                per(batches, K1=1, K2=3))
+
+
+def check_demos(dev, root: str) -> dict:
+    """Phase ``demos``: each end-metric demo at its cut (DEMO_CUTS):
+    JAX's JSON keys with finite values, the launch counts of its steps
+    and requests, its wall seconds.  Returns the summed counts."""
+    t = time.perf_counter()
+    total = counts_of()
+    fields = {}
+    for name, mod in (("demo_ap_lift", demo_ap_lift),
+                      ("demo_tracking", demo_tracking),
+                      ("demo_two_stage", demo_two_stage)):
+        work = os.path.join(root, name)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = mod.main(DEMO_CUTS[name] + ["--work_dir", work,
+                                             "--log_every", "10",
+                                             "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert set(result) == set(DEMO_KEYS[name]), \
+            f"{name}: keys {sorted(set(result) ^ set(DEMO_KEYS[name]))}"
+        for k, v in result.items():
+            if not isinstance(v, str):
+                assert np.isfinite(np.asarray(v, np.float64)).all(), (name, k)
+        counts = read_counts()
+        want = demo_counts(name, work)
+        assert counts == want, f"{name}: launch counts {counts} != {want}"
+        for k, v in counts.items():
+            total[k] += v
+        fields[f"{name}_wall_s"] = f"{wall:.2f}"
+        fields[f"{name}_cut"] = repr(" ".join(DEMO_CUTS[name]))
+        key = {"demo_ap_lift": "lift_3d_moderate",
+               "demo_tracking": "tracker_err_mean_m",
+               "demo_two_stage": "ap3d_moderate_proposals"}[name]
+        fields[f"{name}_{key}"] = f"{result[key]:.4f}"
+        torch.cuda.empty_cache()
+    phase("demos", t, **fields, nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(total).replace(" ", ""))
+    return dict(counts=total)
+
+
 def assert_states_equal(a, b) -> None:
     """Two TrainStates with the same step, parameters, BatchNorm
     statistics and AdamW state, bit for bit."""
@@ -2455,62 +2711,72 @@ def main() -> int:
         check_two_stage(dev, root)
         cli = check_train_cli(dev, root)["counts"]
     var = check_variants(gen, dev)["counts"]
+    with tempfile.TemporaryDirectory() as root:
+        world = check_synthetic_world(root)
+        trk = check_track(dev, root, world)["counts"]
+        demos = check_demos(dev, root)["counts"]
+    # the launches of the phases that drive whole paths, summed a kernel
+    late = {k: var[k] + trk[k] + demos[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:217",
-             launches=serving["counts"]["K1"] + cli["K1"] + var["K1"],
+             launches=serving["counts"]["K1"] + cli["K1"] + late["K1"],
              bound_by="bytes",
              **k1),
         dict(name="conv3d_large_tap", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:236",
-             launches=serving["counts"]["K2"] + cli["K2"] + var["K2"],
+             launches=serving["counts"]["K2"] + cli["K2"] + late["K2"],
              bound_by="operations", **k2),
         dict(name="plane_sweep_volume", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
              replaces="snvc_tpu/ops/cost_volume.py:119",
-             launches=detect["counts"]["K3"] + cli["K3"], bound_by="bytes",
+             launches=detect["counts"]["K3"] + cli["K3"] + late["K3"],
+             bound_by="bytes",
              **k3),
         dict(name="frustum_to_voxel", route="cuda",
              source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
              replaces="snvc_tpu/ops/frustum_pallas.py:125",
-             launches=detect["counts"]["K4"] + cli["K4"], bound_by="bytes",
+             launches=detect["counts"]["K4"] + cli["K4"] + late["K4"],
+             bound_by="bytes",
              **k4),
         dict(name="stereo_voxel_sample_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/stereo_voxel_sample.cu",
              replaces="snvc_tpu/ops/grid_sample_pallas.py:329",
              launches=train["counts"]["K1_bwd"] + cli["K1_bwd"]
-             + var["K1_bwd"],
+             + late["K1_bwd"],
              bound_by="bytes", **k1_bwd),
         dict(name="conv3d_large_tap_dx", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
              launches=train["counts"]["K2_dx"] + cli["K2_dx"]
-             + var["K2_dx"],
+             + late["K2_dx"],
              bound_by="operations", **k2_bwd["dx"]),
         dict(name="conv3d_weight_grad", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_weight_grad.cu",
              replaces="snvc_tpu/ops/conv3d_fold_pallas.py:285",
              launches=train["counts"]["K2_dw"] + cli["K2_dw"]
-             + var["K2_dw"],
+             + late["K2_dw"],
              bound_by="operations", **k2_bwd["dw"]),
         dict(name="conv3d_k3", route="cuda",
              source="snvc_tpu_torch/csrc/conv3d_large_tap.cu",
              replaces="snvc_tpu/ops/conv3d_pallas.py:118",
              launches=(train["counts"]["K5"] + serving["counts"]["K5"]
-                       + cli["K5"] + var["K5"]), bound_by="operations",
+                       + cli["K5"] + late["K5"]), bound_by="operations",
              **k5),
         dict(name="plane_sweep_volume_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/plane_sweep_volume.cu",
              replaces="snvc_tpu/ops/cost_volume.py:160",
-             launches=stereo_train["counts"]["K3_bwd"] + cli["K3_bwd"],
+             launches=stereo_train["counts"]["K3_bwd"] + cli["K3_bwd"]
+             + late["K3_bwd"],
              bound_by="bytes", **k3_bwd),
         dict(name="frustum_to_voxel_bwd", route="cuda",
              source="snvc_tpu_torch/csrc/frustum_to_voxel.cu",
              replaces="snvc_tpu/ops/frustum_pallas.py:271",
-             launches=stereo_train["counts"]["K4_bwd"] + cli["K4_bwd"],
+             launches=stereo_train["counts"]["K4_bwd"] + cli["K4_bwd"]
+             + late["K4_bwd"],
              bound_by="bytes", **k4_bwd),
     ]
     print(f"[total] {time.perf_counter() - T0:.2f}s")

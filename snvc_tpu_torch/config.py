@@ -337,6 +337,12 @@ def _from_dict(cls: Type[C], d: Dict[str, Any]) -> C:
     return cls(**kw)
 
 
+def save_config(cfg, path: str) -> None:
+    """``cfg`` as ``config.json`` (the JSON ``load_config`` reads)."""
+    with open(path, "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=2)
+
+
 def load_config(path: str, cls: Type[C]) -> C:
     """A ``VernierConfig`` or ``StereoConfig`` from ``config.json`` (JAX
     ``snvc_tpu/config.py:432``).  Takes the JAX package's files (a bare

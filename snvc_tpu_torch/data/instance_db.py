@@ -140,12 +140,17 @@ def perturb_box(
     calib_right: Optional[Calibration] = None,
     max_trials: int = 10,
     image_hw=None,
+    noise_bank: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Proposal noise around a GT box
     (reference _generate_noise/_purturb_3D_box:284-321).
 
     Independent Gaussian draws per component (the reference's scheme),
-    gated by the rot/loc/dim_aug switches.
+    gated by the rot/loc/dim_aug switches.  With ``noise_bank`` (a [K, 7]
+    array of measured proposal-minus-GT deltas) a draw is one of its rows,
+    picked at random, plus gaussians of 0.1x the configured stds, under
+    the same switches: the correlated, biased errors of one detector's
+    proposals (JAX instance_db.py:131).
 
     With cfg.check_fov (and calibrations provided), up to ``max_trials``
     noise draws are attempted until the perturbed box stays in both
@@ -161,13 +166,26 @@ def perturb_box(
     trials = max_trials if check else 1
     hw = image_hw if image_hw is not None else cfg.image_size
     for _ in range(trials):
-        noise = np.zeros(7)
-        if cfg.rot_aug:
-            noise[6] = rng.normal() * float(cfg.std_rot) * np.pi / 180.0
-        if cfg.loc_aug:
-            noise[3:6] = rng.normal(size=3) * np.asarray(cfg.std_loc)
-        if cfg.dim_aug:
-            noise[:3] = rng.normal(size=3) * np.asarray(cfg.std_dim)
+        if noise_bank is not None and len(noise_bank) > 0:
+            noise = np.asarray(noise_bank[int(rng.integers(len(noise_bank)))],
+                               np.float64).copy()
+            noise[6] += rng.normal() * 0.1 * float(cfg.std_rot) * np.pi / 180.0
+            noise[3:6] += rng.normal(size=3) * 0.1 * np.asarray(cfg.std_loc)
+            noise[:3] += rng.normal(size=3) * 0.1 * np.asarray(cfg.std_dim)
+            if not cfg.rot_aug:
+                noise[6] = 0.0
+            if not cfg.loc_aug:
+                noise[3:6] = 0.0
+            if not cfg.dim_aug:
+                noise[:3] = 0.0
+        else:
+            noise = np.zeros(7)
+            if cfg.rot_aug:
+                noise[6] = rng.normal() * float(cfg.std_rot) * np.pi / 180.0
+            if cfg.loc_aug:
+                noise[3:6] = rng.normal(size=3) * np.asarray(cfg.std_loc)
+            if cfg.dim_aug:
+                noise[:3] = rng.normal(size=3) * np.asarray(cfg.std_dim)
         sample = (box + noise).astype(np.float32)
         if not check or in_fov(sample, calib_left, calib_right, hw):
             return sample

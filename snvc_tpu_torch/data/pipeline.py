@@ -103,13 +103,18 @@ class RefinementPipeline:
 
     def __init__(self, db: Sequence[InstanceRecord], cfg: VernierConfig,
                  training: bool = False, max_points: int = 4096,
-                 seed: int = 0, load_lidar: Optional[bool] = None):
+                 seed: int = 0, load_lidar: Optional[bool] = None,
+                 noise_bank: Optional[np.ndarray] = None):
         self.db = list(db)
         self.cfg = cfg
         self.training = training
         self.max_points = max_points
         self.rng = np.random.default_rng(seed)
         self.load_lidar = training if load_lidar is None else load_lidar
+        # [K, 7] measured proposal-minus-GT deltas: the perturbations are
+        # drawn from them instead of iid gaussians (perturb_box)
+        self.noise_bank = (None if noise_bank is None
+                           else np.asarray(noise_bank))
 
     def __len__(self) -> int:
         return sum(1 for _ in self._frame_groups())
@@ -197,7 +202,8 @@ class RefinementPipeline:
                     rec.label, cfg, self.rng, calib_left=rec.calib_left,
                     calib_right=rec.calib_right,
                     image_hw=(rec.scene.native_image_size()
-                              if cfg.check_fov else None))
+                              if cfg.check_fov else None),
+                    noise_bank=self.noise_bank)
             else:
                 sample = rec.label.copy()
             samples[k] = sample

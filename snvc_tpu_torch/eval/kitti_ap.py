@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 from snvc_tpu_torch import _build
 
@@ -26,10 +26,15 @@ def build_evaluator() -> str:
     return str(_build.build_host(SOURCE, shared=False))
 
 
-def run_kitti_eval(gt_dir: str, result_dir: str) -> Dict:
-    """Score ``result_dir/data/XXXXXX.txt`` against ``gt_dir``."""
-    proc = subprocess.run([build_evaluator(), gt_dir, result_dir],
-                          capture_output=True, text=True, check=True)
+def run_kitti_eval(gt_dir: str, result_dir: str,
+                   car_min_iou: Optional[float] = None) -> Dict:
+    """Score ``result_dir/data/XXXXXX.txt`` against ``gt_dir``.
+    ``car_min_iou`` replaces the official 0.7 car threshold of all three
+    metrics (a diagnostic readout, e.g. AP@0.5)."""
+    cmd = [build_evaluator(), gt_dir, result_dir]
+    if car_min_iou is not None:
+        cmd.append(str(car_min_iou))
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
     results: Dict[str, Dict] = {}
     for line in proc.stdout.splitlines():
         parts = line.split()

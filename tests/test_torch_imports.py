@@ -136,6 +136,21 @@ def test_walk_covers_the_variants():
             "snvc_tpu_torch.inference.refine"} <= names
 
 
+def test_walk_covers_the_world_tracker_and_demos():
+    """The walk above imports the renderer and its rasterizer, the
+    tracker and the four CLIs of the slice, and ``scripts/demo_runs``."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.geometry.raster",
+            "snvc_tpu_torch.data.synthetic",
+            "snvc_tpu_torch.inference.track",
+            "snvc_tpu_torch.tools.track", "snvc_tpu_torch.tools._demo",
+            "snvc_tpu_torch.tools.demo_ap_lift",
+            "snvc_tpu_torch.tools.demo_tracking",
+            "snvc_tpu_torch.tools.demo_two_stage"} <= names
+    assert "demo_runs" in _port_scripts()
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout
 
