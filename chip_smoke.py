@@ -176,9 +176,33 @@ Phases, each printing one line with its elapsed seconds:
                3 dx, dw 3, per stereo step K3 1 + 1, K4 1 + 1, and per
                served batch / frame K1 x1, K2 x3 / K3 x1, K4 x1; wall
                seconds each.
+ 25. parallel - data parallelism (parallel/api.py).  Two gloo ranks
+               share the card (NCCL refuses two ranks on one GPU; the
+               ranks share its SMs, so their step time is no scaling
+               figure), started as a launcher starts them
+               (``initialize_multihost``): two steps of VernierConfig()
+               at the global batch of 8 (4 a rank) and of StereoConfig()
+               at 2 pairs (1 a rank), in bf16 and (step 0) in float32;
+               the float32 step 0 against the one-process step on the
+               same global batch under phase train_reference's rule
+               (losses 1e-4, grad_norm 3e-3; bf16 differences printed:
+               the card's convolutions give other bits at 4 instances
+               than at 8), the ranks agreeing, per rank and bf16 step
+               K1 1 + 1, K2 3 + 3 dx, dw 3 / K3 1 + 1, K4 1 + 1; the
+               warm bf16 step's ms and peak memory a rank beside the
+               one-process step's (phase train's median; a 2-pair stereo
+               step).  The flagship
+               RefineRunner and the full-width DetectRunner (2 frames)
+               on a mesh [cuda:0, cuda:0] against the one-device runner
+               (1 warm-up + 2 requests each; largest differences printed,
+               request ms; K1 2, K2 6 / K3 2, K4 2 a request), and phase
+               reference's small models on that mesh under reference's
+               bf16 rule.  First, train_vernier through torchrun in a
+               one-rank NCCL group (2 steps of hrnet-tiny on a seeded
+               1-frame tree) while the one-process float32 steps run.
 Then a {"kernels": [...]} line (launches: the serving, detect and
-training phases' counts plus train_cli's, variants', track's and
-demos'), nvidia-smi's line, and as the last line
+training phases' counts plus train_cli's, variants', track's, demos'
+and parallel's), nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -284,6 +308,7 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample,
     stereo_voxel_sample_bwd,
 )
+from snvc_tpu_torch.parallel.api import initialize_multihost, make_mesh
 from snvc_tpu_torch.tools import demo_ap_lift, demo_tracking, demo_two_stage
 from snvc_tpu_torch.tools import detect as cli_detect
 from snvc_tpu_torch.tools import evaluate as cli_evaluate
@@ -2644,6 +2669,405 @@ def check_demos(dev, root: str) -> dict:
     return dict(counts=total)
 
 
+# ---------------------------------------------------------- parallel ----
+# Two gloo ranks share the one card (NCCL refuses two ranks on one GPU):
+# no scaling figure, the two processes share the card's SMs.
+DP_RANKS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank_main(fn, rank, n, port, out_dir, args):
+    """A rank as a launcher starts one: RANK / WORLD_SIZE / MASTER_* in
+    its environment, the group joined by ``initialize_multihost`` (gloo
+    on cuda:0); ``fn(mesh, *args)``'s result saved for the parent."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    mesh = initialize_multihost("gloo", "cuda:0")
+    assert mesh.rank == rank and mesh.n_data == n, mesh
+    torch.save(fn(mesh, *args), os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.barrier()
+
+
+def run_dp_ranks(fn, *args, timeout: float = 300.0) -> list:
+    """``fn(mesh, *args)`` on DP_RANKS spawned ranks; their results in
+    rank order.  A rank that fails, or ranks past ``timeout``, fail the
+    phase, and every rank still running is stopped."""
+    import multiprocessing
+    import multiprocessing.connection
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        port = free_port()
+        procs = [ctx.Process(target=dp_rank_main,
+                             args=(fn, r, DP_RANKS, port, d, args))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            running = list(procs)
+            while running and time.monotonic() < deadline:
+                multiprocessing.connection.wait(
+                    [p.sentinel for p in running],
+                    max(deadline - time.monotonic(), 0.0))
+                running = [p for p in procs if p.exitcode is None]
+                if any(p.exitcode for p in procs):
+                    break
+            codes = [p.exitcode for p in procs]
+            assert codes == [0] * DP_RANKS, f"rank exit codes {codes}"
+            return [torch.load(os.path.join(d, f"rank{r}.pt"),
+                               weights_only=False) for r in range(DP_RANKS)]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+
+
+def dp_steps(kind: str, dev, mesh=None, float32: bool = False,
+             steps: int = 2) -> dict:
+    """``steps`` steps of the flagship training config on its global
+    batch: the Vernier model (VernierConfig(), 8 instances) or
+    StereoConfig() (2 pairs, 4 cars each), seeded weights, TrainConfig
+    with warmup_steps=2; data-parallel with ``mesh``; with ``float32``,
+    the config in float32 with TF32 off.  Step 0's metrics (rate 0: the
+    same parameters on every side), each step's ms, peak memory,
+    counters."""
+    # the card's defaults, or float32 work that is float32
+    torch.backends.cudnn.allow_tf32 = not float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tc = TrainConfig(warmup_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    if kind == "vernier":
+        cfg = VernierConfig()
+        if float32:
+            cfg = cfg.replace(compute_dtype="float32")
+        state = create_train_state(VernierScale(cfg, device=dev,
+                                                generator=gen), cfg, tc)
+        step = make_train_step(cfg, tc, dev, mesh=mesh)
+        batch = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
+    else:
+        cfg = StereoConfig()
+        if float32:
+            cfg = cfg.replace(compute_dtype="float32")
+        state = create_stereo_state(StereoNet(cfg, device=dev,
+                                              generator=gen), tc)
+        step = make_stereo_train_step(cfg, tc, dev, mesh=mesh)
+        batch = stereo_batch_to_device(synthetic_stereo_request(
+            cfg, seed=0, frames=2, boxes_per_frame=4), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    res = dict(metrics=metrics[0], step_ms=times, counts=read_counts(),
+               peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+DP_KINDS = ("vernier", "stereo")
+
+
+def dp_rank_steps(mesh) -> dict:
+    """Each path on this rank in bf16 (2 steps: the path as it trains,
+    timed) and in float32 (step 0)."""
+    dev = mesh.devices[mesh.rank]
+    return {kind: dict(bf16=dp_steps(kind, dev, mesh),
+                       f32=dp_steps(kind, dev, mesh, float32=True, steps=1))
+            for kind in DP_KINDS}
+
+
+def check_dp_training(dev, train: dict, f32: dict) -> dict:
+    """Each training path on DP_RANKS gloo ranks sharing the card against
+    the one-process step on the same global batch.  In float32 (TF32
+    off) step 0's losses within 1e-4 and its grad_norm within 3e-3 of the
+    one-process step's, phase train_reference's rule (losses 1e-4,
+    gradients 3e-3): the split changes only the order of the sums and
+    cuDNN's algorithms.  In bf16, the path as it trains, the card's
+    convolutions at 4 instances a rank give other bits than at 8 (the
+    flagship's eval forward: NCF 13 % of scale apart in bf16, 1.2 % in
+    float32, measured on one H100), so the bf16 metrics' distance from the
+    one-process float32 step is printed and the gates there are finite
+    metrics, the ranks agreeing and per rank and step K1 1 + 1, K2 3 + 3
+    dx, dw 3 / K3 1 + 1, K4 1 + 1.  The bf16 step's ms (the second, warm
+    step) and peak memory a rank beside the one-process step's: phase
+    ``train``'s (``train``, at the same global batch of 8) and a 2-pair
+    stereo step's.  ``f32``: the one-process float32 steps
+    (``dp_steps(kind, dev, float32=True, steps=1)``)."""
+    one = dict(vernier=dict(f32=f32["vernier"],
+                            bf16=dict(step_ms=[0.0, float(np.median(
+                                train["step_ms"]))],
+                                      peak_gb=train["peak_gb"])),
+               stereo=dict(f32=f32["stereo"], bf16=dp_steps("stereo", dev)))
+    ranks = run_dp_ranks(dp_rank_steps)
+    want = dict(vernier=counts_of(K1=2, K1_bwd=2, K2=6, K2_dx=6, K2_dw=6),
+                stereo=counts_of(K3=2, K3_bwd=2, K4=2, K4_bwd=2))
+    total = counts_of()
+    fields, failed = {}, []
+    for kind in DP_KINDS:
+        for r, res in enumerate(ranks):
+            got = res[kind]["bf16"]
+            assert got["counts"] == want[kind], \
+                f"{kind} rank {r} launch counts {got['counts']}"
+            for dt in ("bf16", "f32"):
+                assert res[kind][dt]["metrics"] == \
+                    ranks[0][kind][dt]["metrics"], f"{kind} {dt}: ranks"
+            for k, v in got["counts"].items():
+                total[k] += v
+        ref = one[kind]["f32"]["metrics"]
+        for dt in ("bf16", "f32"):
+            got = ranks[0][kind][dt]["metrics"]
+            assert all(math.isfinite(v) for v in got.values()), got
+            errs = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+                    for k, v in ref.items()}
+            fields[f"{kind}_{dt}_vs_one_f32"] = \
+                f"{max(errs.values()):.2e}({max(errs, key=errs.get)})"
+            fields[f"{kind}_{dt}_grad_norm"] = f"{got['grad_norm']:.5g}"
+            if dt == "f32":
+                failed += [f"{kind} {k} {e:.2e}" for k, e in errs.items()
+                           if e > (3e-3 if k == "grad_norm" else 1e-4)]
+        fields[f"{kind}_one_f32_grad_norm"] = f"{ref['grad_norm']:.5g}"
+        ranks_b = [res[kind]["bf16"] for res in ranks]
+        one_b = one[kind]["bf16"]
+        fields[f"{kind}_step_ms"] = ",".join(
+            f"{res['step_ms'][1]:.1f}" for res in ranks_b)
+        fields[f"{kind}_step_ms_one"] = f"{one_b['step_ms'][1]:.1f}"
+        fields[f"{kind}_peak_gb"] = ",".join(
+            f"{res['peak_gb']:.2f}" for res in ranks_b)
+        fields[f"{kind}_peak_gb_one"] = f"{one_b['peak_gb']:.2f}"
+    assert not failed, f"float32 ranks vs one process: {failed} " \
+        + json.dumps(fields)
+    return dict(counts=total, fields=fields)
+
+
+def check_dp_cli(root: str, meanwhile) -> tuple:
+    """train_vernier through torchrun in a one-rank NCCL group on the card
+    (2 steps of a small config, hrnet-tiny, so that the phase's seconds go
+    to the group, not to the flagship's steps) on a seeded 1-frame tree,
+    while this process runs ``meanwhile()`` (untimed work: the CLI's wall
+    is mostly its processes' start).  Returns (fields, its result)."""
+    d = os.path.join(root, "runs", "vernier_nccl")
+    cfg_path = os.path.join(root, "vernier_small.json")
+    save_config(tiny_vernier_config(max_instances=4, image_size=(384, 1248),
+                                    usage="train", sup_type="synthetic"),
+                cfg_path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out_path = os.path.join(root, "torchrun.out")
+    t = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+             "--master_port", str(free_port()), "-m",
+             "snvc_tpu_torch.tools.train_vernier", "--model_dir", d,
+             "--data_path", root, "--split", "val", "--config", cfg_path,
+             "--steps", "2", "--log_every", "1"],
+            cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            result = meanwhile()
+            code = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t
+    with open(out_path) as fh:
+        assert code == 0, fh.read()[-6000:]
+    with open(os.path.join(d, "training.log")) as fh:
+        log = fh.read()
+    assert "data parallel over 1 ranks (nccl)" in log, log
+    with open(os.path.join(d, "metrics.jsonl")) as fh:
+        lines = [json.loads(ln) for ln in fh]
+    assert [m["step"] for m in lines] == [1, 2], lines
+    assert all(math.isfinite(v) for m in lines for v in m.values()), lines
+    assert sorted(os.listdir(os.path.join(d, "checkpoints"))) == [
+        "2.pt", "config.json"]
+    return dict(nccl_cli_wall_s=f"{wall:.1f}",
+                nccl_cli_total=f"{lines[-1]['total']:.4f}"), result
+
+
+def mesh_serving_err(kind: str, dev) -> dict:
+    """Phase reference's small models on a mesh [dev, dev] in bf16: each
+    runner against the same weights on the CPU in float32 under
+    reference's rule (within 3x the CPU's own bf16 drift + 1 % of scale),
+    and the largest difference from the one-device runner on the card.
+    Of the detector's proposals the sorted top scores are gated; its boxes
+    follow the ranking, which a rounding can reorder, so their difference
+    from the one-device runner is printed alone."""
+    mesh = make_mesh(2, [dev, dev])
+    if kind == "refine":
+        small = tiny_vernier_config(grid_resolution=(8, 32, 32),
+                                    image_size=(128, 256), max_instances=2)
+        batch = synthetic_batch_arrays(small, seed=7)
+        keys = ("ncf", "occupancy", "coordinates")
+
+        def run(cfg, device, m=None):
+            model = VernierScale(cfg, device=device,
+                                 generator=torch.Generator().manual_seed(1))
+            out = RefineRunner(model, cfg, device=device, mesh=m).step(
+                batch, host_outputs=keys)
+            return {k: out[k] for k in keys}
+    else:
+        small = tiny_stereo_config(z_max=38.0, max_depth=40.0)
+        req = synthetic_stereo_request(small, seed=3, frames=2)
+        keys = ("scores",)
+
+        def run(cfg, device, m=None):
+            model = StereoNet(cfg, device=device,
+                              generator=torch.Generator().manual_seed(1))
+            out = DetectRunner(model, cfg, score_threshold=0.0,
+                               device=device, mesh=m).forward(req)
+            return dict(boxes=out[0].float().cpu().numpy(),
+                        scores=out[1].float().cpu().numpy())
+    bf16 = small.replace(compute_dtype="bfloat16")
+    ref, cpu_bf16 = run(small, "cpu"), run(bf16, "cpu")
+    card = run(bf16, dev)
+    reset_counts()
+    got = run(bf16, dev, mesh)
+    counts = read_counts()
+    want = (counts_of(K1=2, K2=6) if kind == "refine"
+            else counts_of(K3=2, K4=2))
+    assert counts == want, f"{kind} mesh launch counts {counts}"
+    fields = {}
+    for k in got:
+        scale = max(float(np.abs(ref[k]).max()), 1e-6)
+        fields[f"{kind}_{k}_vs_one_device"] = \
+            f"{float(np.abs(got[k] - card[k]).max()) / scale:.2e}"
+        assert np.isfinite(got[k]).all(), f"{kind} mesh {k} not finite"
+        if k not in keys:
+            continue
+        err = float(np.abs(got[k] - ref[k]).max()) / scale
+        drift = float(np.abs(cpu_bf16[k] - ref[k]).max()) / scale
+        assert err <= 3.0 * drift + 0.01, \
+            f"{kind} mesh {k}: rel err {err:.4f}, cpu bf16 {drift:.4f}"
+        fields[f"{kind}_{k}_rel_err"] = f"{err:.4f}"
+        fields[f"{kind}_{k}_cpu_bf16_rel_err"] = f"{drift:.4f}"
+    return fields
+
+
+def check_mesh_serving(dev) -> dict:
+    """The flagship RefineRunner and the full-width DetectRunner on a mesh
+    [dev, dev] (two replicas on the card, a request split in two): one
+    warm-up and two requests each against the one-device runner on the
+    same requests (largest difference of the outputs printed; finite,
+    shapes), the counters (two K1 and six K2 / two K3 and two K4 a
+    request), request ms beside the one-device runner's."""
+    mesh = make_mesh(2, [dev, dev])
+    fields, total = {}, counts_of()
+    cfg = flagship_vernier_config()
+    batches = [synthetic_batch_arrays(cfg, seed=s) for s in (1, 2)]
+    keys = ("one_part", "all_parts", "confidence")
+    outs = {}
+    for label, m in (("one", None), ("mesh", mesh)):
+        model = VernierScale(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        runner = RefineRunner(model, cfg, device=dev, mesh=m)
+        runner.step(synthetic_batch_arrays(cfg, seed=100))  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        times, outs[label] = [], []
+        for b in batches:
+            t = time.perf_counter()
+            out = runner.step(b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            outs[label].append(out)
+        counts = read_counts()
+        fields[f"refine_{label}_ms"] = ",".join(f"{v:.1f}" for v in times)
+        del runner, model
+        torch.cuda.empty_cache()
+    assert counts == counts_of(K1=4, K2=12), f"refine mesh counts {counts}"
+    for k, v in counts.items():
+        total[k] += v
+    for k in keys:
+        a = np.stack([o[k] for o in outs["mesh"]])
+        b = np.stack([o[k] for o in outs["one"]])
+        assert a.shape == b.shape and np.isfinite(a).all(), k
+        fields[f"refine_{k}_max_diff"] = f"{float(np.abs(a - b).max()):.2e}"
+
+    scfg = StereoConfig()
+    reqs = [synthetic_stereo_request(scfg, seed=s, frames=2)
+            for s in (1, 2)]
+    for label, m in (("one", None), ("mesh", mesh)):
+        model = StereoNet(scfg, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+        runner = DetectRunner(model, scfg, device=dev, mesh=m)
+        runner.forward(synthetic_stereo_request(scfg, seed=100, frames=2))
+        torch.cuda.synchronize()
+        reset_counts()
+        times, outs[label] = [], []
+        for r in reqs:
+            t = time.perf_counter()
+            out = runner.forward(r)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            outs[label].append([o.float().cpu().numpy() for o in out])
+        counts = read_counts()
+        fields[f"detect_{label}_ms"] = ",".join(f"{v:.1f}" for v in times)
+        del runner, model
+        torch.cuda.empty_cache()
+    assert counts == counts_of(K3=4, K4=4), f"detect mesh counts {counts}"
+    for k, v in counts.items():
+        total[k] += v
+    valid = np.stack([o[3] for o in outs["mesh"]]) > 0
+    both = valid & (np.stack([o[3] for o in outs["one"]]) > 0)
+    for j, name in enumerate(("boxes", "scores")):
+        a = np.stack([o[j] for o in outs["mesh"]])
+        b = np.stack([o[j] for o in outs["one"]])
+        assert a.shape == b.shape and a.shape[1] == 2, name
+        assert np.isfinite(a[valid]).all(), name
+        fields[f"detect_{name}_max_diff"] = \
+            f"{float(np.abs(a[both] - b[both]).max(initial=0.0)):.2e}"
+    t = time.perf_counter()
+    for kind in ("refine", "detect"):
+        fields.update(mesh_serving_err(kind, dev))
+    fields["reference_s"] = f"{time.perf_counter() - t:.1f}"
+    return dict(counts=total, fields=fields)
+
+
+def check_parallel(dev, train: dict) -> dict:
+    """Phase 25: data parallelism (parallel/api.py); ``train``: phase
+    train's result, the one-process Vernier step's ms and peak memory."""
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        write_kitti_tree(root, frames=1)
+        cli, f32 = check_dp_cli(root, lambda: {
+            kind: dp_steps(kind, dev, float32=True, steps=1)
+            for kind in DP_KINDS})
+    t_train = time.perf_counter()
+    train = check_dp_training(dev, train, f32)
+    t_serve = time.perf_counter()
+    serve_ = check_mesh_serving(dev)
+    secs = dict(cli_s=f"{t_train - t:.1f}",
+                train_s=f"{t_serve - t_train:.1f}",
+                serve_s=f"{time.perf_counter() - t_serve:.1f}")
+    counts = {k: train["counts"][k] + serve_["counts"][k] for k in KERNELS}
+    phase("parallel", t, ranks=DP_RANKS, backend="gloo",
+          note="two ranks share one card: no scaling figure", **secs,
+          **train["fields"], **serve_["fields"], **cli,
+          nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(counts).replace(" ", ""))
+    return dict(counts=counts)
+
+
 def assert_states_equal(a, b) -> None:
     """Two TrainStates with the same step, parameters, BatchNorm
     statistics and AdamW state, bit for bit."""
@@ -2715,8 +3139,9 @@ def main() -> int:
         world = check_synthetic_world(root)
         trk = check_track(dev, root, world)["counts"]
         demos = check_demos(dev, root)["counts"]
+    par = check_parallel(dev, train)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] for k in KERNELS}
+    late = {k: var[k] + trk[k] + demos[k] + par[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

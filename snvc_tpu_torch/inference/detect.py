@@ -9,10 +9,18 @@ and ``decode_proposals`` (scores, corner decode, a top pool, rotated NMS,
 top-k), all on the runner's device.  ``DetectRunner.run`` detects a
 KITTI split into proposal files, with up to ``prefetch`` frames queued on
 the card before the oldest one's proposals are pulled to the host.
+
+With a mesh (``parallel.make_mesh``) the model is replicated once on each
+of its devices, a request's frames are split as ``shard_batch`` splits
+them (``batch_size % n_data == 0``, as in JAX), each device runs its
+frames through the model and ``decode_proposals`` with no host sync
+between devices, and the proposals are gathered in order on the mesh's
+first device.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from collections import deque
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -31,7 +39,8 @@ from snvc_tpu_torch.inference.kitti_writer import instance_line
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.nms import rotated_nms_bev, top_k_boxes
 from snvc_tpu_torch.ops.rotated_iou import bev_from_box3d
-from snvc_tpu_torch.utils.device import constant, resolve_device, to_device
+from snvc_tpu_torch.parallel.api import Mesh, runner_devices, shard_batch
+from snvc_tpu_torch.utils.device import constant, to_device
 
 
 def corners24_to_box3d(corners):
@@ -98,20 +107,30 @@ _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right")
 
 class DetectRunner:
     """Serves the global model on ``device`` (default "cuda", which raises
-    without a GPU): ``forward`` takes one request (the arrays of
-    ``StereoBatch.arrays()``) and returns the padded proposals as tensors
-    on the device.  The model is moved to that device."""
+    without a GPU), or on every device of ``mesh`` (a
+    ``parallel.make_mesh``; ``device`` is then its first): ``forward``
+    takes one request (the arrays of ``StereoBatch.arrays()``) and returns
+    the padded proposals as tensors on the device.  The model is moved to
+    that device."""
 
     def __init__(self, model: StereoNet, cfg: StereoConfig,
                  max_boxes: int = 8, score_threshold: float = 0.02,
-                 nms_iou: float = 0.25, device="cuda"):
-        self.device = resolve_device(device)
+                 nms_iou: float = 0.25, device="cuda",
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        devs = runner_devices(device, mesh)
+        self.device = devs[0]
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.max_boxes = max_boxes
         self.score_threshold = score_threshold
         self.nms_iou = nms_iou
         self.locations = torch.from_numpy(bev_locations(cfg)).to(self.device)
+        if mesh is not None:
+            # (device, model, BEV anchors) of each position
+            self.replicas = [(self.device, self.model, self.locations)] + [
+                (d, copy.deepcopy(self.model).to(d), self.locations.to(d))
+                for d in devs[1:]]
 
     def _to_device(self, arrays: Mapping) -> Dict[str, torch.Tensor]:
         check_stereo_projections(arrays["P_left"], arrays["P_right"])
@@ -124,13 +143,26 @@ class DetectRunner:
         valid), on the device."""
         with torch.inference_mode():
             b = self._to_device(batch_arrays)
-            out = self.model(normalize_images(b["images_left"]),
-                             normalize_images(b["images_right"]),
-                             b["P_left"].float(), b["P_right"].float())
-            return decode_proposals(
-                out, self.cfg, max_boxes=self.max_boxes,
-                score_threshold=self.score_threshold, nms_iou=self.nms_iou,
-                locations=self.locations)
+            if self.mesh is None:
+                return self._detect(self.model, self.locations, b)
+            parts = []
+            for i, (dev, model, locations) in enumerate(self.replicas):
+                shard = {k: v.to(dev, non_blocking=True) for k, v in
+                         shard_batch(b, self.mesh, i).items()}
+                parts.append(self._detect(model, locations, shard))
+            return tuple(torch.cat([p[j].to(self.device, non_blocking=True)
+                                    for p in parts])
+                         for j in range(len(parts[0])))
+
+    def _detect(self, model: StereoNet, locations: torch.Tensor,
+                b: Mapping[str, torch.Tensor]):
+        out = model(normalize_images(b["images_left"]),
+                    normalize_images(b["images_right"]),
+                    b["P_left"].float(), b["P_right"].float())
+        return decode_proposals(
+            out, self.cfg, max_boxes=self.max_boxes,
+            score_threshold=self.score_threshold, nms_iou=self.nms_iou,
+            locations=locations)
 
     def run(self, ds, out_dir: str, batch_size: int = 1, prefetch: int = 4,
             max_frames: Optional[int] = None,

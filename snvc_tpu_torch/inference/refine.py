@@ -1,5 +1,5 @@
 """Refinement serving runner (port of snvc_tpu/inference/refine.py:89-118,
-:187-311, ``RefineRunner.step`` and ``run``), one device, no mesh.
+:126-311, ``RefineRunner.step`` and ``run``), on one device or a mesh.
 
 One step has the JAX runner's three parts:
   1. ``encode``: ``assemble_instances`` (ROI warps + grid projections) and
@@ -16,6 +16,14 @@ One step has the JAX runner's three parts:
 up to ``prefetch`` batches queued on the card before the oldest one's
 outputs are pulled to the host.
 
+With a mesh (``parallel.make_mesh``) the model is replicated once on each
+of its devices; a request's instances are split as
+``shard_instance_batch`` splits them (the frames whole on every device),
+``encode`` and ``heads`` run on each device's part with no host sync
+between devices, and the head outputs are gathered in order on the
+mesh's first device, where ``finalize`` runs on the whole request (its
+losses then have the one-device normalizers).
+
 The ``3D`` head's fields [N, P, nh, nw, nl] have no pose update: JAX's
 ``_finalize`` fails on them in ``hard_argmax_2d``'s 4-D unpack
 (snvc_tpu/ops/heatmaps.py:67).  ``step`` refuses such a model with a
@@ -24,6 +32,7 @@ The ``3D`` head's fields [N, P, nh, nw, nl] have no pose update: JAX's
 
 from __future__ import annotations
 
+import copy
 from collections import deque
 from typing import Dict, List, Mapping, Optional, Union
 
@@ -40,7 +49,12 @@ from snvc_tpu_torch.ops.assemble import (
     make_targets,
 )
 from snvc_tpu_torch.ops.registration import ncf_to_update
-from snvc_tpu_torch.utils.device import resolve_device, to_device
+from snvc_tpu_torch.parallel.api import (
+    Mesh,
+    runner_devices,
+    shard_instance_batch,
+)
+from snvc_tpu_torch.utils.device import to_device
 
 _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
                "image_idx", "trans_l", "trans_r", "samples")
@@ -50,18 +64,27 @@ _TARGET_KEYS = ("valid", "gt_boxes", "points", "points_valid")
 
 class RefineRunner:
     """Drives the refinement pipeline on ``device`` (default "cuda", which
-    raises without a GPU).  The model is moved to that device."""
+    raises without a GPU), or on every device of ``mesh`` (a
+    ``parallel.make_mesh``; ``device`` is then its first).  The model is
+    moved to that device."""
 
     # outputs copied to the host as numpy by default: the serving payload
     # (and the losses, with targets)
     HOST_OUTPUTS = ("one_part", "all_parts", "confidence", "keep", "losses")
 
     def __init__(self, model: VernierScale, cfg: VernierConfig,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        devs = runner_devices(device, mesh)
+        self.device = devs[0]
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.grid_local = torch.from_numpy(make_grid_local(cfg)).to(self.device)
+        if mesh is not None:
+            # (device, model, object grid) of each position
+            self.replicas = [(self.device, self.model, self.grid_local)] + [
+                (d, copy.deepcopy(self.model).to(d), self.grid_local.to(d))
+                for d in devs[1:]]
 
     def _to_device(self, batch, with_targets: bool
                    ) -> Dict[str, torch.Tensor]:
@@ -70,15 +93,23 @@ class RefineRunner:
         return {k: to_device(arrays[k], self.device) for k in keys}
 
     def encode(self, arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        left, right, gpl, gpr = assemble_instances(
-            arrays["images_left"], arrays["images_right"],
-            arrays["image_idx"], arrays["trans_l"], arrays["trans_r"],
-            arrays["samples"], arrays["P_left"], arrays["P_right"],
-            self.grid_local, self.cfg)
-        return self.model.encoder(left, right, gpl, gpr)
+        return _encode(self.model, self.grid_local, arrays, self.cfg)
 
     def heads(self, voxel: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.model.head(voxel)
+
+    def _sharded_heads(self, arrays: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """``heads(encode(arrays))`` with each mesh position's instances
+        on its own replica, gathered in order on the first device."""
+        parts = []
+        for i, (dev, model, grid) in enumerate(self.replicas):
+            shard = {k: v.to(dev, non_blocking=True) for k, v in
+                     shard_instance_batch(arrays, self.mesh, i).items()}
+            parts.append(model.head(_encode(model, grid, shard, self.cfg)))
+        return {k: None if parts[0][k] is None else torch.cat(
+            [p[k].to(self.device, non_blocking=True) for p in parts])
+            for k in parts[0]}
 
     def finalize(self, outputs, arrays, with_targets: bool = False
                  ) -> Dict[str, torch.Tensor]:
@@ -115,8 +146,9 @@ class RefineRunner:
                              "(ncf_to_update decodes [N, P, nl, nw] BEV maps)")
         with torch.inference_mode():
             arrays = self._to_device(batch, with_targets)
-            out = self.finalize(self.heads(self.encode(arrays)), arrays,
-                                with_targets)
+            outputs = (self.heads(self.encode(arrays)) if self.mesh is None
+                       else self._sharded_heads(arrays))
+            out = self.finalize(outputs, arrays, with_targets)
         wanted = self.HOST_OUTPUTS if host_outputs is None else host_outputs
         return to_host(out, wanted)
 
@@ -156,6 +188,17 @@ class RefineRunner:
         while pending:
             finish(*pending.popleft())
         return loss_log
+
+
+def _encode(model: VernierScale, grid_local: torch.Tensor,
+            arrays: Mapping[str, torch.Tensor],
+            cfg: VernierConfig) -> torch.Tensor:
+    left, right, gpl, gpr = assemble_instances(
+        arrays["images_left"], arrays["images_right"],
+        arrays["image_idx"], arrays["trans_l"], arrays["trans_r"],
+        arrays["samples"], arrays["P_left"], arrays["P_right"],
+        grid_local, cfg)
+    return model.encoder(left, right, gpl, gpr)
 
 
 def to_host(out: Mapping, wanted) -> Dict:

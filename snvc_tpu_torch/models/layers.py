@@ -28,6 +28,7 @@ from torch import nn
 
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, large_tap_eligible
 from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3, k3_eligible
+from snvc_tpu_torch.parallel.api import global_sum
 
 
 def _norm_groups(requested: int, channels: int) -> int:
@@ -120,6 +121,25 @@ def frozen_batch_stats(module: nn.Module):
             m.stats_frozen = False
 
 
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, mesh):
+    """While this is open, the modules inside ``module`` that reduce over
+    the batch (those with a ``mesh`` attribute: BatchNorm's moments, the
+    FC model's dropout draw) do so over ``mesh``'s data axis
+    (parallel/api.py).  Without a mesh nothing changes."""
+    if mesh is None:
+        yield
+        return
+    mods = [m for m in module.modules() if "mesh" in vars(m)]
+    for m in mods:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.mesh = None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis with flax semantics
     (``nn.BatchNorm(momentum=0.9)``, JAX hrnet.py:44).
@@ -129,7 +149,11 @@ class BatchNorm(nn.Module):
     or wider as flax promotes them (float64 stays float64) (clamped
     at 0) and moves the running statistics by ``r = 0.9 r + 0.1 batch``,
     the variance biased too (``F.batch_norm`` would store the unbiased
-    one)."""
+    one).  Under a data-parallel mesh of more than one rank
+    (``data_parallel``) the batch is the global one: the per-channel sums,
+    sums of squares and count are summed over the ranks, with the
+    gradient through the reduction, as JAX's statistics of a sharded
+    batch are."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -137,6 +161,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.stats_frozen = False  # see frozen_batch_stats
+        self.mesh = None  # see data_parallel
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -150,8 +175,16 @@ class BatchNorm(nn.Module):
             return (x.to(wide) * a + b).to(x.dtype)
         red = tuple(range(x.ndim - 1))
         xf = x.to(wide)
-        mean = xf.mean(red)
-        var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
+        if self.mesh is None or self.mesh.n_data == 1:
+            mean = xf.mean(red)
+            var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
+        else:
+            C = x.shape[-1]
+            sums = global_sum(torch.cat([
+                xf.sum(red), (xf * xf).sum(red),
+                xf.new_full((1,), x.numel() // C)]), self.mesh)
+            mean = sums[:C] / sums[2 * C]
+            var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
         if not self.stats_frozen:
             m = self.momentum
             with torch.no_grad():

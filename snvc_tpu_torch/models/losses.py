@@ -6,6 +6,10 @@ take any rank), and the occupancy, coordinate, part-offset and FC bbox
 terms of the heads that give those outputs.  The 3D bbox loss, its
 approximate 3D IoU and the disentangled corner loss are ported beside
 them; no training path of either package calls them.
+
+With a process-group ``mesh`` (parallel/api.py) each masked mean divides
+this rank's masked sum by the count of the global batch, so the global
+loss is the sum of the ranks' losses.
 """
 
 from __future__ import annotations
@@ -16,11 +20,12 @@ import torch
 
 from snvc_tpu_torch.models.stereo_losses import gt_corners_24
 from snvc_tpu_torch.ops.rotated_iou import pair_overlap
+from snvc_tpu_torch.parallel.api import global_sum
 
 
-def _masked_mean(x, mask):
+def _masked_mean(x, mask, mesh=None):
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    return (x * m).sum() / global_sum(m.sum(), mesh).clamp_min(1.0)
 
 
 def _per_instance(valid, like):
@@ -28,23 +33,24 @@ def _per_instance(valid, like):
     return valid.reshape((-1,) + (1,) * (like.ndim - 1)).expand(like.shape)
 
 
-def voxel_mse_loss(ncf_pred, ncf_target, valid):
+def voxel_mse_loss(ncf_pred, ncf_target, valid, mesh=None):
     """Part-heatmap MSE over the valid instances (JAX losses.py:22)."""
     err = (ncf_pred - ncf_target) ** 2
-    return _masked_mean(err, _per_instance(valid, err))
+    return _masked_mean(err, _per_instance(valid, err), mesh)
 
 
-def voxel_mse_loss_weighted(ncf_pred, ncf_target, valid):
+def voxel_mse_loss_weighted(ncf_pred, ncf_target, valid, mesh=None):
     """MSE averaged apart over positive and zero targets, then halved and
     summed (JAX losses.py:151)."""
     err = (ncf_pred - ncf_target) ** 2
     v = _per_instance(valid, err)
     pos = (ncf_target > 0) & v
     neg = (ncf_target <= 0) & v
-    return 0.5 * (_masked_mean(err, pos) + _masked_mean(err, neg))
+    return 0.5 * (_masked_mean(err, pos, mesh) + _masked_mean(err, neg, mesh))
 
 
-def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25):
+def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25,
+                   mesh=None):
     """Focal BCE on voxel foreground; target -1 is ignored (JAX
     losses.py:35)."""
     p = occ_pred.clamp(1e-7, 1.0 - 1e-7)
@@ -55,58 +61,63 @@ def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25):
     neg = (t == 0.0).to(p.dtype)
     loss = -pos * term1 * alpha - neg * term2 * (1.0 - alpha)
     mask = (t != -1.0) & _per_instance(valid, t)
-    return _masked_mean(loss, mask)
+    return _masked_mean(loss, mask, mesh)
 
 
-def offset_loss(offset_pred, offset_target, occupancy_target, valid):
+def offset_loss(offset_pred, offset_target, occupancy_target, valid,
+                mesh=None):
     """L1 on the part offsets at the foreground voxels (JAX losses.py:51).
     offset_pred [B, 3*P, nh, nw, nl] (the head's 27 channels), reshaped to
     offset_target [B, 3, P, nh, nw, nl]; occupancy_target [B, nh, nw, nl]."""
     err = (offset_pred.reshape(offset_target.shape) - offset_target).abs()
     fg = (occupancy_target == 1.0)[:, None, None]
     mask = fg & _per_instance(valid, err)
-    return _masked_mean(err, mask)
+    return _masked_mean(err, mask, mesh)
 
 
 def coordinate_loss(coords_pred, gt_corners_local, valid, x_range, z_range,
-                    weight_l1: float = 1.0):
+                    weight_l1: float = 1.0, mesh=None):
     """L1 between the sigmoid part coordinates [B, P, 2] and the GT parts'
     (x, z) offsets normalized into [0, 1] (JAX losses.py:68)."""
     gx = (gt_corners_local[..., 0] - x_range[0]) / (x_range[1] - x_range[0])
     gz = (gt_corners_local[..., 2] - z_range[0]) / (z_range[1] - z_range[0])
     err = (coords_pred - torch.stack([gx, gz], dim=-1)).abs()
-    return weight_l1 * _masked_mean(err, _per_instance(valid, err))
+    return weight_l1 * _masked_mean(err, _per_instance(valid, err), mesh)
 
 
 def vernier_losses(outputs: Dict, targets: Dict, valid, cfg,
                    occupancy_weight: float = 1.0,
-                   coordinate_weight: float = 0.1) -> Dict[str, torch.Tensor]:
+                   coordinate_weight: float = 0.1,
+                   mesh=None) -> Dict[str, torch.Tensor]:
     """ncf + w_occ * occupancy + w_coord * coordinates (JAX losses.py:103);
-    ``cfg.ncf_loss`` picks the plain or the balanced heatmap MSE."""
+    ``cfg.ncf_loss`` picks the plain or the balanced heatmap MSE.  With a
+    process-group ``mesh`` every term is this rank's part of the global
+    batch's loss."""
     if cfg.ncf_loss not in ("mse", "mse_weighted"):
         raise ValueError(f"ncf_loss {cfg.ncf_loss!r}")
     ncf_fn = (voxel_mse_loss_weighted if cfg.ncf_loss == "mse_weighted"
               else voxel_mse_loss)
-    total = ncf_fn(outputs["ncf"], targets["ncf"], valid)
+    total = ncf_fn(outputs["ncf"], targets["ncf"], valid, mesh)
     losses = {"ncf": total}
     if outputs.get("occupancy") is not None:
-        lo = occupancy_loss(outputs["occupancy"], targets["occupancy"], valid)
+        lo = occupancy_loss(outputs["occupancy"], targets["occupancy"], valid,
+                            mesh=mesh)
         losses["occupancy"] = lo
         total = total + occupancy_weight * lo
     if outputs.get("offset") is not None and "offset" in targets:
         loff = offset_loss(outputs["offset"], targets["offset"],
-                           targets["occupancy"], valid)
+                           targets["occupancy"], valid, mesh)
         losses["offset"] = loff
         total = total + loff
     if outputs.get("coordinates") is not None:
         lc = coordinate_loss(outputs["coordinates"],
                              targets["gt_corners_local"], valid, cfg.x_range,
-                             cfg.z_range)
+                             cfg.z_range, mesh=mesh)
         losses["coordinates"] = lc
         total = total + coordinate_weight * lc
     if outputs.get("bbox") is not None and "gt_box_local" in targets:
         lb = bbox_loss_2d(outputs["bbox"], targets["gt_box_local"],
-                          valid)["l1"]
+                          valid, mesh)["l1"]
         losses["bbox"] = lb
         total = total + lb
     losses["total"] = total
@@ -150,11 +161,11 @@ def bbox_loss_3d(pred_box3d, gt_box3d, valid, beta: float = 0.2):
             "IoU3D": ((1.0 - iou) * m).sum() / denom}
 
 
-def bbox_loss_2d(pred_bev5, gt_bev5, valid):
+def bbox_loss_2d(pred_bev5, gt_bev5, valid, mesh=None):
     """Plain L1 on the BEV box over the valid instances (JAX
     losses.py:212; reference BboxLoss '2D' branch)."""
     err = (pred_bev5 - gt_bev5).abs()
-    return {"l1": _masked_mean(err, _per_instance(valid, err))}
+    return {"l1": _masked_mean(err, _per_instance(valid, err), mesh)}
 
 
 def disentangled_corner_loss(pred7, target7, weights):

@@ -14,6 +14,11 @@ locations and the padded GT boxes (no loop over boxes):
   * depth: masked smooth-L1 ('sl1', multi-stage over the stacked
     hourglasses) or Wasserstein-1 ('w1', with the optional per-plane
     offset).
+
+With a process-group ``mesh`` (parallel/api.py) each normalizer
+(``num_pos + 10``, the regression weights, the centerness and depth
+masks) is the global batch's, so the global loss is the sum of the
+ranks' losses.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from snvc_tpu_torch.config import StereoConfig
+from snvc_tpu_torch.parallel.api import global_sum
 
 _CORNER_X = (0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5)  # * l
 _CORNER_Z = (0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5, 0.5)  # * w
@@ -130,12 +136,15 @@ def optax_sigmoid_bce(logits, targets):
 
 
 def rpn3d_loss(outputs: Dict, gt_boxes, gt_valid, gt_classes,
-               cfg: StereoConfig, locations) -> Dict[str, torch.Tensor]:
+               cfg: StereoConfig, locations,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """The RPN loss of a batch (JAX stereo_losses.py:147).
 
     outputs: cls [N, Z, X, A*K], reg [N, Z, X, A*K*24], centerness
     [N, Z, X, A]; gt_* [N, G, ...] padded; locations [L, 2], L = Z*X.
-    Returns total, cls, reg, centerness and num_pos, 0-d tensors."""
+    Returns total, cls, reg, centerness and num_pos, 0-d tensors: with a
+    process-group ``mesh``, this rank's parts (its losses over the global
+    normalizers, its own positives)."""
     A, K = cfg.num_angles, cfg.num_classes
     N = outputs["cls"].shape[0]
     L = locations.shape[0]
@@ -152,7 +161,8 @@ def rpn3d_loss(outputs: Dict, gt_boxes, gt_valid, gt_classes,
 
     num_pos = labels.sum()
     cls_loss = sigmoid_focal_multi_target(
-        cls, labels, cfg.focal_gamma, cfg.focal_alpha) / (num_pos + 10.0)
+        cls, labels, cfg.focal_gamma, cfg.focal_alpha) / (
+            global_sum(num_pos, mesh) + 10.0)
 
     w = labels * ctr_t[:, :, None, None]
     per = smooth_l1(reg, reg_t[:, :, None].expand(reg.shape)).mean(-1)
@@ -162,25 +172,26 @@ def rpn3d_loss(outputs: Dict, gt_boxes, gt_valid, gt_classes,
         alt = reg_t.reshape(N, L, K, 8, 3)[:, :, :, list(_HEADING_FLIP)]
         alt = alt.reshape(N, L, K, 24)[:, :, None].expand(reg.shape)
         per = torch.minimum(per, smooth_l1(reg, alt).mean(-1))
-    reg_loss = (per * w).sum() / w.sum().clamp_min(1e-6)
+    reg_loss = (per * w).sum() / global_sum(w.sum(), mesh).clamp_min(1e-6)
 
     pos_a = (labels > 0).any(-1).float()  # [N, L, A]
     bce = optax_sigmoid_bce(ctr, ctr_t[:, :, None].expand(ctr.shape))
-    ctr_loss = (bce * pos_a).sum() / pos_a.sum().clamp_min(1.0)
+    ctr_loss = (bce * pos_a).sum() / global_sum(pos_a.sum(),
+                                                mesh).clamp_min(1.0)
 
     total = cls_loss + reg_loss + ctr_loss
     return dict(total=total, cls=cls_loss, reg=reg_loss, centerness=ctr_loss,
                 num_pos=num_pos)
 
 
-def depth_sl1_loss(depth_pred, depth_gt, mask):
+def depth_sl1_loss(depth_pred, depth_gt, mask, mesh=None):
     """Masked smooth-L1 (beta 1) on the regressed depth map."""
     m = mask.to(depth_pred.dtype)
     loss = smooth_l1(depth_pred, depth_gt, beta=1.0)
-    return (loss * m).sum() / m.sum().clamp_min(1.0)
+    return (loss * m).sum() / global_sum(m.sum(), mesh).clamp_min(1.0)
 
 
-def depth_multistage_sl1_loss(depth_preds, depth_gt, mask):
+def depth_multistage_sl1_loss(depth_preds, depth_gt, mask, mesh=None):
     """``depth_sl1_loss`` over the stacked hourglasses' depth outputs,
     weighted 0.5 / 0.7 / 1.0 for the last three stages and 0.5 for any
     earlier one (JAX stereo_losses.py:225)."""
@@ -189,11 +200,12 @@ def depth_multistage_sl1_loss(depth_preds, depth_gt, mask):
     total = 0.0
     for i, pred in enumerate(depth_preds):
         total = total + weights[max(0, 3 - n + i)] * depth_sl1_loss(
-            pred, depth_gt, mask)
+            pred, depth_gt, mask, mesh)
     return total
 
 
-def depth_w1_loss(prob, depth_levels, depth_gt, mask, offset=None):
+def depth_w1_loss(prob, depth_levels, depth_gt, mask, offset=None,
+                  mesh=None):
     """Wasserstein-1, E_prob |level (+ offset) - gt| over the masked
     pixels; prob [N, D, H, W], offset [N, D, H, W] or None (JAX
     stereo_losses.py:240)."""
@@ -202,4 +214,4 @@ def depth_w1_loss(prob, depth_levels, depth_gt, mask, offset=None):
         levels = levels + offset
     per_px = (prob * (levels - depth_gt[:, None]).abs()).sum(1)
     m = mask.to(per_px.dtype)
-    return (per_px * m).sum() / m.sum().clamp_min(1.0)
+    return (per_px * m).sum() / global_sum(m.sum(), mesh).clamp_min(1.0)

@@ -1,22 +1,34 @@
 """The step loop of the two training CLIs (the loop of JAX
 tools/train_vernier.py and tools/train_stereo.py): resume, log, write
-metrics, checkpoint."""
+metrics, checkpoint; and the data-parallel set-up they share."""
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Iterable, Mapping
+from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import torch
 
 from snvc_tpu_torch.config import TrainConfig
+from snvc_tpu_torch.parallel.api import Mesh, initialize_multihost
 from snvc_tpu_torch.training.train import (
     TrainState,
     load_checkpoint,
     save_checkpoint,
 )
 from snvc_tpu_torch.utils.logging import Experimenter
+
+
+def join_data_group(device: str) -> Tuple[Optional[Mesh], str]:
+    """(mesh, device) of this process.  Under a launcher (``torchrun``)
+    every rank joins the data-parallel group, as JAX's CLIs put every
+    local device on a mesh: NCCL when ``device`` is the card (each rank
+    on ``cuda:LOCAL_RANK``), gloo for ``--device cpu``.  Without one:
+    (None, ``device``), one process."""
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    mesh = initialize_multihost(backend, device)
+    return mesh, device if mesh is None else mesh.devices[mesh.rank]
 
 
 def train(exp: Experimenter, state: TrainState, cfg, tc: TrainConfig,
@@ -28,10 +40,12 @@ def train(exp: Experimenter, state: TrainState, cfg, tc: TrainConfig,
 
     * ``resume``: restores the newest checkpoint of ``exp``'s
       ``checkpoints/`` first (step count, parameters, BatchNorm
-      statistics, AdamW state), when that directory exists.
+      statistics, AdamW state), when that directory exists; every rank of
+      a data-parallel run restores it.
     * Every ``log_every`` steps: the step's metrics go to the log and to
       ``metrics.jsonl`` (the only host sync the loop adds).
-    * A checkpoint every ``tc.checkpoint_every`` steps and one at the end.
+    * A checkpoint every ``tc.checkpoint_every`` steps and one at the end
+      (rank 0 writes them, and alone logs).
 
     Returns {"start_step", "step", "step_s" (wall seconds of each step,
     batch building included, checkpoints not), "save_s" (seconds of

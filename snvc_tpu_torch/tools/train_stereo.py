@@ -7,9 +7,13 @@ of tools/train_stereo.py).
 
 ``--model_dir`` becomes an experiment directory (``config.json``,
 ``training.log``, ``metrics.jsonl``, ``checkpoints/<step>.pt``), which
-the detect CLI takes as ``--model_dir``.  One device: the card by
-default, ``--device cpu`` for the plain PyTorch versions.  The JAX CLI's
-data parallelism over several devices is not ported.
+the detect CLI takes as ``--model_dir``.  The card by default,
+``--device cpu`` for the plain PyTorch versions.  Under a launcher
+(``torchrun --nproc_per_node N -m snvc_tpu_torch.tools.train_stereo
+...``) every rank trains data-parallel, as JAX's CLI uses every local
+device: ``--batch_size`` is the global batch, each rank runs on
+``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``), and rank 0
+alone logs and writes the directory.
 """
 
 from __future__ import annotations
@@ -54,11 +58,13 @@ def main(argv=None) -> dict:
     """Returns the run's record (``tools/_train_loop.train``)."""
     args = parse_args(argv)
 
+    import torch
+
     from snvc_tpu_torch.config import StereoConfig, TrainConfig, load_config
     from snvc_tpu_torch.data.kitti import KittiDataset
     from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
     from snvc_tpu_torch.models.stereonet import StereoNet
-    from snvc_tpu_torch.tools._train_loop import train
+    from snvc_tpu_torch.tools._train_loop import join_data_group, train
     from snvc_tpu_torch.training.train_stereo import (
         create_stereo_state,
         make_stereo_train_step,
@@ -67,12 +73,16 @@ def main(argv=None) -> dict:
     from snvc_tpu_torch.utils.logging import Experimenter
     from snvc_tpu_torch.utils.seeding import reset_seed
 
+    mesh, device = join_data_group(args.device)
     cfg = load_config(args.config, StereoConfig) if args.config \
         else StereoConfig()
     if args.photometric_aug:
         cfg = cfg.replace(photometric_aug=True)
     tc = TrainConfig(lr=args.lr, total_steps=args.steps)
     exp = Experimenter(args.model_dir, config=cfg)
+    if mesh is not None:
+        exp.logger.info(f"data parallel over {mesh.n_data} ranks "
+                        f"({torch.distributed.get_backend()})")
 
     ds = KittiDataset(args.data_path, args.split)
     if args.max_frames is not None:
@@ -81,9 +91,9 @@ def main(argv=None) -> dict:
                           augment_flip=args.augment_flip, seed=args.seed)
     gen = reset_seed(args.seed)
     state = create_stereo_state(
-        StereoNet(cfg, device=args.device, generator=gen), tc)
+        StereoNet(cfg, device=device, generator=gen), tc)
     dev = state.model.device
-    step_fn = make_stereo_train_step(cfg, tc, dev)
+    step_fn = make_stereo_train_step(cfg, tc, dev, mesh=mesh)
 
     def epoch(step):
         # the pass's order is drawn from seed + its first step, as in JAX

@@ -9,9 +9,14 @@ around the GT boxes with gaussian noise.
 or aggregation.  ``--model_dir`` becomes an experiment directory
 (``config.json``, ``training.log``, ``metrics.jsonl``,
 ``checkpoints/<step>.pt``), which the serving CLIs take as
-``--model_dir``.  One device: the card by
-default, ``--device cpu`` for the plain PyTorch versions.  The JAX CLI's
-data parallelism over several devices is not ported.
+``--model_dir``.  The card by default, ``--device cpu`` for the plain
+PyTorch versions.  Under a launcher every rank trains data-parallel, as
+JAX's CLI uses every local device: ``--batch_instances`` is the global
+batch, each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo with
+``--device cpu``), and rank 0 alone logs and writes the directory:
+
+  torchrun --nproc_per_node 2 -m snvc_tpu_torch.tools.train_vernier \
+      --model_dir runs/vernier --data_path data/kitti --steps 80000
 """
 
 from __future__ import annotations
@@ -41,12 +46,14 @@ def main(argv=None) -> dict:
     """Returns the run's record (``tools/_train_loop.train``)."""
     args = parse_args(argv)
 
+    import torch
+
     from snvc_tpu_torch.config import TrainConfig, VernierConfig, load_config
     from snvc_tpu_torch.data.instance_db import build_db_from_gt
     from snvc_tpu_torch.data.kitti import KittiDataset
     from snvc_tpu_torch.data.pipeline import RefinementPipeline
     from snvc_tpu_torch.models.vernier import VernierScale
-    from snvc_tpu_torch.tools._train_loop import train
+    from snvc_tpu_torch.tools._train_loop import join_data_group, train
     from snvc_tpu_torch.training.train import (
         batch_to_device,
         create_train_state,
@@ -55,6 +62,7 @@ def main(argv=None) -> dict:
     from snvc_tpu_torch.utils.logging import Experimenter
     from snvc_tpu_torch.utils.seeding import reset_seed
 
+    mesh, device = join_data_group(args.device)
     if args.config:
         cfg = load_config(args.config, VernierConfig)
     else:
@@ -66,6 +74,9 @@ def main(argv=None) -> dict:
                      total_steps=args.steps or TrainConfig.total_steps,
                      seed=args.seed)
     exp = Experimenter(args.model_dir, config=cfg)
+    if mesh is not None:
+        exp.logger.info(f"data parallel over {mesh.n_data} ranks "
+                        f"({torch.distributed.get_backend()})")
 
     ds = KittiDataset(args.data_path, args.split)
     db = build_db_from_gt(ds, cfg)
@@ -74,9 +85,9 @@ def main(argv=None) -> dict:
 
     gen = reset_seed(args.seed)
     state = create_train_state(
-        VernierScale(cfg, device=args.device, generator=gen), cfg, tc)
+        VernierScale(cfg, device=device, generator=gen), cfg, tc)
     dev = state.model.device
-    step_fn = make_train_step(cfg, tc, dev)
+    step_fn = make_train_step(cfg, tc, dev, mesh=mesh)
 
     def epoch(step):
         for batch in pipe.batches(shuffle=True):

@@ -1,5 +1,5 @@
-"""Vernier training step (port of snvc_tpu/training/train.py, one device,
-no mesh).
+"""Vernier training step (port of snvc_tpu/training/train.py), on one
+device or data-parallel over a process group.
 
 One step does what the JAX ``train_step`` does: ``assemble_instances``
 (ROI warps and grid projections), ``make_targets``, the model's forward in
@@ -22,8 +22,20 @@ The optimizer is written to optax's semantics (JAX train.py:44-55):
 The model's parameters, BatchNorm statistics and the optimizer's moments
 live in torch objects and are updated in place; ``TrainState`` holds them
 with the step count.  Checkpoints are ``torch.save`` files with the
-config's JSON beside them, for either model.  The bbox head's dropout
-draws from a generator seeded per step (``dropout_generator``).
+config's JSON beside them, for either model; rank 0 alone writes them.
+The bbox head's dropout draws from a generator seeded per step
+(``dropout_generator``).
+
+With the mesh of ``parallel.initialize_multihost`` the step is JAX's step
+over a "data" mesh: every rank is given the same global batch, keeps its
+rows of the instance fields (``shard_instance_batch``), normalizes its
+BatchNorms and losses by the global batch, draws the global dropout mask
+and keeps its rows, and sums the gradients over the ranks in one flat
+bucket after the backward (parallel/api.py).  The gradients are summed
+by hand, not by DistributedDataParallel: DDP averages (the losses here
+are already global means), needs ``find_unused_parameters`` for the
+HRNet's unused fusions, and would wrap the model whose state dict the
+checkpoints hold.
 """
 
 from __future__ import annotations
@@ -40,12 +52,21 @@ import torch
 from torch import nn
 
 from snvc_tpu_torch.config import TrainConfig, VernierConfig
+from snvc_tpu_torch.models.layers import data_parallel
 from snvc_tpu_torch.models.losses import vernier_losses
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.ops.assemble import (
     assemble_instances,
     make_grid_local,
     make_targets,
+)
+from snvc_tpu_torch.parallel.api import (
+    Mesh,
+    check_training_mesh,
+    global_metrics,
+    process_index,
+    reduce_gradients,
+    shard_instance_batch,
 )
 
 BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
@@ -121,12 +142,16 @@ def dropout_generator(device, seed: int, step: int) -> torch.Generator:
 
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                cfg: VernierConfig, tc: TrainConfig,
-               grid_local: torch.Tensor) -> Dict[str, torch.Tensor]:
+               grid_local: torch.Tensor,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step on ``batch`` (tensors on the model's device): updates
     ``state`` in place and returns the losses and the gradients' global
     norm (before clipping), as 0-d tensors.  The bbox head's dropout,
     where the head has one, draws from ``dropout_generator(tc.seed,
-    state.step)``; targets follow ``cfg.grid_type``."""
+    state.step)``; targets follow ``cfg.grid_type``.  With ``mesh``,
+    ``batch`` is the global batch and the metrics are the global ones."""
+    if mesh is not None:
+        batch = shard_instance_batch(batch, mesh, mesh.rank)
     model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
@@ -137,20 +162,28 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                            cfg)
     gen = (dropout_generator(grid_local.device, tc.seed, state.step)
            if model.head.has_bbox else None)
-    outputs = model(left, right, gpl, gpr, dropout_generator=gen)
-    losses = vernier_losses(outputs, targets, batch["valid"], cfg,
-                            occupancy_weight=tc.occupancy_weight,
-                            coordinate_weight=tc.coordinate_weight)
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["grad_norm"] = apply_gradients(state, losses["total"], tc)
+    # open through the backward: the rematerialized hourglass's recompute
+    # runs its BatchNorms' reductions again
+    with data_parallel(model, mesh):
+        outputs = model(left, right, gpl, gpr, dropout_generator=gen)
+        losses = vernier_losses(outputs, targets, batch["valid"], cfg,
+                                occupancy_weight=tc.occupancy_weight,
+                                coordinate_weight=tc.coordinate_weight,
+                                mesh=mesh)
+        metrics = global_metrics({k: v.detach() for k, v in losses.items()},
+                                 mesh)
+        metrics["grad_norm"] = apply_gradients(state, losses["total"], tc,
+                                               mesh)
     return metrics
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor,
-                    tc: TrainConfig) -> torch.Tensor:
-    """The backward of ``loss``, the clip by global norm and the AdamW
-    update at the step's rate; advances ``state.step``.  Returns the
-    gradients' global norm before clipping."""
+                    tc: TrainConfig,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The backward of ``loss``, the sum of the gradients over ``mesh``'s
+    ranks, the clip by global norm and the AdamW update at the step's
+    rate; advances ``state.step``.  Returns the gradients' global norm
+    before clipping."""
     model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -160,8 +193,9 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    norm = clip_by_global_norm([p.grad for p in model.parameters()],
-                               tc.grad_clip)
+    grads = [p.grad for p in model.parameters()]
+    reduce_gradients(grads, mesh)
+    norm = clip_by_global_norm(grads, tc.grad_clip)
     for group in opt.param_groups:
         group["lr"] = learning_rate(tc, state.step)
     opt.step()
@@ -169,12 +203,16 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     return norm
 
 
-def make_train_step(cfg: VernierConfig, tc: TrainConfig, device):
+def make_train_step(cfg: VernierConfig, tc: TrainConfig, device,
+                    mesh: Optional[Mesh] = None):
     """``train_step`` with the config and the object grid bound:
-    ``step(state, batch) -> metrics``."""
+    ``step(state, batch) -> metrics``.  ``mesh``: the process group's
+    mesh (``parallel.initialize_multihost``) for a data-parallel step;
+    ``cfg.max_instances`` is the global batch and must split over it."""
+    check_training_mesh(mesh, device)
     grid_local = torch.from_numpy(make_grid_local(cfg)).to(device)
     return functools.partial(train_step, cfg=cfg, tc=tc,
-                             grid_local=grid_local)
+                             grid_local=grid_local, mesh=mesh)
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, cfg,
@@ -182,9 +220,12 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg,
     """``ckpt_dir/<step>.pt`` holding the step count, the parameters,
     BatchNorm statistics and AdamW state (moments and per-parameter step
     counts), and ``ckpt_dir/config.json`` (``cfg``: a VernierConfig or a
-    StereoConfig).  Returns the file."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    StereoConfig).  Returns the file, which process 0 alone writes (the
+    ranks of a data-parallel run hold the same state)."""
     path = os.path.join(ckpt_dir, f"{step}.pt")
+    if process_index() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     torch.save(dict(step=state.step, model=state.model.state_dict(),
                     optimizer=state.optimizer.state_dict()), path)
     with open(os.path.join(ckpt_dir, "config.json"), "w") as fh:
@@ -194,9 +235,11 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg,
 
 def load_checkpoint(ckpt_dir: str, state: Optional[TrainState] = None):
     """The latest checkpoint of ``ckpt_dir``: returns (tree, step), where
-    tree holds ``model`` and ``optimizer`` state dicts; with ``state``,
-    also restores them into it, bit for bit, with its step count (which
-    sets the next step's rate)."""
+    tree holds the ``model`` state dict and, when the file was written by
+    ``save_checkpoint``, the ``optimizer``'s; with ``state``, also
+    restores them into it, bit for bit, with its step count (which sets
+    the next step's rate).  A model-only file (a converted JAX checkpoint,
+    scripts/convert_jax_checkpoint.py) leaves the optimizer as it is."""
     steps = [int(f[:-3]) for f in os.listdir(ckpt_dir)
              if f.endswith(".pt") and f[:-3].isdigit()]
     if not steps:
@@ -206,6 +249,7 @@ def load_checkpoint(ckpt_dir: str, state: Optional[TrainState] = None):
                       map_location="cpu", weights_only=True)
     if state is not None:
         state.model.load_state_dict(tree["model"])
-        state.optimizer.load_state_dict(tree["optimizer"])
+        if "optimizer" in tree:
+            state.optimizer.load_state_dict(tree["optimizer"])
         state.step = tree["step"]
     return tree, step

@@ -1,5 +1,6 @@
 """Training step of the global stereo detector (port of
-snvc_tpu/training/train_stereo.py, one device, no mesh).
+snvc_tpu/training/train_stereo.py), on one device or data-parallel over a
+process group.
 
 One step does what the JAX ``stereo_train_step`` does: the photometric
 jitter (``cfg.photometric_aug``) and image normalization, the StereoNet forward in train mode (the plane sweep K3
@@ -13,15 +14,22 @@ argument is set by no caller).
 JAX also has ``make_stereo_train_step_split``: the same step as three
 chained programs, which exists only to cut XLA's compile time, with the
 fused step's gradients.  PyTorch runs eagerly and compiles nothing, so
-the port has the fused step alone.  Its ``_volume_sharding`` (the cost
-volume split over a mesh's "model" axis) waits for a port of
-``parallel/api``.
+the port has the fused step alone.
+
+With the mesh of ``parallel.initialize_multihost`` every rank is given
+the same global batch of ``n_data x per-rank`` frames and keeps its
+frames (``shard_batch``); the BatchNorm stem and the loss normalizers
+reduce over the global batch and the gradients are summed over the ranks,
+as in ``training/train.py``.  The photometric jitter is one draw a step,
+shared by the batch, so every rank draws it alike.  JAX's
+``_volume_sharding`` (the cost volume split over a mesh's "model" axis)
+is not ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,8 +42,15 @@ from snvc_tpu_torch.models.stereo_losses import (
     depth_w1_loss,
     rpn3d_loss,
 )
+from snvc_tpu_torch.models.layers import data_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.augment import color_jitter, draw_jitter, normalize
+from snvc_tpu_torch.parallel.api import (
+    Mesh,
+    check_training_mesh,
+    global_metrics,
+    shard_batch,
+)
 from snvc_tpu_torch.training.train import (
     TrainState,
     apply_gradients,
@@ -65,20 +80,21 @@ def augment_normalize(img_l_u8, img_r_u8, cfg: StereoConfig, step: int):
     return normalize(left), normalize(right)
 
 
-def _depth_loss(out, depth_gt, cfg: StereoConfig):
+def _depth_loss(out, depth_gt, cfg: StereoConfig, mesh=None):
     """'sl1': multi-stage smooth-L1 over the stacked hourglasses' depths;
     'w1': Wasserstein-1 over the final depth distribution, with the
     per-plane offset when the head has one."""
     mask = depth_gt > 0
     if cfg.depth_loss == "w1":
         return depth_w1_loss(out["depth_prob"], out["depth_levels"],
-                             depth_gt, mask, offset=out.get("depth_offset"))
+                             depth_gt, mask, offset=out.get("depth_offset"),
+                             mesh=mesh)
     if cfg.depth_loss != "sl1":
         raise ValueError(f"unknown depth_loss {cfg.depth_loss!r}")
     preds = out["depth_preds"]
     if len(preds) == 1:
-        return depth_sl1_loss(out["depth"], depth_gt, mask)
-    return depth_multistage_sl1_loss(preds, depth_gt, mask)
+        return depth_sl1_loss(out["depth"], depth_gt, mask, mesh)
+    return depth_multistage_sl1_loss(preds, depth_gt, mask, mesh)
 
 
 def create_stereo_state(model: StereoNet, tc: TrainConfig) -> TrainState:
@@ -100,28 +116,40 @@ def stereo_batch_to_device(batch: Mapping[str, np.ndarray],
 
 def stereo_train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                       cfg: StereoConfig, tc: TrainConfig,
-                      locations: torch.Tensor) -> Dict[str, torch.Tensor]:
+                      locations: torch.Tensor,
+                      mesh: Optional[Mesh] = None
+                      ) -> Dict[str, torch.Tensor]:
     """One step on ``batch`` (tensors on the model's device, from
     ``stereo_batch_to_device``): updates ``state`` in place and returns
     the losses (total, cls, reg, centerness, depth), num_pos and the
-    gradients' global norm before clipping, as 0-d tensors."""
+    gradients' global norm before clipping, as 0-d tensors.  With
+    ``mesh``, ``batch`` is the global batch and the metrics are the
+    global ones."""
+    if mesh is not None:
+        batch = shard_batch(batch, mesh, mesh.rank)
     left, right = augment_normalize(batch["images_left"],
                                     batch["images_right"], cfg, state.step)
-    out = state.model(left, right, batch["P_left"].float(),
-                      batch["P_right"].float())
-    losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
-                        batch["gt_classes"], cfg, locations)
-    dloss = _depth_loss(out, batch["depth_gt"], cfg)
-    total = losses["total"] + dloss
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics.update(depth=dloss.detach(), total=total.detach())
-    metrics["grad_norm"] = apply_gradients(state, total, tc)
+    with data_parallel(state.model, mesh):
+        out = state.model(left, right, batch["P_left"].float(),
+                          batch["P_right"].float())
+        losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
+                            batch["gt_classes"], cfg, locations, mesh)
+        dloss = _depth_loss(out, batch["depth_gt"], cfg, mesh)
+        total = losses["total"] + dloss
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics.update(depth=dloss.detach(), total=total.detach())
+        metrics = global_metrics(metrics, mesh)
+        metrics["grad_norm"] = apply_gradients(state, total, tc, mesh)
     return metrics
 
 
-def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device):
+def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device,
+                           mesh: Optional[Mesh] = None):
     """``stereo_train_step`` with the config and the BEV anchor locations
-    bound: ``step(state, batch) -> metrics``."""
+    bound: ``step(state, batch) -> metrics``.  ``mesh``: the process
+    group's mesh (``parallel.initialize_multihost``) for a data-parallel
+    step; the batch's frames must split over it."""
+    check_training_mesh(mesh, device)
     locations = torch.from_numpy(bev_locations(cfg)).to(device)
     return functools.partial(stereo_train_step, cfg=cfg, tc=tc,
-                             locations=locations)
+                             locations=locations, mesh=mesh)

@@ -11,6 +11,7 @@ import sys
 from typing import Callable, Dict, Optional
 
 from snvc_tpu_torch.config import VernierConfig, load_config
+from snvc_tpu_torch.parallel.api import process_index
 
 _FORMAT = "[%(asctime)s] %(levelname)s %(message)s"
 _ROOT = "snvc_tpu_torch"
@@ -50,23 +51,31 @@ class Experimenter:
     ``checkpoints/`` (``training/train.save_checkpoint``) and
     ``metrics.jsonl``.  Without ``config`` the directory's
     ``config.json`` is read as a VernierConfig (a file of either package,
-    through ``config.load_config``)."""
+    through ``config.load_config``).  Process 0 alone writes the directory
+    and logs: in a data-parallel run (parallel/api.py) the other ranks'
+    logger is disabled and their metrics writer writes nothing."""
 
     def __init__(self, model_dir: str, config=None):
         self.model_dir = os.path.abspath(model_dir)
-        os.makedirs(self.model_dir, exist_ok=True)
+        self.primary = process_index() == 0
         cfg_path = os.path.join(self.model_dir, "config.json")
         if config is not None:
-            with open(cfg_path, "w") as fh:
-                json.dump(dataclasses.asdict(config), fh, indent=2)
+            if self.primary:
+                os.makedirs(self.model_dir, exist_ok=True)
+                with open(cfg_path, "w") as fh:
+                    json.dump(dataclasses.asdict(config), fh, indent=2)
             self.config = config
         elif os.path.exists(cfg_path):
             self.config = load_config(cfg_path, VernierConfig)
         else:
             raise FileNotFoundError(f"no config.json in {self.model_dir}")
-        self.logger = get_logger(
-            f"{_ROOT}.experiment",
-            os.path.join(self.model_dir, "training.log"))
+        if self.primary:
+            self.logger = get_logger(
+                f"{_ROOT}.experiment",
+                os.path.join(self.model_dir, "training.log"))
+        else:
+            self.logger = logging.getLogger(f"{_ROOT}.experiment.silent")
+            self.logger.disabled = True
 
     @property
     def checkpoint_dir(self) -> str:
@@ -78,6 +87,8 @@ class Experimenter:
         path = os.path.join(self.model_dir, "metrics.jsonl")
 
         def write(step: int, metrics: Dict[str, float]) -> None:
+            if not self.primary:
+                return
             with open(path, "a") as fh:
                 fh.write(json.dumps({"step": step, **metrics}) + "\n")
 
