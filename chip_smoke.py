@@ -200,9 +200,34 @@ Phases, each printing one line with its elapsed seconds:
                bf16 rule.  First, train_vernier through torchrun in a
                one-rank NCCL group (2 steps of hrnet-tiny on a seeded
                1-frame tree) while the one-process float32 steps run.
+ 26. tensor_parallel - the mesh's "model" axis (parallel/tensor.py):
+               first each kernel at the split paths' shapes against its
+               plain version, timed with its bound (K1 and its backward
+               on the nl slab of a flagship request, 32x192x96; K2 / dx /
+               dw on the three prelude convs' slabs widened by their
+               halos to 102, 100 and 104 lengths; K3 and its backward on
+               each 32-plane slab of StereoConfig(); K4 and its backward
+               on the gathered volume); then every path in this process
+               and on two gloo ranks sharing the card at n_data 1,
+               n_model 2 (``initialize_multihost(..., n_model=2)``): the
+               full-width DetectRunner (1 warm-up + 2 bf16 frames, 1
+               float32 frame), a StereoConfig() step (batch 1) and a
+               flagship-grid Vernier step (32x192x192, 8 instances),
+               each 2 bf16 steps and a float32 step 0; the ranks agree
+               (1e-5 in float32, 1e-2 in bf16: each computes the
+               replicated layers itself), the float32 steps lie within
+               phase train_reference's rule of this process's, the
+               float32 detections' scores within 1e-3 (bf16 differences
+               printed);
+               per rank K3 = K4 = 2 a 2-frame serve, per bf16 step K3 1 +
+               1, K4 1 + 1 / K1 1 + 1, K2 / dx / dw 3, each K2 input 102,
+               100 or 104 lengths wide; ms and peak memory a rank beside
+               this process's ("two ranks share one card: no scaling
+               figure").
 Then a {"kernels": [...]} line (launches: the serving, detect and
-training phases' counts plus train_cli's, variants', track's, demos'
-and parallel's), nvidia-smi's line, and as the last line
+training phases' counts plus train_cli's, variants', track's, demos',
+parallel's and tensor_parallel's), nvidia-smi's line, and as the last
+line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -708,22 +733,28 @@ def check_k3(gen, dev) -> dict:
     got = plane_sweep_volume_k3(l1, r1, shifts)
     err = max(err, assert_within_ulps("K3 detect", got,
                                       plane_sweep_shifted(l1, r1, shifts)))
-    torch.cuda.synchronize()
-    ms = cuda_ms(lambda: plane_sweep_volume_k3(l1, r1, shifts), 20)
-    plain_ms = cuda_ms(lambda: plane_sweep_shifted(l1, r1, shifts), 3)
-    # library: the 5-D F.grid_sample + cat in bf16, timed only (its bf16
-    # grid rounds the columns, as K1's and K4's library grids do)
-    call = k3_library(l1, r1, shifts)
-    library_ms = cuda_ms(lambda: call(l1, r1), 3)
-    # f32 lerp of the right half: 2 multiplies and an add per element
-    bound_ms = max(nbytes(l1, r1, shifts, got) / PEAK_BYTES,
-                   1.5 * got.numel() / PEAK_F32_FLOPS) * 1e3
-    phase("K3", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          library_ms=f"{library_ms:.4f}",
+    times = k3_times(l1, r1, shifts)
+    phase("K3", t, max_abs_err=f"{err:.3e}", **times_fields(times),
           library_f32_rel_err=f"{lib_err:.3e}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=library_ms)
+    return dict(max_abs_err=err, **times)
+
+
+def k3_times(lf, rf, shifts) -> dict:
+    """K3's kernel / plain / library ms at these inputs and its bound.
+    Library: the 5-D F.grid_sample + cat in bf16, timed only (its bf16
+    grid rounds the columns, as K1's and K4's library grids do)."""
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: plane_sweep_volume_k3(lf, rf, shifts), 20)
+    plain_ms = cuda_ms(lambda: plane_sweep_shifted(lf, rf, shifts), 3)
+    call = k3_library(lf, rf, shifts)
+    library_ms = cuda_ms(lambda: call(lf, rf), 3)
+    N, H, W, C = lf.shape
+    out = N * shifts.shape[-1] * H * W * 2 * C
+    # f32 lerp of the right half: 2 multiplies and an add per element
+    bound_ms = max((nbytes(lf, rf, shifts) + out * lf.element_size())
+                   / PEAK_BYTES, 1.5 * out / PEAK_F32_FLOPS) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
 
 
 # ---------------------------------------------------------------- K4 ----
@@ -1551,15 +1582,25 @@ def check_k3_bwd(gen, dev) -> dict:
     Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
     shifts = plane_shifts(Pl, Pr, torch.from_numpy(depth_hypotheses(cfg)).to(
         dev))
-    got = plane_sweep_volume_k3_bwd(g, shifts, W)
-    for name, a, b in zip(("dleft", "dright"), got,
+    for name, a, b in zip(("dleft", "dright"),
+                          plane_sweep_volume_k3_bwd(g, shifts, W),
                           plane_sweep_shifted_bwd(g, shifts, W)):
         err = max(err, assert_within_ulps(f"K3_bwd train {name}", a, b))
+    times = k3_bwd_times(g, shifts, W)
+    phase("K3_bwd", t, max_abs_err=f"{err:.3e}", **times_fields(times),
+          library_f32_rel_err=f"{lib_err:.3e}")
+    return dict(max_abs_err=err, **times)
+
+
+def k3_bwd_times(g, shifts, W: int) -> dict:
+    """K3's backward kernel / plain / library ms at this gradient and its
+    bound.  Library: the backward of k3_library's calls in bf16, timed
+    only."""
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: plane_sweep_volume_k3_bwd(g, shifts, W), 20)
     plain_ms = cuda_ms(lambda: plane_sweep_shifted_bwd(g, shifts, W), 3)
-    # library: the backward of k3_library's calls in bf16, timed only
-    leaves = [torch.zeros((1, H, W, C), device=dev, dtype=torch.bfloat16,
+    N, H, C = g.shape[0], g.shape[2], g.shape[-1] // 2
+    leaves = [torch.zeros((N, H, W, C), device=g.device, dtype=g.dtype,
                           requires_grad=True) for _ in range(2)]
     out = k3_library(*leaves, shifts)(*leaves)
     gt = g.permute(0, 4, 1, 2, 3)
@@ -1568,14 +1609,10 @@ def check_k3_bwd(gen, dev) -> dict:
     # bytes: the gradient read once, both feature gradients written once;
     # f32 work: an add per left element and a plane, two multiplies and
     # two adds per right element and a plane
-    bound_ms = max(nbytes(g, shifts, *got) / PEAK_BYTES,
-                   2.5 * g.numel() / PEAK_F32_FLOPS) * 1e3
-    phase("K3_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          library_ms=f"{library_ms:.4f}",
-          library_f32_rel_err=f"{lib_err:.3e}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=library_ms)
+    bound_ms = max((nbytes(g, shifts) + 2 * N * H * W * C * g.element_size())
+                   / PEAK_BYTES, 2.5 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
 
 
 def k4_bwd_near_case(gen, dev):
@@ -2683,23 +2720,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def dp_rank_main(fn, rank, n, port, out_dir, args):
+def dp_rank_main(fn, rank, n, port, out_dir, args, n_model=1):
     """A rank as a launcher starts one: RANK / WORLD_SIZE / MASTER_* in
     its environment, the group joined by ``initialize_multihost`` (gloo
-    on cuda:0); ``fn(mesh, *args)``'s result saved for the parent."""
+    on cuda:0, ``n_model`` ranks a data position); ``fn(mesh, *args)``'s
+    result saved for the parent."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
-    mesh = initialize_multihost("gloo", "cuda:0")
-    assert mesh.rank == rank and mesh.n_data == n, mesh
+    mesh = initialize_multihost("gloo", "cuda:0", n_model=n_model)
+    assert mesh.rank == rank and mesh.n_data * n_model == n, mesh
     torch.save(fn(mesh, *args), os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.barrier()
 
 
-def run_dp_ranks(fn, *args, timeout: float = 300.0) -> list:
-    """``fn(mesh, *args)`` on DP_RANKS spawned ranks; their results in
-    rank order.  A rank that fails, or ranks past ``timeout``, fail the
-    phase, and every rank still running is stopped."""
+def run_dp_ranks(fn, *args, timeout: float = 300.0, n_model: int = 1
+                 ) -> list:
+    """``fn(mesh, *args)`` on DP_RANKS spawned ranks (``n_model`` of them
+    a data position); their results in rank order.  A rank that fails,
+    or ranks past ``timeout``, fail the phase, and every rank still
+    running is stopped."""
     import multiprocessing
     import multiprocessing.connection
 
@@ -2707,7 +2747,7 @@ def run_dp_ranks(fn, *args, timeout: float = 300.0) -> list:
     with tempfile.TemporaryDirectory() as d:
         port = free_port()
         procs = [ctx.Process(target=dp_rank_main,
-                             args=(fn, r, DP_RANKS, port, d, args))
+                             args=(fn, r, DP_RANKS, port, d, args, n_model))
                  for r in range(DP_RANKS)]
         for p in procs:
             p.start()
@@ -2733,21 +2773,21 @@ def run_dp_ranks(fn, *args, timeout: float = 300.0) -> list:
 
 
 def dp_steps(kind: str, dev, mesh=None, float32: bool = False,
-             steps: int = 2) -> dict:
+             steps: int = 2, cfg=None, frames: int = 2) -> dict:
     """``steps`` steps of the flagship training config on its global
     batch: the Vernier model (VernierConfig(), 8 instances) or
-    StereoConfig() (2 pairs, 4 cars each), seeded weights, TrainConfig
-    with warmup_steps=2; data-parallel with ``mesh``; with ``float32``,
-    the config in float32 with TF32 off.  Step 0's metrics (rate 0: the
-    same parameters on every side), each step's ms, peak memory,
-    counters."""
+    StereoConfig() (``frames`` pairs, 4 cars each), seeded weights,
+    TrainConfig with warmup_steps=2; ``cfg`` replaces the config;
+    parallel over ``mesh``; with ``float32``, the config in float32 with
+    TF32 off.  Step 0's metrics (rate 0: the same parameters on every
+    side), each step's ms, peak memory, counters."""
     # the card's defaults, or float32 work that is float32
     torch.backends.cudnn.allow_tf32 = not float32
     torch.backends.cuda.matmul.allow_tf32 = False
     tc = TrainConfig(warmup_steps=2)
     gen = torch.Generator().manual_seed(0)
     if kind == "vernier":
-        cfg = VernierConfig()
+        cfg = cfg or VernierConfig()
         if float32:
             cfg = cfg.replace(compute_dtype="float32")
         state = create_train_state(VernierScale(cfg, device=dev,
@@ -2755,14 +2795,14 @@ def dp_steps(kind: str, dev, mesh=None, float32: bool = False,
         step = make_train_step(cfg, tc, dev, mesh=mesh)
         batch = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
     else:
-        cfg = StereoConfig()
+        cfg = cfg or StereoConfig()
         if float32:
             cfg = cfg.replace(compute_dtype="float32")
         state = create_stereo_state(StereoNet(cfg, device=dev,
                                               generator=gen), tc)
         step = make_stereo_train_step(cfg, tc, dev, mesh=mesh)
         batch = stereo_batch_to_device(synthetic_stereo_request(
-            cfg, seed=0, frames=2, boxes_per_frame=4), dev)
+            cfg, seed=0, frames=frames, boxes_per_frame=4), dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3068,6 +3108,373 @@ def check_parallel(dev, train: dict) -> dict:
     return dict(counts=counts)
 
 
+# --------------------------------------------------- tensor_parallel ----
+# The mesh's "model" axis (parallel/tensor.py): DP_RANKS gloo ranks share
+# the card at n_data = 1, n_model = 2, so their times are no scaling
+# figure.  The Vernier path trains the flagship grid at the default
+# training batch (TrainConfig().batch_size).
+TP_VERNIER = flagship_vernier_config(max_instances=TrainConfig().batch_size)
+TP_NOTE = "two ranks share one card: no scaling figure"
+
+
+def tp_slab_kernels(gen, dev) -> dict:
+    """Each kernel of the split paths against its plain version at the
+    shape the split gives it: K1 and its backward on the nl slab of a
+    flagship request (4 instances, grid 32 x 192 x 96, the batch's own
+    projections), K2 / dx / dw on the three prelude convs' widened slabs
+    (96 + 6, 4, 8 lengths: tilings depend on the width, not the batch),
+    K3 and its backward on each D slab of StereoConfig() (32 of 64
+    planes) and K4 and its backward on the gathered volume.  Times at
+    those shapes (K2's beside phase K2's at the full width)."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, fields = {}, {}
+    cfg = flagship_vernier_config()
+    (nh, nw, nl), roi = cfg.grid_resolution, cfg.resolution
+    half = (nh, nw, nl // DP_RANKS)
+    N = cfg.max_instances
+    gl, gr = (g.reshape(N, nh, nw, nl, 2)[:, :, :, :half[2]]
+              .reshape(N, -1, 2).contiguous()
+              for g in batch_projections(cfg, 0, dev))
+    lf, rf, _, _ = k1_case(gen, N, 64, 64, 32, (1, 1, 1), roi,
+                           torch.bfloat16, dev)
+    err = assert_k1("tp K1 slab", lf, rf, gl, gr, roi, half)
+    out["K1"] = dict(max_abs_err=err, **k1_times(lf, rf, gl, gr, roi, half))
+    g = torch.randn((N,) + half + (64,), generator=gen).to(dev,
+                                                          torch.bfloat16)
+    err = assert_k1_bwd("tp K1_bwd slab", lf, rf, gl, gr, g, roi)
+    out["K1_bwd"] = dict(max_abs_err=err,
+                         **k1_bwd_times(lf, rf, gl, gr, g, roi))
+    del lf, rf, gl, gr, g
+    slab = (N, nh, nw)
+    k2 = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  max_abs_err=0.0) for k in ("K2", "K2_dx", "K2_dw")}
+    for name, C, kernel, dil in (("conv1_k7", 64, (7, 7, 7), 1),
+                                 ("conv2_k5", 32, (5, 5, 5), 1),
+                                 ("conv3_k5_d2", 32, (5, 5, 5), 2)):
+        W = nl // DP_RANKS + (kernel[2] - 1) * dil  # slab + both halos
+        shape = slab + (W, C)
+        err, times = run_k2_case(gen, dev, f"tp {name} W={W}", shape,
+                                 kernel, 32, dil, True)
+        times["max_abs_err"] = err
+        bwd = run_k2_bwd_case(gen, dev, f"tp {name} W={W}", shape, kernel,
+                              32, dil, True)
+        for key, d in (("K2", times), ("K2_dx", bwd["dx"]),
+                       ("K2_dw", bwd["dw"])):
+            for k, v in d.items():
+                k2[key][k] = (max(k2[key][k], v) if k == "max_abs_err"
+                              else k2[key][k] + v)
+    out.update(k2)
+    scfg = StereoConfig()
+    H, W = scfg.input_size[0] // 4, scfg.input_size[1] // 4
+    C, D = 32, scfg.num_depths
+    lf = torch.randn((1, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    rf = torch.randn((1, H, W, C), generator=gen).to(dev, torch.bfloat16)
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
+    depths = torch.from_numpy(depth_hypotheses(scfg)).to(dev)
+    shifts = plane_shifts(Pl, Pr, depths)
+    slabs, errs, berrs = [], [], []
+    d = D // DP_RANKS
+    for m in range(DP_RANKS):  # rank m's planes
+        s_m = shifts[:, m * d:(m + 1) * d].contiguous()
+        v = plane_sweep_volume_k3(lf, rf, s_m)
+        errs.append(assert_within_ulps(f"tp K3 slab {m}", v,
+                                       plane_sweep_shifted(lf, rf, s_m)))
+        slabs.append(v)
+        gv = torch.randn(v.shape, generator=gen).to(dev, torch.bfloat16)
+        for name, a, b in zip(("dleft", "dright"),
+                              plane_sweep_volume_k3_bwd(gv, s_m, W),
+                              plane_sweep_shifted_bwd(gv, s_m, W)):
+            berrs.append(assert_within_ulps(f"tp K3_bwd slab {m} {name}",
+                                            a, b))
+    s0 = shifts[:, :d].contiguous()  # the near planes: the largest shifts
+    out["K3"] = dict(max_abs_err=max(errs), **k3_times(lf, rf, s0))
+    gv = torch.randn(slabs[0].shape, generator=gen).to(dev, torch.bfloat16)
+    out["K3_bwd"] = dict(max_abs_err=max(berrs), **k3_bwd_times(gv, s0, W))
+    del gv
+    # K4 on the gathered volume: the post-stack volume's two slabs in rank
+    # order (32 channels)
+    vol = torch.cat([v[..., :C] for v in slabs], dim=1).contiguous()
+    del slabs
+    tabs = k4_tables(depth_hypotheses(scfg), *_bev_axes(scfg), dev)
+    got = frustum_to_voxel_k4(vol, Pl, *tabs, 4)
+    err = assert_within_ulps("tp K4 gathered", got,
+                             frustum_to_voxel_separable(vol, Pl, *tabs, 4))
+    g4 = torch.randn(got.shape, generator=gen).to(dev, torch.bfloat16)
+    berr = assert_within_ulps(
+        "tp K4_bwd gathered",
+        frustum_to_voxel_k4_bwd(g4, Pl, *tabs, (D, H, W), 4),
+        frustum_to_voxel_separable_bwd(g4, Pl, *tabs, (D, H, W), 4))
+    out["K4"] = dict(max_abs_err=err, ms=cuda_ms(
+        lambda: frustum_to_voxel_k4(vol, Pl, *tabs, 4), 20))
+    out["K4_bwd"] = dict(max_abs_err=berr, ms=cuda_ms(
+        lambda: frustum_to_voxel_k4_bwd(g4, Pl, *tabs, (D, H, W), 4), 20))
+    del vol, got, g4
+    torch.cuda.empty_cache()
+    for k, d in out.items():
+        fields.update({f"{k}_{key}": (f"{v:.3e}" if key == "max_abs_err"
+                                      else f"{v:.4f}")
+                       for key, v in d.items()})
+    phase("tensor_parallel kernels", t, **fields)
+    return out
+
+
+def tp_detect(dev, mesh=None) -> dict:
+    """The full-width DetectRunner (StereoConfig(), seeded weights) on one
+    warm-up and two seeded frames in bf16 (request ms, counters, peak
+    memory), then one frame in float32 (TF32 off); split over ``mesh``'s
+    model axis with a mesh.  Outputs as numpy."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for label, cfg in (("bf16", StereoConfig()),
+                       ("f32", StereoConfig(compute_dtype="float32"))):
+        torch.backends.cudnn.allow_tf32 = label == "bf16"
+        model = StereoNet(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+        runner = DetectRunner(model, cfg, device=dev, mesh=mesh)
+        seeds = (1, 2) if label == "bf16" else (1,)
+        if label == "bf16":
+            runner.forward(synthetic_stereo_request(cfg, seed=100))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, outs = [], []
+        for s in seeds:
+            t = time.perf_counter()
+            o = runner.forward(synthetic_stereo_request(cfg, seed=s))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            outs.append([x.float().cpu().numpy() for x in o])
+        res[label] = dict(
+            outs=outs, ms=times, counts=read_counts(),
+            peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del runner, model
+        torch.cuda.empty_cache()
+    return res
+
+
+def tp_k2_widths():
+    """Records the width (axis 3) of every input the Vernier head's K2
+    convs take while open: ``Conv3d`` calls ``conv3d_large_tap`` through
+    models/layers.py's name for it."""
+    from snvc_tpu_torch.models import layers
+
+    widths = []
+    fn = layers.conv3d_large_tap
+
+    def recording(x, w, dil=1):
+        widths.append(int(x.shape[3]))
+        return fn(x, w, dil)
+
+    layers.conv3d_large_tap = recording
+    return widths, lambda: setattr(layers, "conv3d_large_tap", fn)
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Counts the calls to ``torch.distributed.all_gather`` and
+    ``all_reduce`` (the collectives of parallel/api.py and
+    parallel/tensor.py) and the bytes they are given while open."""
+    dist = torch.distributed
+    seen = {name: [0, 0] for name in ("all_gather", "all_reduce")}
+    orig = {name: getattr(dist, name) for name in seen}
+
+    def counting(name):
+        def call(*args, **kw):
+            t = args[1] if name == "all_gather" else args[0]
+            seen[name][0] += 1
+            seen[name][1] += t.numel() * t.element_size()
+            return orig[name](*args, **kw)
+        return call
+
+    for name in seen:
+        setattr(dist, name, counting(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+
+
+def tp_collective_ms(mesh, dev) -> dict:
+    """ms a call, through gloo on the shared card, of the stereo stack's
+    k3 halo exchange ([1, 32, 96, 312, 32] bf16 slab, a plane each way)
+    and of a GroupNorm's moment sum ([2, 1, 32] float32), each synced."""
+    from snvc_tpu_torch.parallel.tensor import halo_exchange, model_sum
+
+    x = torch.randn((1, 32, 96, 312, 32), device=dev, dtype=torch.bfloat16)
+    moments = torch.randn((2, 1, 32), device=dev)
+    res = {}
+    for name, fn, reps in (("halo", lambda: halo_exchange(x, 1, 1, 1, mesh),
+                            20),
+                           ("moments", lambda: model_sum(moments, mesh), 50)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t) * 1e3 / reps
+    return res
+
+
+def tp_paths(dev, mesh=None) -> dict:
+    """Every path of the phase on this process: serving (``tp_detect``),
+    the stereo step (StereoConfig(), batch 1) and the flagship-grid
+    Vernier step (TP_VERNIER) in bf16 (2 steps, the second warm) and in
+    float32 (step 0); split over ``mesh``'s model axis with a mesh; the
+    K2 input widths of the bf16 Vernier steps and the collectives (calls,
+    MB) a bf16 step or request."""
+    with counting_collectives() as seen:
+        res = dict(detect=tp_detect(dev, mesh))
+    res["detect"]["collectives"] = {k: (n // 4, b / 4e6)
+                                    for k, (n, b) in seen.items()}
+    for kind, cfg in (("stereo", StereoConfig()), ("vernier", TP_VERNIER)):
+        widths, restore = tp_k2_widths()
+        try:
+            with counting_collectives() as seen:
+                res[kind] = dict(bf16=dp_steps(kind, dev, mesh, cfg=cfg,
+                                               frames=1))
+        finally:
+            restore()
+        res[kind]["collectives"] = {k: (n // 2, b / 2e6)
+                                    for k, (n, b) in seen.items()}
+        res[kind]["k2_widths"] = sorted(set(widths))
+        res[kind]["f32"] = dp_steps(kind, dev, mesh, float32=True, steps=1,
+                                    cfg=cfg, frames=1)
+    return res
+
+
+def tp_rank(mesh) -> dict:
+    assert (mesh.n_data, mesh.n_model) == (1, DP_RANKS), mesh
+    dev = mesh.devices[mesh.rank]
+    res = tp_paths(dev, mesh)
+    res["collective_ms"] = tp_collective_ms(mesh, dev)
+    return res
+
+
+def check_tensor_parallel(gen, dev) -> dict:
+    """Phase 26: tensor parallelism, the "model" axis (parallel/tensor.py).
+    The kernels at the split paths' shapes (``tp_slab_kernels``); every
+    path on this process (``tp_paths``); then on DP_RANKS gloo ranks
+    sharing the card at n_data 1, n_model 2 (``initialize_multihost``):
+    the ranks agree bit for bit; the float32 steps' metrics within
+    phase train_reference's rule of this process's (losses 1e-4,
+    grad_norm 3e-3), the float32 detections' sorted valid scores within
+    1e-3 of the largest (bf16 differences printed: the slabs' convs take
+    other algorithms); the ranks' metrics and scores within 1e-5
+    relative in float32, 1e-2 in bf16 (each rank computes the replicated
+    layers itself); per rank K3 = K4 = 2 for two bf16 requests, per
+    bf16 stereo step K3 1 + 1, K4 1 + 1 and Vernier step K1 1 + 1, K2 /
+    dx / dw 3, with each K2 input 96 lengths + the halo (102, 100, 104);
+    peak memory a rank beside this process's."""
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = tp_slab_kernels(gen, dev)
+    t_one = time.perf_counter()
+    one = tp_paths(dev)
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_dp_ranks(tp_rank, n_model=DP_RANKS, timeout=600.0)
+    t_end = time.perf_counter()
+    fields, failed = {}, []
+    total = counts_of()
+    want = dict(detect=counts_of(K3=2, K4=2),
+                stereo=counts_of(K3=2, K3_bwd=2, K4=2, K4_bwd=2),
+                vernier=counts_of(K1=2, K1_bwd=2, K2=6, K2_dx=6, K2_dw=6))
+    for r, res in enumerate(ranks):
+        got = dict(detect=res["detect"]["bf16"]["counts"],
+                   stereo=res["stereo"]["bf16"]["counts"],
+                   vernier=res["vernier"]["bf16"]["counts"])
+        for k, c in got.items():
+            if c != want[k]:
+                failed.append(f"rank {r} {k} launch counts {c}")
+            for key, v in c.items():
+                total[key] += v
+        if res["vernier"]["k2_widths"] != [100, 102, 104]:
+            failed.append(f"rank {r} K2 widths {res['vernier']['k2_widths']}")
+    # the model ranks compute the replicated layers (the encoder, the BEV
+    # head, the layers after the gather) each on its own: the card may
+    # round them apart, so their agreement is printed, and gated at 1e-5
+    # relative in float32, 1e-2 in bf16
+    b = ranks[-1]
+    for dt, tol in (("bf16", 1e-2), ("f32", 1e-5)):
+        diffs = {}
+        for kind in ("stereo", "vernier"):
+            m0, m1 = ranks[0][kind][dt]["metrics"], b[kind][dt]["metrics"]
+            diffs[kind] = max(abs(m0[k] - m1[k]) / max(abs(m0[k]), 1e-12)
+                              for k in m0)
+        o0, o1 = ranks[0]["detect"][dt]["outs"], b["detect"][dt]["outs"]
+        diffs["detect_scores"] = max(
+            float(np.abs(x[1] - y[1]).max()) / max(float(np.abs(x[1]).max()),
+                                                   1e-12)
+            for x, y in zip(o0, o1))
+        fields[f"ranks_{dt}_rel_diff"] = ",".join(
+            f"{k}:{v:.2e}" for k, v in diffs.items())
+        failed += [f"ranks {dt} {k} {v:.2e}" for k, v in diffs.items()
+                   if not v <= tol]
+    for kind in ("detect", "stereo", "vernier"):
+        fields[f"{kind}_collectives"] = ",".join(
+            f"{k}:{n}x/{mb:.1f}MB" for k, (n, mb) in
+            ranks[0][kind]["collectives"].items())
+    fields["collective_ms"] = ",".join(
+        f"{k}:{v:.2f}" for k, v in ranks[0]["collective_ms"].items())
+    fields["k2_widths_a_rank"] = ",".join(
+        str(r["vernier"]["k2_widths"]) for r in ranks).replace(" ", "")
+    r0 = ranks[0]
+    for kind in ("stereo", "vernier"):
+        ref = one[kind]["f32"]["metrics"]
+        for dt in ("bf16", "f32"):
+            got = r0[kind][dt]["metrics"]
+            assert all(math.isfinite(v) for v in got.values()), got
+            errs = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+                    for k, v in ref.items()}
+            fields[f"{kind}_{dt}_vs_one_f32"] = \
+                f"{max(errs.values()):.2e}({max(errs, key=errs.get)})"
+            if dt == "f32":
+                failed += [f"{kind} {k} {e:.2e}" for k, e in errs.items()
+                           if e > (3e-3 if k == "grad_norm" else 1e-4)]
+        fields[f"{kind}_step_ms"] = ",".join(
+            f"{r[kind]['bf16']['step_ms'][1]:.1f}" for r in ranks)
+        fields[f"{kind}_step_ms_one"] = \
+            f"{one[kind]['bf16']['step_ms'][1]:.1f}"
+        fields[f"{kind}_peak_gb"] = ",".join(
+            f"{r[kind]['bf16']['peak_gb']:.2f}" for r in ranks)
+        fields[f"{kind}_peak_gb_one"] = f"{one[kind]['bf16']['peak_gb']:.2f}"
+    for dt in ("bf16", "f32"):
+        got, ref = r0["detect"][dt]["outs"], one["detect"][dt]["outs"]
+        for a, b in zip(got, ref):
+            boxes, scores, _, valid = a
+            assert np.isfinite(boxes[valid > 0]).all() and valid.any(), dt
+            sa = np.sort(a[1][a[3] > 0])[::-1]
+            sb = np.sort(b[1][b[3] > 0])[::-1]
+            n = min(len(sa), len(sb))
+            err = float(np.abs(sa[:n] - sb[:n]).max(initial=0.0))
+            fields[f"detect_{dt}_scores_max_diff"] = f"{err:.2e}"
+            fields[f"detect_{dt}_valid"] = f"{len(sa)}/{len(sb)}"
+            if dt == "f32" and (len(sa) != len(sb)
+                                or err > 1e-3 * float(sb.max())):
+                failed.append(f"detect f32 scores {err:.2e}")
+    fields["detect_ms"] = ",".join(
+        "/".join(f"{v:.1f}" for v in r["detect"]["bf16"]["ms"])
+        for r in ranks)
+    fields["detect_ms_one"] = "/".join(
+        f"{v:.1f}" for v in one["detect"]["bf16"]["ms"])
+    fields["detect_peak_gb"] = ",".join(
+        f"{r['detect']['bf16']['peak_gb']:.2f}" for r in ranks)
+    fields["detect_peak_gb_one"] = f"{one['detect']['bf16']['peak_gb']:.2f}"
+    phase("tensor_parallel", t, ranks=DP_RANKS, n_model=DP_RANKS,
+          backend="gloo", note=repr(TP_NOTE),
+          kernels_s=f"{t_one - t:.1f}", one_s=f"{t_ranks - t_one:.1f}",
+          ranks_s=f"{t_end - t_ranks:.1f}", **fields,
+          nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(total).replace(" ", ""))
+    assert not failed, f"tensor_parallel: {failed}"
+    return dict(counts=total, kernels=kern)
+
+
 def assert_states_equal(a, b) -> None:
     """Two TrainStates with the same step, parameters, BatchNorm
     statistics and AdamW state, bit for bit."""
@@ -3140,8 +3547,9 @@ def main() -> int:
         trk = check_track(dev, root, world)["counts"]
         demos = check_demos(dev, root)["counts"]
     par = check_parallel(dev, train)["counts"]
+    tp = check_tensor_parallel(gen, dev)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] + par[k] for k in KERNELS}
+    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

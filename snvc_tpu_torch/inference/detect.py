@@ -15,7 +15,11 @@ of its devices, a request's frames are split as ``shard_batch`` splits
 them (``batch_size % n_data == 0``, as in JAX), each device runs its
 frames through the model and ``decode_proposals`` with no host sync
 between devices, and the proposals are gathered in order on the mesh's
-first device.
+first device.  With a process group's mesh of one data position and
+``n_model > 1`` (``parallel.initialize_multihost``) every rank serves the
+request on its own device with the stereo volume split on its depth axis
+over the ranks (tensor parallelism, models/stereonet.py), and every rank
+returns the same proposals.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from snvc_tpu_torch.data.stereo import (
 from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
 from snvc_tpu_torch.geometry import boxes as gbox
 from snvc_tpu_torch.inference.kitti_writer import instance_line
+from snvc_tpu_torch.models.layers import tensor_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.nms import rotated_nms_bev, top_k_boxes
 from snvc_tpu_torch.ops.rotated_iou import bev_from_box3d
@@ -107,18 +112,22 @@ _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right")
 
 class DetectRunner:
     """Serves the global model on ``device`` (default "cuda", which raises
-    without a GPU), or on every device of ``mesh`` (a
-    ``parallel.make_mesh``; ``device`` is then its first): ``forward``
-    takes one request (the arrays of ``StereoBatch.arrays()``) and returns
-    the padded proposals as tensors on the device.  The model is moved to
-    that device."""
+    without a GPU), on every device of ``mesh`` (a ``parallel.make_mesh``;
+    ``device`` is then its first), or split over the model axis of a
+    process group's ``mesh`` (``parallel.initialize_multihost`` with
+    ``n_model > 1`` and one data position; this rank's device):
+    ``forward`` takes one request (the arrays of ``StereoBatch.arrays()``)
+    and returns the padded proposals as tensors on the device.  The model
+    is moved to that device."""
 
     def __init__(self, model: StereoNet, cfg: StereoConfig,
                  max_boxes: int = 8, score_threshold: float = 0.02,
                  nms_iou: float = 0.25, device="cuda",
                  mesh: Optional[Mesh] = None):
         self.mesh = mesh
-        devs = runner_devices(device, mesh)
+        devs = runner_devices(device, mesh, model_axis=True)
+        # tensor-parallel: this rank's part of a model split over ranks
+        self.split = mesh is not None and mesh.rank is not None
         self.device = devs[0]
         self.cfg = cfg
         self.model = model.to(self.device).eval()
@@ -126,7 +135,7 @@ class DetectRunner:
         self.score_threshold = score_threshold
         self.nms_iou = nms_iou
         self.locations = torch.from_numpy(bev_locations(cfg)).to(self.device)
-        if mesh is not None:
+        if mesh is not None and not self.split:
             # (device, model, BEV anchors) of each position
             self.replicas = [(self.device, self.model, self.locations)] + [
                 (d, copy.deepcopy(self.model).to(d), self.locations.to(d))
@@ -143,6 +152,9 @@ class DetectRunner:
         valid), on the device."""
         with torch.inference_mode():
             b = self._to_device(batch_arrays)
+            if self.split:
+                with tensor_parallel(self.model, self.mesh):
+                    return self._detect(self.model, self.locations, b)
             if self.mesh is None:
                 return self._detect(self.model, self.locations, b)
             parts = []

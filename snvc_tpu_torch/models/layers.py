@@ -14,13 +14,23 @@ Padding is copied module by module: torch-symmetric ``(k-1)//2*dilation``
 in ``ConvNorm`` and ``Conv3d`` (JAX layers.py:115, :303), torch
 ``ConvTranspose(k3, s2, p1, output_padding=1)`` alignment for the deconvs
 (layers.py:573), explicit ``(1, 1)`` in the HRNet convs.
+
+Tensor parallelism (parallel/tensor.py): a layer built with
+``split_axis`` (the axis of its channels-last input that a mesh's
+"model" axis splits: the stereo volume's depth, the Vernier voxel's
+length) computes on this rank's slab while ``tensor_parallel`` holds a
+mesh, and as before otherwise.  A conv widens its slab by the halo its
+outputs read (``conv_halo``) and runs unchanged on it: VALID along the
+split axis (``F.conv*``), or SAME with the halo's outputs cropped (K2,
+K5).  A deconv (k3, s2, p1, op1) reads one plane from above.  GroupNorm
+sums its moments over the model group, BatchNorm over the whole world.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +38,8 @@ from torch import nn
 
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, large_tap_eligible
 from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3, k3_eligible
-from snvc_tpu_torch.parallel.api import global_sum
+from snvc_tpu_torch.parallel.api import AllReduceSum, global_sum
+from snvc_tpu_torch.parallel.tensor import halo_exchange, model_sum
 
 
 def _norm_groups(requested: int, channels: int) -> int:
@@ -77,14 +88,54 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 p.zero_()
 
 
+def conv_halo(kernel: int, stride: int, dilation: int = 1
+              ) -> Tuple[int, int]:
+    """(lo, hi): the planes below and above a slab that its outputs read,
+    for a conv with torch-symmetric padding ``(k-1)//2*dilation`` along
+    the split axis.  The slab must start at a multiple of ``stride``
+    (``parallel.tensor.check_split``)."""
+    pad = (kernel - 1) // 2 * dilation
+    return pad, max(0, (kernel - 1) * dilation - pad - stride + 1)
+
+
+@contextlib.contextmanager
+def tensor_parallel(module: nn.Module, mesh):
+    """While this is open, the modules inside ``module`` built with a
+    ``split_axis`` compute on this rank's slab of it, over ``mesh``'s
+    model group (parallel/tensor.py).  Without a mesh, or with one model
+    rank, nothing changes.  Keep it open through the backward: a
+    rematerialized block recomputes its exchanges."""
+    if mesh is None or mesh.n_model == 1:
+        yield
+        return
+    mods = [m for m in module.modules()
+            if getattr(m, "split_axis", None) is not None]
+    for m in mods:
+        m.tp_mesh = mesh
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.tp_mesh = None
+
+
 class FastGroupNorm(nn.Module):
     """GroupNorm from per-(sample, group) float32 moments and one fused
-    ``x * a + b`` pass (JAX layers.py:33).  eps = 1e-5 (torch default)."""
+    ``x * a + b`` pass (JAX layers.py:33).  eps = 1e-5 (torch default).
+    On a slab (``split_axis``) the moments are summed over the model
+    group.  ``moment_dtype``: float32, as JAX's (a float64 parity test
+    raises it, so that the moments of a split sum round as those of the
+    whole)."""
 
-    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
+    moment_dtype = torch.float32
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5,
+                 split_axis: Optional[int] = None):
         super().__init__()
         self.groups = groups
         self.eps = eps
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -93,9 +144,12 @@ class FastGroupNorm(nn.Module):
         G = self.groups
         red = tuple(range(1, x.ndim - 1))
         n_red = math.prod(x.shape[1:-1]) * (C // G)
-        xf = x.float()
+        xf = x.to(self.moment_dtype)
         s1 = xf.sum(red).reshape(N, G, C // G).sum(-1)
         s2 = (xf * xf).sum(red).reshape(N, G, C // G).sum(-1)
+        if self.tp_mesh is not None:
+            s1, s2 = model_sum(torch.stack([s1, s2]), self.tp_mesh).unbind()
+            n_red *= self.tp_mesh.n_model
         mean = s1 / n_red
         var = s2 / n_red - mean * mean
         inv = torch.rsqrt(var + self.eps)  # [N, G]
@@ -153,15 +207,19 @@ class BatchNorm(nn.Module):
     (``data_parallel``) the batch is the global one: the per-channel sums,
     sums of squares and count are summed over the ranks, with the
     gradient through the reduction, as JAX's statistics of a sharded
-    batch are."""
+    batch are.  On a slab (``split_axis``, ``tensor_parallel``) they are
+    summed over every rank of the world: the data and the model
+    groups."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, split_axis: Optional[int] = None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.stats_frozen = False  # see frozen_batch_stats
         self.mesh = None  # see data_parallel
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -175,14 +233,16 @@ class BatchNorm(nn.Module):
             return (x.to(wide) * a + b).to(x.dtype)
         red = tuple(range(x.ndim - 1))
         xf = x.to(wide)
-        if self.mesh is None or self.mesh.n_data == 1:
+        if self.tp_mesh is None and (self.mesh is None
+                                     or self.mesh.n_data == 1):
             mean = xf.mean(red)
             var = ((xf * xf).mean(red) - mean * mean).clamp_min(0.0)
         else:
             C = x.shape[-1]
-            sums = global_sum(torch.cat([
-                xf.sum(red), (xf * xf).sum(red),
-                xf.new_full((1,), x.numel() // C)]), self.mesh)
+            sums = torch.cat([xf.sum(red), (xf * xf).sum(red),
+                              xf.new_full((1,), x.numel() // C)])
+            sums = (global_sum(sums, self.mesh) if self.tp_mesh is None
+                    else AllReduceSum.apply(sums, None))
             mean = sums[:C] / sums[2 * C]
             var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
         if not self.stats_frozen:
@@ -198,13 +258,15 @@ class BatchNorm(nn.Module):
 class Norm(nn.Module):
     """GroupNorm (gn=True) or BatchNorm (JAX layers.py:72)."""
 
-    def __init__(self, channels: int, gn: bool = True, groups: int = 32):
+    def __init__(self, channels: int, gn: bool = True, groups: int = 32,
+                 split_axis: Optional[int] = None):
         super().__init__()
         if gn:
             self.GroupNorm_0 = FastGroupNorm(
-                channels, _norm_groups(groups, channels))
+                channels, _norm_groups(groups, channels),
+                split_axis=split_axis)
         else:
-            self.BatchNorm_0 = BatchNorm(channels)
+            self.BatchNorm_0 = BatchNorm(channels, split_axis=split_axis)
 
     def forward(self, x):
         if hasattr(self, "GroupNorm_0"):
@@ -216,16 +278,31 @@ class ConvNorm(nn.Module):
     """2D conv + norm with torch-symmetric padding (JAX layers.py:96)."""
 
     def __init__(self, cin: int, features: int, kernel=3, stride=1,
-                 dilation: int = 1, gn: bool = True, groups: int = 32):
+                 dilation: int = 1, gn: bool = True, groups: int = 32,
+                 split_axis: Optional[int] = None):
         super().__init__()
         k = _pair(kernel)
         pad = tuple((kk - 1) // 2 * dilation for kk in k)
         self.Conv_0 = nn.Conv2d(cin, features, k, _pair(stride), pad,
                                 dilation, bias=False)
-        self.Norm_0 = Norm(features, gn, groups)
+        self.Norm_0 = Norm(features, gn, groups, split_axis)
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
 
     def forward(self, x):
-        return self.Norm_0(conv2d_nhwc(x, self.Conv_0))
+        conv, mesh = self.Conv_0, self.tp_mesh
+        if mesh is None:
+            return self.Norm_0(conv2d_nhwc(x, conv))
+        ax = self.split_axis
+        i = ax - 1
+        x = halo_exchange(x, ax, *conv_halo(conv.kernel_size[i],
+                                            conv.stride[i], conv.dilation[i]),
+                          mesh)
+        pad = list(conv.padding)
+        pad[i] = 0
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None,
+                     conv.stride, pad, conv.dilation)
+        return self.Norm_0(y.permute(0, 2, 3, 1))
 
 
 class Conv3d(nn.Module):
@@ -239,11 +316,14 @@ class Conv3d(nn.Module):
     With ``pallas="auto"`` (JAX layers.py:182; default "never"), bf16
     k3x3x3 stride-1 convs go to ``conv3d_k3`` (K5).  Every other conv,
     float32 ones included, is one ``F.conv3d`` with the same padding.
-    The weight has torch's layout [O, I, kd, kh, kw]."""
+    The weight has torch's layout [O, I, kd, kh, kw].  On a slab
+    (``split_axis``) the input is widened by its halo: K2 and K5 (SAME)
+    run on the widened slab and the halo's outputs are cropped;
+    ``F.conv3d`` pads the split axis with the halo alone."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3, 3),
                  stride=(1, 1, 1), dilation: int = 1, use_bias: bool = False,
-                 pallas: str = "never"):
+                 pallas: str = "never", split_axis: Optional[int] = None):
         super().__init__()
         if pallas not in ("never", "auto"):
             raise ValueError(f"pallas must be 'never' or 'auto', got {pallas!r}")
@@ -251,12 +331,21 @@ class Conv3d(nn.Module):
         self.stride = _triple(stride)
         self.dilation = dilation
         self.pallas = pallas
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
         self.weight = nn.Parameter(torch.empty(features, cin, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
         dt = x.dtype
         w = self.weight.to(dt)
+        pad = [(k - 1) // 2 * self.dilation for k in self.kernel]
+        lo = hi = 0
+        if self.tp_mesh is not None:
+            i = self.split_axis - 1
+            lo, hi = conv_halo(self.kernel[i], self.stride[i], self.dilation)
+            x = halo_exchange(x, self.split_axis, lo, hi, self.tp_mesh)
+            pad[i] = 0
         if self.pallas == "auto" and k3_eligible(self.kernel, self.stride,
                                                  self.dilation, dt):
             out = conv3d_k3(x.contiguous(),
@@ -266,10 +355,13 @@ class Conv3d(nn.Module):
             out = conv3d_large_tap(
                 x.contiguous(), w.permute(2, 3, 4, 1, 0).contiguous(),
                 self.dilation)
-        else:
-            pad = tuple((k - 1) // 2 * self.dilation for k in self.kernel)
+        else:  # VALID along the split axis: the halo was its padding
             out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, self.stride,
-                           pad, self.dilation).permute(0, 2, 3, 4, 1)
+                           tuple(pad), self.dilation).permute(0, 2, 3, 4, 1)
+            lo = hi = 0
+        if lo or hi:  # SAME on the widened slab: crop the halo's outputs
+            ax = self.split_axis
+            out = out.narrow(ax, lo, out.shape[ax] - lo - hi)
         if self.bias is not None:
             out = out + self.bias.to(dt)
         return out
@@ -279,10 +371,12 @@ class ConvNorm3d(nn.Module):
     """3D conv + norm, NDHWC (JAX layers.py:461)."""
 
     def __init__(self, cin: int, features: int, kernel=3, stride=1,
-                 dilation: int = 1, gn: bool = True, groups: int = 32):
+                 dilation: int = 1, gn: bool = True, groups: int = 32,
+                 split_axis: Optional[int] = None):
         super().__init__()
-        self.Conv3d_0 = Conv3d(cin, features, kernel, stride, dilation)
-        self.Norm_0 = Norm(features, gn, groups)
+        self.Conv3d_0 = Conv3d(cin, features, kernel, stride, dilation,
+                               split_axis=split_axis)
+        self.Norm_0 = Norm(features, gn, groups, split_axis)
 
     def forward(self, x):
         return self.Norm_0(self.Conv3d_0(x))
@@ -297,39 +391,55 @@ class ConvTranspose3dFast(nn.Module):
     ``F.conv_transpose3d(stride=2, padding=1, output_padding=1)``, which is
     the same alignment."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int,
+                 split_axis: Optional[int] = None):
         super().__init__()
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
         self.weight = nn.Parameter(torch.empty(cin, features, 3, 3, 3))
 
     def forward(self, x):
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3),
-                               self.weight.to(x.dtype), None, 2, 1, 1)
-        return y.permute(0, 2, 3, 4, 1)
+        return _upsample(self, x, F.conv_transpose3d)
 
 
 class ConvTranspose2d(nn.Module):
     """k3 stride-2 2x upsampling 2D transposed conv: flax ``nn.ConvTranspose``
     with padding (1, 2) on the flipped kernel == torch (p1, op1)."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int,
+                 split_axis: Optional[int] = None):
         super().__init__()
+        self.split_axis = split_axis
+        self.tp_mesh = None  # see tensor_parallel
         self.weight = nn.Parameter(torch.empty(cin, features, 3, 3))
 
     def forward(self, x):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
-                               self.weight.to(x.dtype), None, 2, 1, 1)
-        return y.permute(0, 2, 3, 1)
+        return _upsample(self, x, F.conv_transpose2d)
+
+
+def _upsample(deconv, x, fn):
+    """``fn`` (k3, s2, p1, op1) on channels-last ``x``.  Output ``o`` reads
+    inputs (o + 1 - k) / 2, so a slab's outputs [2a, 2b) read one plane
+    above it: widened by it, the deconv's first 2 x slab outputs are the
+    slab's."""
+    mesh, ax = deconv.tp_mesh, deconv.split_axis
+    if mesh is not None:
+        L = x.shape[ax]
+        x = halo_exchange(x, ax, 0, 1, mesh)
+    y = fn(x.movedim(-1, 1), deconv.weight.to(x.dtype), None, 2, 1, 1
+           ).movedim(1, -1)
+    return y if mesh is None else y.narrow(ax, 0, 2 * L)
 
 
 class DeconvNorm(nn.Module):
     """2x transposed-conv upsample + norm, 2D or 3D (JAX layers.py:550)."""
 
     def __init__(self, cin: int, features: int, ndim: int = 3, gn: bool = True,
-                 groups: int = 32):
+                 groups: int = 32, split_axis: Optional[int] = None):
         super().__init__()
         cls = ConvTranspose3dFast if ndim == 3 else ConvTranspose2d
-        self.ConvTranspose_0 = cls(cin, features)
-        self.Norm_0 = Norm(features, gn, groups)
+        self.ConvTranspose_0 = cls(cin, features, split_axis)
+        self.Norm_0 = Norm(features, gn, groups, split_axis)
 
     def forward(self, x):
         return self.Norm_0(self.ConvTranspose_0(x))
@@ -360,16 +470,22 @@ def _conv_norm_cls(ndim: int):
 
 
 def _crop_to(t, shape: Sequence[int]):
-    """Crop the spatial axes of a channels-last tensor to ``shape``."""
+    """Crop the spatial axes of a channels-last tensor to ``shape``.  On a
+    split axis the slabs are whole at every level (``check_split``), so
+    the global extents are even there and no rank crops along it."""
     sl = (slice(None),) + tuple(slice(0, s) for s in shape) + (slice(None),)
     return t[sl]
 
 
 class Hourglass(nn.Module):
     """Two-level U-Net, 3D or 2D, with pre/post skip state
-    (JAX layers.py:611).  forward(x, presqu, postsqu) -> (out, pre, post)."""
+    (JAX layers.py:611).  forward(x, presqu, postsqu) -> (out, pre, post).
+    ``split_axis``: see the module docstring."""
 
-    def __init__(self, features: int, ndim: int = 3, gn: bool = True):
+    levels = 2  # stride-2 steps
+
+    def __init__(self, features: int, ndim: int = 3, gn: bool = True,
+                 split_axis: Optional[int] = None):
         super().__init__()
         f2 = features * 2
         cls, cname = _conv_norm_cls(ndim)
@@ -377,9 +493,12 @@ class Hourglass(nn.Module):
         strides = (2, 1, 2, 1)
         for i in range(4):
             self.add_module(f"{cname}_{i}",
-                            cls(ins[i], f2, 3, strides[i], gn=gn))
-        self.DeconvNorm_0 = DeconvNorm(f2, f2, ndim, gn)
-        self.DeconvNorm_1 = DeconvNorm(f2, features, ndim, gn)
+                            cls(ins[i], f2, 3, strides[i], gn=gn,
+                                split_axis=split_axis))
+        self.DeconvNorm_0 = DeconvNorm(f2, f2, ndim, gn,
+                                       split_axis=split_axis)
+        self.DeconvNorm_1 = DeconvNorm(f2, features, ndim, gn,
+                                       split_axis=split_axis)
         self._convs = [getattr(self, f"{cname}_{i}") for i in range(4)]
 
     def forward(self, x, presqu=None, postsqu=None):
@@ -397,19 +516,27 @@ class Hourglass(nn.Module):
 
 class HourglassDeep(nn.Module):
     """Four-level (1/16) encoder-decoder with skip adds (JAX layers.py:641).
-    Upsamples are cropped to the skip extent, as in JAX."""
+    Upsamples are cropped to the skip extent, as in JAX.  ``split_axis``:
+    see the module docstring."""
 
-    def __init__(self, features: int, ndim: int = 3, gn: bool = True):
+    levels = 4  # stride-2 steps
+
+    def __init__(self, features: int, ndim: int = 3, gn: bool = True,
+                 split_axis: Optional[int] = None):
         super().__init__()
         f2 = features * 2
         cls, cname = _conv_norm_cls(ndim)
         for i in range(8):
             cin = features if i == 0 else f2
             self.add_module(f"{cname}_{i}",
-                            cls(cin, f2, 3, 2 if i % 2 == 0 else 1, gn=gn))
+                            cls(cin, f2, 3, 2 if i % 2 == 0 else 1, gn=gn,
+                                split_axis=split_axis))
         for i in range(3):
-            self.add_module(f"DeconvNorm_{i}", DeconvNorm(f2, f2, ndim, gn))
-        self.DeconvNorm_3 = DeconvNorm(f2, features, ndim, gn)
+            self.add_module(f"DeconvNorm_{i}",
+                            DeconvNorm(f2, f2, ndim, gn,
+                                       split_axis=split_axis))
+        self.DeconvNorm_3 = DeconvNorm(f2, features, ndim, gn,
+                                       split_axis=split_axis)
         self._convs = [getattr(self, f"{cname}_{i}") for i in range(8)]
         self._ups = [getattr(self, f"DeconvNorm_{i}") for i in range(4)]
 

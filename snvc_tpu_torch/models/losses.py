@@ -9,7 +9,11 @@ them; no training path of either package calls them.
 
 With a process-group ``mesh`` (parallel/api.py) each masked mean divides
 this rank's masked sum by the count of the global batch, so the global
-loss is the sum of the ranks' losses.
+loss is the sum of the data positions' losses.  Under a model axis the
+occupancy and offset outputs are slabs of the length axis (models/
+vernier.py): their targets are split alike, and their sums and counts
+are summed over the model group, so every model rank holds its data
+position's whole loss.
 """
 
 from __future__ import annotations
@@ -21,11 +25,23 @@ import torch
 from snvc_tpu_torch.models.stereo_losses import gt_corners_24
 from snvc_tpu_torch.ops.rotated_iou import pair_overlap
 from snvc_tpu_torch.parallel.api import global_sum
+from snvc_tpu_torch.parallel.tensor import model_sum, shard
 
 
-def _masked_mean(x, mask, mesh=None):
+def _split(mesh) -> bool:
+    """Whether ``mesh`` has a model axis: the occupancy and offset outputs
+    are slabs of the length axis."""
+    return mesh is not None and mesh.n_model > 1
+
+
+def _masked_mean(x, mask, mesh=None, slab: bool = False):
+    """Masked mean over the global batch; ``slab``: ``x`` is this rank's
+    slab under a model axis, whose sums are the model group's."""
     m = mask.to(x.dtype)
-    return (x * m).sum() / global_sum(m.sum(), mesh).clamp_min(1.0)
+    num, count = (x * m).sum(), m.sum()
+    if slab and _split(mesh):
+        num, count = model_sum(torch.stack([num, count]), mesh).unbind()
+    return num / global_sum(count, mesh).clamp_min(1.0)
 
 
 def _per_instance(valid, like):
@@ -52,27 +68,33 @@ def voxel_mse_loss_weighted(ncf_pred, ncf_target, valid, mesh=None):
 def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25,
                    mesh=None):
     """Focal BCE on voxel foreground; target -1 is ignored (JAX
-    losses.py:35)."""
+    losses.py:35).  Under a model axis ``occ_pred`` is this rank's slab of
+    the length axis (3) and ``occ_target`` whole."""
     p = occ_pred.clamp(1e-7, 1.0 - 1e-7)
-    t = occ_target
+    t = shard(occ_target, 3, mesh) if _split(mesh) else occ_target
     term1 = (1.0 - p) ** gamma * torch.log(p)
     term2 = p ** gamma * torch.log(1.0 - p)
     pos = (t == 1.0).to(p.dtype)
     neg = (t == 0.0).to(p.dtype)
     loss = -pos * term1 * alpha - neg * term2 * (1.0 - alpha)
     mask = (t != -1.0) & _per_instance(valid, t)
-    return _masked_mean(loss, mask, mesh)
+    return _masked_mean(loss, mask, mesh, slab=True)
 
 
 def offset_loss(offset_pred, offset_target, occupancy_target, valid,
                 mesh=None):
     """L1 on the part offsets at the foreground voxels (JAX losses.py:51).
     offset_pred [B, 3*P, nh, nw, nl] (the head's 27 channels), reshaped to
-    offset_target [B, 3, P, nh, nw, nl]; occupancy_target [B, nh, nw, nl]."""
+    offset_target [B, 3, P, nh, nw, nl]; occupancy_target [B, nh, nw, nl].
+    Under a model axis ``offset_pred`` is this rank's slab of nl and the
+    targets whole."""
+    if _split(mesh):
+        offset_target = shard(offset_target, 5, mesh)
+        occupancy_target = shard(occupancy_target, 3, mesh)
     err = (offset_pred.reshape(offset_target.shape) - offset_target).abs()
     fg = (occupancy_target == 1.0)[:, None, None]
     mask = fg & _per_instance(valid, err)
-    return _masked_mean(err, mask, mesh)
+    return _masked_mean(err, mask, mesh, slab=True)
 
 
 def coordinate_loss(coords_pred, gt_corners_local, valid, x_range, z_range,

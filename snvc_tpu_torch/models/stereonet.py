@@ -20,6 +20,16 @@ every KITTI P2/P3); the caller checks its host copy
 the encoder and the 3D stack; in train mode (``model.train()``) the
 BatchNorm stem of the backbones whose first width is below 32 normalizes
 with batch statistics and moves its running averages, as flax's does.
+
+Under ``layers.tensor_parallel`` with a mesh of ``n_model > 1`` the head
+splits the volume on its depth axis D as JAX's ``volume_sharding``
+(``P("data", "model")``) does: K3 builds this rank's D / n_model planes,
+the 3D stack and the hourglasses run on the slab (halo exchanges along
+D), the depth softmax and its expectations reduce over the model group
+(the shift is the group's maximum), ``depth_prob`` and the per-plane
+outputs come back whole, and the post-stack volume is gathered once for
+K4 (JAX's sharded path takes its XLA resample there: the same numbers).
+The BEV head runs whole on every model rank.
 """
 
 from __future__ import annotations
@@ -43,6 +53,13 @@ from snvc_tpu_torch.models.layers import (
 from snvc_tpu_torch.models.stereo_backbone import _VARIANTS, StereoFeatureNet
 from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
 from snvc_tpu_torch.ops.frustum import _hat, frustum_tables, frustum_to_voxel_k4
+from snvc_tpu_torch.parallel.tensor import (
+    check_split,
+    gather,
+    model_max,
+    model_sum,
+    split_range,
+)
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
 
 
@@ -134,7 +151,11 @@ def frustum_img_to_bev(img_feat, P_mat, cfg: StereoConfig):
 
 
 class StereoHead(nn.Module):
-    """Cost volume -> 3D stack -> depth regression + BEV RPN head."""
+    """Cost volume -> 3D stack -> depth regression + BEV RPN head.  The 3D
+    stack splits the volume's depth axis (1) under a model axis (see the
+    module docstring)."""
+
+    split_axis = 1
 
     def __init__(self, cfg: StereoConfig):
         super().__init__()
@@ -145,17 +166,24 @@ class StereoHead(nn.Module):
             _check_div4(name, v)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.compute_dtype)
+        self.tp_mesh = None  # see layers.tensor_parallel
         cv = _VARIANTS[cfg.backbone][4][1]  # cost-volume feature channels
         g = 32
-        self.ConvNorm3d_0 = ConvNorm3d(2 * cv, 32, 3, gn=cfg.gn, groups=g)
-        self.ConvNorm3d_1 = ConvNorm3d(32, 32, 3, gn=cfg.gn, groups=g)
+        d = self.split_axis
+        self.ConvNorm3d_0 = ConvNorm3d(2 * cv, 32, 3, gn=cfg.gn, groups=g,
+                                       split_axis=d)
+        self.ConvNorm3d_1 = ConvNorm3d(32, 32, 3, gn=cfg.gn, groups=g,
+                                       split_axis=d)
         nh = max(1, cfg.num_hourglasses)
         for i in range(nh):
-            self.add_module(f"Hourglass_{i}", Hourglass(32, 3, cfg.gn))
-            self.add_module(f"Conv3d_{i}", Conv3d(32, 1, (3, 3, 3)))
+            self.add_module(f"Hourglass_{i}",
+                            Hourglass(32, 3, cfg.gn, split_axis=d))
+            self.add_module(f"Conv3d_{i}",
+                            Conv3d(32, 1, (3, 3, 3), split_axis=d))
         self._n_hg = nh
         if cfg.depth_offset:
-            self.add_module(f"Conv3d_{nh}", Conv3d(32, 1, (3, 3, 3)))
+            self.add_module(f"Conv3d_{nh}",
+                            Conv3d(32, 1, (3, 3, 3), split_axis=d))
         depths = depth_hypotheses(cfg)
         self.register_buffer("depths", torch.from_numpy(depths),
                              persistent=False)
@@ -185,10 +213,15 @@ class StereoHead(nn.Module):
         for name, v in (("feature height (input_size[0]/4)", lf.shape[1]),
                         ("feature width (input_size[1]/4)", lf.shape[2])):
             _check_div4(name, v)
-        depths = self.depths
+        depths = levels = self.depths
         Pl = P_left.float()
-        vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(),
-                                    plane_shifts(Pl, P_right, depths))
+        shifts = plane_shifts(Pl, P_right, depths)
+        mesh = self.tp_mesh
+        if mesh is not None:
+            check_split("num_depths", cfg.num_depths, mesh, Hourglass.levels)
+            d0, d1 = split_range(cfg.num_depths, mesh)
+            shifts, levels = shifts[:, d0:d1].contiguous(), depths[d0:d1]
+        vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(), shifts)
 
         base = F.relu(self.ConvNorm3d_0(vol))
         base = F.relu(self.ConvNorm3d_1(base))
@@ -211,13 +244,22 @@ class StereoHead(nn.Module):
                 ..., 0].float()
 
         def expectation(c, off=None):
-            p = torch.softmax(c, dim=1)
-            lvl = depths[None, :, None, None]
+            lvl = levels[None, :, None, None]
             if off is not None:
                 lvl = lvl + off
-            return p, (p * lvl).sum(dim=1)
+            if mesh is None:
+                p = torch.softmax(c, dim=1)
+                return p, (p * lvl).sum(dim=1)
+            # the softmax over every rank's planes
+            e = torch.exp(c - model_max(c.amax(1, keepdim=True), mesh))
+            p = e / model_sum(e.sum(1, keepdim=True), mesh)
+            return p, model_sum((p * lvl).sum(dim=1), mesh)
 
         prob, depth = expectation(cost, depth_offset)
+        if mesh is not None:
+            prob = gather(prob, 1, mesh)
+            if depth_offset is not None:
+                depth_offset = gather(depth_offset, 1, mesh)
         out = {"depth": depth, "depth_prob": prob, "depth_levels": depths}
         if depth_offset is not None:
             out["depth_offset"] = depth_offset
@@ -226,6 +268,8 @@ class StereoHead(nn.Module):
 
         if cfg.rpn3d_enable:
             nz, nx = cfg.bev_size
+            if mesh is not None:
+                vol = gather(vol, 1, mesh)
             voxels = frustum_to_voxel_k4(
                 vol.contiguous(), Pl.contiguous(), self.bev_d0, self.bev_fd,
                 self.bev_zs, self.bev_xs, self.bev_ys, 4)

@@ -18,6 +18,19 @@ batch statistics (over both views stacked, as the encoder runs one HRNet
 pass over both) and, with ``cfg.remat``, the BEV_type2 / BEV_type3 3D
 hourglass is rematerialized in the backward (``torch.utils.checkpoint``),
 as JAX's ``nn.remat`` does (vernier.py:188-202).
+
+Under ``layers.tensor_parallel`` with a mesh of ``n_model > 1`` the
+object voxel is split on its length axis nl, as JAX's ``voxel_sharding``
+(``P("data", None, None, "model", None)``) splits it: the encoder
+slices the projected grid before K1, so K1 samples this rank's nl /
+n_model lengths (the HRNet runs whole on every model rank); the
+BEV_type2 / BEV_type3 head runs the large-tap prelude (K2 on slabs
+widened by 3, 2 and 4 planes), the 3D hourglass, the occupancy and
+offset heads and the 2D hourglass (on [N, nw, nl / n, C]) on the slab,
+then gathers the heatmap features before ``Conv_0``: ``Conv_0``,
+``CoordHead`` and ``FCModel`` run whole on every model rank.
+``occupancy`` and ``offset`` come out as slabs.  The other heads refuse
+a model axis (JAX's only user is the default training path).
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from snvc_tpu_torch.models.layers import (
 )
 from snvc_tpu_torch.ops.grid_sample import cosine_gate
 from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample
+from snvc_tpu_torch.parallel.tensor import check_split, gather, split_range
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
 
 
@@ -90,13 +104,17 @@ class VernierEncoder(nn.Module):
     the stereo voxel sampler (JAX vernier.py:89).  With
     ``feature_aggregation="concat-atten"`` the sampled voxel is gated by
     the clamped cosine similarity of its two halves, in its dtype, outside
-    the kernel, as JAX gates the Pallas output (vernier.py:136-148)."""
+    the kernel, as JAX gates the Pallas output (vernier.py:136-148).  Under
+    a model axis it samples this rank's slab of the length axis (3)."""
+
+    split_axis = 3
 
     def __init__(self, cfg: VernierConfig):
         super().__init__()
         if cfg.feature_aggregation not in ("concat", "concat-atten"):
             raise NotImplementedError(cfg.feature_aggregation)
         self.cfg = cfg
+        self.tp_mesh = None  # see layers.tensor_parallel
         self.HRNet_0 = HRNet(cfg.backbone, head_type="default")
 
     def forward(self, left_roi, right_roi, grid_proj_left, grid_proj_right):
@@ -104,10 +122,18 @@ class VernierEncoder(nn.Module):
         n = left_roi.shape[0]
         both = torch.cat([left_roi.to(dt), right_roi.to(dt)], dim=0)
         feats = self.HRNet_0(both).contiguous()
+        grid = self.cfg.grid_resolution
+        gpl, gpr = grid_proj_left.float(), grid_proj_right.float()
+        if self.tp_mesh is not None:
+            # the points of this rank's lengths (h-major ravel of the grid)
+            nh, nw, nl = grid
+            a, b = split_range(nl, self.tp_mesh)
+            gpl, gpr = (g.reshape(n, nh, nw, nl, 2)[:, :, :, a:b]
+                        .reshape(n, -1, 2) for g in (gpl, gpr))
+            grid = (nh, nw, b - a)
         voxel = stereo_voxel_sample(
-            feats[:n], feats[n:], grid_proj_left.float().contiguous(),
-            grid_proj_right.float().contiguous(), self.cfg.resolution,
-            self.cfg.grid_resolution)
+            feats[:n], feats[n:], gpl.contiguous(), gpr.contiguous(),
+            self.cfg.resolution, grid)
         if self.cfg.feature_aggregation == "concat-atten":
             C = voxel.shape[-1] // 2
             voxel = voxel * cosine_gate(voxel[..., :C], voxel[..., C:])
@@ -137,11 +163,16 @@ class VernierHead(nn.Module):
         hourglass and ncf [N, P, nl, nw]; BEV_type3 adds the
         ``CoordHead`` and, with ``use_bbox_head``, the FC bbox head.
 
-    Child names are Flax's automatic names of each head."""
+    Child names are Flax's automatic names of each head.  Under a model
+    axis the BEV_type2 / BEV_type3 head splits the length axis (3 of the
+    voxel, 2 of the BEV map); the others raise."""
+
+    split_axis = 3
 
     def __init__(self, cfg: VernierConfig, voxel_channels: int):
         super().__init__()
         self.cfg = cfg
+        self.tp_mesh = None  # see layers.tensor_parallel
         vt = cfg.vernier_type
         if vt == "3D":
             self._build_3d(voxel_channels)
@@ -206,11 +237,16 @@ class VernierHead(nn.Module):
         nh, nw, nl = cfg.grid_resolution
         dim = two_dim // 2
         g, gn = cfg.gn_groups, cfg.gn
+        L3, L2 = 3, 2  # the length axis of the voxel, of the BEV map
         self.with_coords = with_coords
-        self.ConvNorm3d_0 = ConvNorm3d(two_dim, dim, 1, 1, 1, gn, g)  # vimg
-        self.ConvNorm3d_1 = ConvNorm3d(two_dim, dim, 7, 1, 1, gn, g)  # k7
-        self.ConvNorm3d_2 = ConvNorm3d(dim, dim, 5, 1, 1, gn, g)  # conv2_k5
-        self.ConvNorm3d_3 = ConvNorm3d(dim, dim, 5, 1, 2, gn, g)  # conv3_k5_d2
+        self.ConvNorm3d_0 = ConvNorm3d(two_dim, dim, 1, 1, 1, gn, g,
+                                       L3)  # vimg
+        self.ConvNorm3d_1 = ConvNorm3d(two_dim, dim, 7, 1, 1, gn, g,
+                                       L3)  # conv1_k7
+        self.ConvNorm3d_2 = ConvNorm3d(dim, dim, 5, 1, 1, gn, g,
+                                       L3)  # conv2_k5
+        self.ConvNorm3d_3 = ConvNorm3d(dim, dim, 5, 1, 2, gn, g,
+                                       L3)  # conv3_k5_d2
         # hourglass choice by grid width (JAX _hg3d/_hg2d); the JAX model's
         # nn.remat renames the 3D one "Checkpoint<cls>_0", and the 2D one
         # then takes index 0 of its own class
@@ -221,18 +257,20 @@ class VernierHead(nn.Module):
             hg3, hg2 = "Checkpoint" + hg3, cls.__name__ + "_0"
         else:
             hg2 = cls.__name__ + "_1"
-        self.add_module(hg3, cls(dim, ndim=3, gn=gn))
-        self.ConvNorm3d_4 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)  # occupancy
-        self.Conv3d_0 = Conv3d(dim, 1, (3, 3, 3))
+        self.add_module(hg3, cls(dim, ndim=3, gn=gn, split_axis=L3))
+        self.ConvNorm3d_4 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g,
+                                       L3)  # occupancy
+        self.Conv3d_0 = Conv3d(dim, 1, (3, 3, 3), split_axis=L3)
         k = 5
         if cfg.use_part_reg_head:
-            self.ConvNorm3d_5 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)
-            self.Conv3d_1 = Conv3d(dim, 27, (1, 1, 1))
+            self.ConvNorm3d_5 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g, L3)
+            self.Conv3d_1 = Conv3d(dim, 27, (1, 1, 1), split_axis=L3)
             k = 6
         self.add_module(f"ConvNorm3d_{k}",
-                        ConvNorm3d(2 * dim, dim, 3, 1, 1, gn, g))
-        self.ConvNorm_0 = ConvNorm((nh // 4) * dim, 64, 3, gn=gn, groups=g)
-        self.add_module(hg2, cls(64, ndim=2, gn=gn))
+                        ConvNorm3d(2 * dim, dim, 3, 1, 1, gn, g, L3))
+        self.ConvNorm_0 = ConvNorm((nh // 4) * dim, 64, 3, gn=gn, groups=g,
+                                   split_axis=L2)
+        self.add_module(hg2, cls(64, ndim=2, gn=gn, split_axis=L2))
         self.Conv_0 = nn.Conv2d(64, cfg.num_parts, 3, padding=1, bias=False)
         if with_coords:
             self.CoordHead_0 = CoordHead(cfg.num_parts, nl, nw)
@@ -245,6 +283,10 @@ class VernierHead(nn.Module):
 
     def _head_bev_type23(self, voxel, dropout_generator):
         cfg = self.cfg
+        mesh = self.tp_mesh
+        if mesh is not None:
+            check_split("grid length nl", cfg.grid_resolution[2], mesh,
+                        getattr(self, self._hg3).levels)
         vimg = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(voxel))
         x = F.relu(self.ConvNorm3d_2(x)) + x
@@ -282,6 +324,8 @@ class VernierHead(nn.Module):
             hm = hg2(bev)
         else:
             hm = hg2(bev, None, None)[0]
+        if mesh is not None:
+            hm = gather(hm, 2, mesh)  # the whole length from here on
         hm = hm.permute(0, 2, 1, 3)  # [N, L, W, 64]
         ncf_maps = conv2d_nhwc(hm, self.Conv_0)  # [N, nl, nw, P]
         ncf = ncf_maps.movedim(-1, 1)
@@ -311,6 +355,9 @@ class VernierHead(nn.Module):
         """``dropout_generator`` draws the bbox head's dropout masks in
         train mode (models/fc_model.py).  Outputs are float32."""
         vt = self.cfg.vernier_type
+        if self.tp_mesh is not None and vt not in ("BEV_type2", "BEV_type3"):
+            raise ValueError(f"vernier_type {vt!r} splits no axis over a "
+                             "model axis: BEV_type2 / BEV_type3 only")
         if vt == "3D":
             out = self._head_3d(voxel)
         elif vt == "BEV":

@@ -1,4 +1,4 @@
-"""Data parallelism (port of snvc_tpu/parallel/api.py).
+"""Data and tensor parallelism (port of snvc_tpu/parallel/api.py).
 
 JAX runs one program over a device mesh: under ``jit`` with data
 shardings a step computes the single-device step on the global batch,
@@ -11,14 +11,14 @@ forms, both a ``Mesh``:
   ``shard_instance_batch`` / ``shard_batch`` split it, run the shards
   one after another with no host sync between them, and gather the
   outputs in order.
-* ``initialize_multihost(backend, device)``: one process per position
-  (``torchrun``).  The training steps take the global batch on every
-  rank, built from the same seed, keep their own rows and reduce over
-  the ranks.
+* ``initialize_multihost(backend, device, n_model)``: one process per
+  position (``torchrun``).  The training steps take the global batch on
+  every rank, built from the same seed, keep their own rows and reduce
+  over the data axis.
 
 The reductions of the training steps are one mechanism, ``global_sum``:
-the sum of a tensor over the ranks, as an autograd function whose
-backward sums the incoming gradients over the ranks too, so a gradient
+the sum of a tensor over the data axis, as an autograd function whose
+backward sums the incoming gradients over those ranks too, so a gradient
 flows through the reduction as through the one-process sum.  A
 rank-local step equals the global one where every quantity that sums
 over the batch is summed over the ranks:
@@ -34,9 +34,18 @@ over the batch is summed over the ranks:
 Random draws keyed to the batch (the bbox head's dropout) draw the global
 batch's rows and keep the rank's (``global_rows``).
 
-The "model" axis (tensor parallelism over the Vernier voxel's length and
-the plane-sweep volume's depth) is not ported: ``make_mesh`` refuses
-``n_model > 1`` (ROADMAP.md, Queue 1).
+The "model" axis is tensor parallelism (parallel/tensor.py): a
+process-group mesh of ``n_data x n_model`` ranks, "model" fastest as in
+JAX (``rank = data_index * n_model + model_index``), splits the
+plane-sweep volume on its depth axis (``DetectRunner``,
+``make_stereo_train_step``) and the Vernier voxel on its length axis
+(``make_train_step``) over the ranks of one data position, each rank
+holding its slab and a halo.  The ranks of a data index form its model
+group, the ranks of a model index its data group; ``global_sum`` and the
+data-parallel reductions run in the data group, the gradients are summed
+over the whole world (``reduce_gradients``).  The one-process form of
+the axis (``make_mesh(n_model > 1)``) is not ported (ROADMAP.md, Queue
+1).
 """
 
 from __future__ import annotations
@@ -54,37 +63,69 @@ from snvc_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The "data" axis: one device per position ("model" is 1).
+    """A "data" x "model" mesh, one device per position.
 
     ``rank`` is None when this process drives every device (``make_mesh``:
-    the serving runners); otherwise the position this process holds in a
-    process group of ``n_data`` ranks, one device each
-    (``initialize_multihost``: the training steps)."""
+    the serving runners, "model" 1); otherwise the position this process
+    holds in a process group of ``n_data x n_model`` ranks, one device
+    each (``initialize_multihost``), "model" fastest.  ``groups`` holds
+    the process groups of this rank's data and model positions (None:
+    the whole world, or no group of more than one rank)."""
 
     devices: Tuple[torch.device, ...]
     rank: Optional[int] = None
+    n_model: int = 1
+    groups: Tuple[Any, Any] = dataclasses.field(
+        default=(None, None), compare=False, repr=False)
 
     @property
     def n_data(self) -> int:
-        return len(self.devices)
+        return len(self.devices) // self.n_model
+
+    @property
+    def data_index(self) -> int:
+        """This rank's position on the data axis."""
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's position on the model axis."""
+        return self.rank % self.n_model
+
+    @property
+    def data_group(self):
+        """The ranks of this rank's model index (None: the world)."""
+        return self.groups[0]
+
+    @property
+    def model_group(self):
+        """The ranks of this rank's data index."""
+        return self.groups[1]
 
 
 def make_mesh(n_data: int, devices: Sequence, n_model: int = 1) -> Mesh:
     """The first ``n_data`` of ``devices`` as one process's data axis.  A
     device may repeat (``["cuda:0", "cuda:0"]``: two replicas on one
-    card)."""
+    card).  The "model" axis runs one process a rank: a halo exchange
+    between the devices of one process is not ported."""
     if n_model != 1:
         raise NotImplementedError(
-            f"n_model={n_model}: the 'model' axis (tensor parallelism) is "
-            "not ported; see ROADMAP.md, Queue 1")
+            f"n_model={n_model}: the 'model' axis (tensor parallelism) runs "
+            "one process a rank, from initialize_multihost(..., n_model="
+            f"{n_model}); its one-process form is not ported (ROADMAP.md, "
+            "Queue 1)")
     if not 1 <= n_data <= len(devices):
         raise ValueError(f"mesh of {n_data} needs more than "
                          f"{len(devices)} devices")
     return Mesh(tuple(torch.device(d) for d in devices[:n_data]))
 
 
-def initialize_multihost(backend: str, device) -> Optional[Mesh]:
-    """The data axis of a run with one process per device.
+def initialize_multihost(backend: str, device,
+                         n_model: int = 1) -> Optional[Mesh]:
+    """The mesh of a run with one process per device: ``world / n_model``
+    data positions of ``n_model`` ranks each, "model" fastest, so the
+    ranks of one model group are neighbours (on one host under a
+    launcher).
 
     Joins the process group the launcher describes (``torchrun`` or
     ``python -m torch.distributed.run`` set ``RANK``, ``WORLD_SIZE``,
@@ -94,7 +135,10 @@ def initialize_multihost(backend: str, device) -> Optional[Mesh]:
     joined is used as it is.  ``device`` is this rank's device; "cuda"
     without an index means ``cuda:LOCAL_RANK``.  Returns the mesh of every
     rank's device, or None in a process with no launcher and no group
-    (one process, as JAX's single-process case)."""
+    (one process, as JAX's single-process case).  ``n_model`` must divide
+    the world size and, under a launcher that gives ``LOCAL_WORLD_SIZE``,
+    stay within one host (JAX refuses a model axis that would cross
+    hosts)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -108,9 +152,32 @@ def initialize_multihost(backend: str, device) -> Optional[Mesh]:
     elif dist.get_backend() != backend:
         raise ValueError(f"the process group runs {dist.get_backend()}, "
                          f"not {backend}")
-    names = [None] * dist.get_world_size()
+    world = dist.get_world_size()
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"n_model={n_model} does not divide the world of "
+                         f"{world} ranks")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if n_model > local:
+        raise ValueError(f"model axis {n_model} would cross host "
+                         f"boundaries (local ranks: {local})")
+    names = [None] * world
     dist.all_gather_object(names, str(dev))
-    return Mesh(tuple(torch.device(n) for n in names), rank=dist.get_rank())
+    rank = dist.get_rank()
+    return Mesh(tuple(torch.device(n) for n in names), rank=rank,
+                n_model=n_model, groups=_mesh_groups(world, n_model, rank))
+
+
+def _mesh_groups(world: int, n_model: int, rank: int) -> Tuple[Any, Any]:
+    """(data group, model group) of ``rank``; every rank creates every
+    group, in one order, as ``dist.new_group`` requires."""
+    if n_model == 1:
+        return None, None
+    n_data = world // n_model
+    data = [dist.new_group([d * n_model + m for d in range(n_data)])
+            for m in range(n_model)]
+    model = [dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+             for d in range(n_data)]
+    return data[rank % n_model], model[rank // n_model]
 
 
 def process_index() -> int:
@@ -163,38 +230,52 @@ def shard_batch(arrays: Dict[str, Any], mesh: Mesh,
     return {k: _rows(k, v, mesh.n_data, index) for k, v in arrays.items()}
 
 
-def runner_devices(device, mesh: Optional[Mesh]) -> List[torch.device]:
+def runner_devices(device, mesh: Optional[Mesh],
+                   model_axis: bool = False) -> List[torch.device]:
     """The devices a serving runner drives: every device of ``mesh`` (one
-    process drives them all: ``make_mesh``), or ``device`` alone."""
+    process drives them all: ``make_mesh``), or ``device`` alone.  A
+    runner that splits its model (``model_axis``: ``DetectRunner``) also
+    takes a process group's mesh of one data position and ``n_model >
+    1``: this rank's device."""
     if mesh is None:
         return [resolve_device(device)]
     if mesh.rank is not None:
-        raise ValueError("a serving runner drives every device of its "
-                         "mesh: pass make_mesh's mesh")
+        if not model_axis or mesh.n_model == 1:
+            raise ValueError("a serving runner drives every device of its "
+                             "mesh: pass make_mesh's mesh")
+        if mesh.n_data != 1:
+            raise ValueError(f"a tensor-parallel runner serves one data "
+                             f"position, not {mesh.n_data}")
+        return [resolve_device(mesh.devices[mesh.rank])]
     return [resolve_device(d) for d in mesh.devices]
 
 
-class _AllReduceSum(torch.autograd.Function):
+class AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of ``group`` (None: the world), whose
+    backward sums the incoming gradients over them too (its adjoint)."""
+
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def global_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """``x`` summed over the ranks of ``mesh`` (a process group's mesh,
-    as ``check_training_mesh`` holds the steps to), differentiably (see
-    the module docstring); ``x`` itself without a mesh."""
-    if mesh is None:
+    """``x`` summed over the data axis of ``mesh`` (a process group's
+    mesh, as ``check_training_mesh`` holds the steps to), differentiably
+    (see the module docstring); ``x`` itself without a mesh or with one
+    data position."""
+    if mesh is None or mesh.n_data == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return AllReduceSum.apply(x, mesh.data_group)
 
 
 def global_rows(n_local: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
@@ -202,13 +283,14 @@ def global_rows(n_local: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
     ``n_local`` rows a rank."""
     if mesh is None:
         return n_local, 0
-    return n_local * mesh.n_data, n_local * mesh.rank
+    return n_local * mesh.n_data, n_local * mesh.data_index
 
 
 def global_metrics(metrics: Dict[str, torch.Tensor],
                    mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
-    """0-d per-rank parts (each rank's loss over the global denominator,
-    its own count) summed over the ranks, in one all-reduce."""
+    """0-d per-position parts (each data position's loss over the global
+    denominator, its own count) summed over the data axis, in one
+    all-reduce."""
     if mesh is None:
         return metrics
     total = global_sum(torch.stack([v.float() for v in metrics.values()]),
@@ -218,8 +300,8 @@ def global_metrics(metrics: Dict[str, torch.Tensor],
 
 def reduce_gradients(grads: Sequence[torch.Tensor],
                      mesh: Optional[Mesh]) -> None:
-    """Sums ``grads`` over the ranks in place, in one flat bucket (one
-    all-reduce a step, after the backward)."""
+    """Sums ``grads`` over every rank of the world in place, in one flat
+    bucket (one all-reduce a step, after the backward)."""
     if mesh is None:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])

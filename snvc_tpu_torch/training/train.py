@@ -31,7 +31,15 @@ over a "data" mesh: every rank is given the same global batch, keeps its
 rows of the instance fields (``shard_instance_batch``), normalizes its
 BatchNorms and losses by the global batch, draws the global dropout mask
 and keeps its rows, and sums the gradients over the ranks in one flat
-bucket after the backward (parallel/api.py).  The gradients are summed
+bucket after the backward (parallel/api.py).  A mesh with a "model" axis
+also splits the object voxel on its length axis over the model group, as
+JAX's ``voxel_sharding`` does (models/vernier.py).  Every model rank
+computes its data position's whole loss: the outputs after the gather
+are whole on each, and the occupancy and offset losses on the slabs sum
+their numerators and counts over the model group.  So the backward is
+seeded with 1 / n_model on every rank; the gathers' backward sums their
+gradients over the model group, and the sum of the gradients over the
+world is the global step's.  The gradients are summed
 by hand, not by DistributedDataParallel: DDP averages (the losses here
 are already global means), needs ``find_unused_parameters`` for the
 HRNet's unused fusions, and would wrap the model whose state dict the
@@ -52,7 +60,7 @@ import torch
 from torch import nn
 
 from snvc_tpu_torch.config import TrainConfig, VernierConfig
-from snvc_tpu_torch.models.layers import data_parallel
+from snvc_tpu_torch.models.layers import data_parallel, tensor_parallel
 from snvc_tpu_torch.models.losses import vernier_losses
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.ops.assemble import (
@@ -151,7 +159,7 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     state.step)``; targets follow ``cfg.grid_type``.  With ``mesh``,
     ``batch`` is the global batch and the metrics are the global ones."""
     if mesh is not None:
-        batch = shard_instance_batch(batch, mesh, mesh.rank)
+        batch = shard_instance_batch(batch, mesh, mesh.data_index)
     model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
@@ -163,8 +171,8 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     gen = (dropout_generator(grid_local.device, tc.seed, state.step)
            if model.head.has_bbox else None)
     # open through the backward: the rematerialized hourglass's recompute
-    # runs its BatchNorms' reductions again
-    with data_parallel(model, mesh):
+    # runs its BatchNorms' reductions and its halo exchanges again
+    with data_parallel(model, mesh), tensor_parallel(model, mesh):
         outputs = model(left, right, gpl, gpr, dropout_generator=gen)
         losses = vernier_losses(outputs, targets, batch["valid"], cfg,
                                 occupancy_weight=tc.occupancy_weight,
@@ -183,9 +191,13 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     """The backward of ``loss``, the sum of the gradients over ``mesh``'s
     ranks, the clip by global norm and the AdamW update at the step's
     rate; advances ``state.step``.  Returns the gradients' global norm
-    before clipping."""
+    before clipping.  Every model rank holds its data position's whole
+    loss, so each seeds the backward with 1 / n_model (the module
+    docstring)."""
     model, opt = state.model, state.optimizer
     opt.zero_grad(set_to_none=True)
+    if mesh is not None and mesh.n_model > 1:
+        loss = loss / mesh.n_model
     loss.backward()
     # optax updates every parameter: one the loss does not reach (the
     # HRNet's unused low-resolution fusions) gets a zero gradient, so AdamW
@@ -207,8 +219,9 @@ def make_train_step(cfg: VernierConfig, tc: TrainConfig, device,
                     mesh: Optional[Mesh] = None):
     """``train_step`` with the config and the object grid bound:
     ``step(state, batch) -> metrics``.  ``mesh``: the process group's
-    mesh (``parallel.initialize_multihost``) for a data-parallel step;
-    ``cfg.max_instances`` is the global batch and must split over it."""
+    mesh (``parallel.initialize_multihost``) for a data-parallel step,
+    the voxel's length split over its model axis; ``cfg.max_instances``
+    is the global batch and must split over its data axis."""
     check_training_mesh(mesh, device)
     grid_local = torch.from_numpy(make_grid_local(cfg)).to(device)
     return functools.partial(train_step, cfg=cfg, tc=tc,

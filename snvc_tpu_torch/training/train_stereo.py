@@ -21,9 +21,14 @@ the same global batch of ``n_data x per-rank`` frames and keeps its
 frames (``shard_batch``); the BatchNorm stem and the loss normalizers
 reduce over the global batch and the gradients are summed over the ranks,
 as in ``training/train.py``.  The photometric jitter is one draw a step,
-shared by the batch, so every rank draws it alike.  JAX's
-``_volume_sharding`` (the cost volume split over a mesh's "model" axis)
-is not ported (ROADMAP.md, Queue 1).
+shared by the batch, so every rank draws it alike.  A mesh with a
+"model" axis (``initialize_multihost(..., n_model)``) also splits the
+plane-sweep volume on its depth axis over the model group, as JAX's
+``_volume_sharding`` does: each rank holds D / n_model planes and a halo
+through the 3D stack (models/stereonet.py); the outputs the losses read
+come back whole on every model rank, so the losses are the data
+position's (training/train.apply_gradients seeds the backward with
+1 / n_model).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from snvc_tpu_torch.models.stereo_losses import (
     depth_w1_loss,
     rpn3d_loss,
 )
-from snvc_tpu_torch.models.layers import data_parallel
+from snvc_tpu_torch.models.layers import data_parallel, tensor_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.augment import color_jitter, draw_jitter, normalize
 from snvc_tpu_torch.parallel.api import (
@@ -126,10 +131,11 @@ def stereo_train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     ``mesh``, ``batch`` is the global batch and the metrics are the
     global ones."""
     if mesh is not None:
-        batch = shard_batch(batch, mesh, mesh.rank)
+        batch = shard_batch(batch, mesh, mesh.data_index)
     left, right = augment_normalize(batch["images_left"],
                                     batch["images_right"], cfg, state.step)
-    with data_parallel(state.model, mesh):
+    with data_parallel(state.model, mesh), \
+            tensor_parallel(state.model, mesh):
         out = state.model(left, right, batch["P_left"].float(),
                           batch["P_right"].float())
         losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
@@ -148,7 +154,8 @@ def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device,
     """``stereo_train_step`` with the config and the BEV anchor locations
     bound: ``step(state, batch) -> metrics``.  ``mesh``: the process
     group's mesh (``parallel.initialize_multihost``) for a data-parallel
-    step; the batch's frames must split over it."""
+    step, the volume's depth split over its model axis; the batch's
+    frames must split over its data axis."""
     check_training_mesh(mesh, device)
     locations = torch.from_numpy(bev_locations(cfg)).to(device)
     return functools.partial(stereo_train_step, cfg=cfg, tc=tc,

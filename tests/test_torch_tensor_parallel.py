@@ -1,0 +1,151 @@
+"""The port's tensor parallelism (snvc_tpu_torch/parallel/tensor.py, the
+"model" axis of parallel/api.py) on two gloo ranks on the CPU.
+
+* ``halo_exchange`` (2 planes below, 1 above) and ``gather`` of each
+  rank's slab, forward and backward, against the same sums computed on
+  the whole tensor in this process (float64, exact up to the order of
+  the adds); ``shard`` is ``narrow``.
+* Each layer of the split stacks (a k3 conv, a stride-2 conv, the
+  large-tap k5 d2 and k7 convs through the K2 wrapper, the 3D and 2D
+  transposed convs, the 2D ConvNorm, GroupNorm, BatchNorm in train mode,
+  a two-level 3D ``Hourglass`` and a four-level 2D ``HourglassDeep``
+  with BatchNorm) computed on two slabs against the whole module in
+  float64 (GroupNorm's moments too): the output, the input's gradient,
+  the parameters' gradients summed over the ranks and BatchNorm's
+  running statistics, within 1e-6 of scale (the large-tap convs' plain
+  version sums its taps in float32: 3.6e-7 and 4.7e-7; the rest agree
+  to 3.4e-12 or better, most to ~3e-16).
+* The refusals: an extent that does not split into whole slabs at every
+  hourglass stride, the one-process ``make_mesh(n_model=2)``, an
+  ``n_model`` that does not divide the world or would cross hosts, the
+  runners given the wrong mesh.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from snvc_tpu_torch.config import tiny_stereo_config, tiny_vernier_config
+from snvc_tpu_torch.inference.detect import DetectRunner
+from snvc_tpu_torch.inference.refine import RefineRunner
+from snvc_tpu_torch.models.layers import tensor_parallel
+from snvc_tpu_torch.models.stereonet import StereoNet
+from snvc_tpu_torch.models.vernier import VernierScale
+from snvc_tpu_torch.parallel import api
+from snvc_tpu_torch.parallel.tensor import check_split
+from tests.torch_parallel_ranks import LAYER_CASES, run_ranks, tp_layers
+
+# a [2, 8, 3] tensor split on axis 1: slabs of 4
+X = torch.arange(48, dtype=torch.float64).reshape(2, 8, 3) / 7.0
+G = torch.Generator().manual_seed(0)
+W_HALO = torch.randn((2, 2, 7, 3), generator=G, dtype=torch.float64)
+W_GATHER = torch.randn((2, 2, 8, 3), generator=G, dtype=torch.float64)
+# a process group's mesh of one data position and two model ranks, for
+# the checks that run before any collective
+TP_MESH = api.Mesh((torch.device("cpu"),) * 2, rank=0, n_model=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return run_ranks(tp_layers, 2, str(tmp_path_factory.mktemp("tp")), X,
+                     W_HALO, W_GATHER)
+
+
+def test_initialize_multihost_refuses_the_wrong_model_axis(ranks):
+    for r in ranks:
+        three, local = r["refusals"]
+        assert "n_model=3 does not divide the world of 2 ranks" in three
+        assert "cross host boundaries (local ranks: 1)" in local
+
+
+def test_halo_exchange_and_gather_forward_and_backward(ranks):
+    """Each rank's widened slab and the gathered whole, and the gradient
+    of both ranks' sums with respect to each slab, against the same sums
+    on the whole tensor."""
+    x = X.clone().requires_grad_()
+    xpad = F.pad(x, (0, 0, 2, 1))  # zeros beyond the outer ranks
+    total = 0.0
+    for r in range(2):
+        halo = xpad[:, 4 * r:4 * r + 7]
+        torch.testing.assert_close(ranks[r]["halo"], halo.detach(), rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(ranks[r]["gather"], X, rtol=0, atol=0)
+        total = total + (halo * W_HALO[r]).sum() + (x * W_GATHER[r]).sum()
+    total.backward()
+    for r in range(2):
+        torch.testing.assert_close(ranks[r]["dx"], x.grad[:, 4 * r:4 * r + 4],
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("name", LAYER_CASES)
+def test_split_layer_matches_the_whole_module(ranks, name):
+    """Each rank computed on its half of the input and of the output."""
+    for r in ranks:
+        errs = dict(r["layers"][name])
+        slab_in, whole_in, slab_out, whole_out = errs.pop("extents")
+        assert (2 * slab_in, 2 * slab_out) == (whole_in, whole_out), name
+        assert any(k.startswith("d") and k != "dx" for k in errs), name
+        bad = {k: e for k, e in errs.items() if not e <= 1e-6}
+        assert not bad, (name, bad)
+
+
+def test_uneven_slabs_are_refused():
+    with pytest.raises(ValueError, match="multiple of n_model x 2\\^levels"
+                       " = 2 x 4 = 8"):
+        check_split("num_depths", 12, TP_MESH, 2)
+    check_split("num_depths", 16, TP_MESH, 2)
+    # through the model: before any collective
+    cfg = tiny_stereo_config(num_depths=12)
+    model = StereoNet(cfg, device="cpu")
+    x = torch.zeros((1,) + tuple(cfg.input_size) + (3,))
+    P = torch.tensor(np.array([[[700.0, 0, 64, 40], [0, 700, 32, 0],
+                                [0, 0, 1, 0]]], np.float32))
+    Pr = P.clone()
+    Pr[0, 0, 3] = -40.0
+    with tensor_parallel(model, TP_MESH), torch.no_grad():
+        with pytest.raises(ValueError, match="num_depths = 12 must be a "
+                           "multiple of n_model x 2\\^levels"):
+            model(x, x, P, Pr)
+
+
+def test_make_mesh_refuses_the_model_axis_naming_initialize_multihost():
+    with pytest.raises(NotImplementedError, match="initialize_multihost"):
+        api.make_mesh(1, ["cpu", "cpu"], n_model=2)
+
+
+def test_mesh_layout_puts_model_fastest():
+    devs = tuple(torch.device("cpu") for _ in range(8))
+    got = [(m.data_index, m.model_index) for m in
+           (api.Mesh(devs, rank=r, n_model=2) for r in range(8))]
+    assert got == [(d, m) for d in range(4) for m in range(2)]
+    assert api.Mesh(devs, rank=5, n_model=2).n_data == 4
+
+
+def test_runners_take_the_model_axis_where_jax_does():
+    """DetectRunner serves one data position split over the model axis;
+    RefineRunner splits instances on "data" only (as JAX's); the
+    other Vernier heads split nothing."""
+    scfg = tiny_stereo_config()
+    four = api.Mesh((torch.device("cpu"),) * 4, rank=0, n_model=2)
+    with pytest.raises(ValueError, match="one data position, not 2"):
+        DetectRunner(StereoNet(scfg, device="cpu"), scfg, device="cpu",
+                     mesh=four)
+    assert DetectRunner(StereoNet(scfg, device="cpu"), scfg, device="cpu",
+                        mesh=TP_MESH).split
+    cfg = tiny_vernier_config(max_instances=4)
+    with pytest.raises(ValueError, match="make_mesh"):
+        RefineRunner(VernierScale(cfg, device="cpu"), cfg, mesh=TP_MESH)
+    bev = tiny_vernier_config(vernier_type="BEV")
+    model = VernierScale(bev, device="cpu")
+    with tensor_parallel(model, TP_MESH), pytest.raises(
+            ValueError, match="BEV_type2 / BEV_type3 only"):
+        model.head(torch.zeros(1, 8, 16, 8, 64))

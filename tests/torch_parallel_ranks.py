@@ -1,4 +1,5 @@
-"""Ranks of the port's data-parallel tests (tests/test_torch_parallel*.py).
+"""Ranks of the port's data- and tensor-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel*.py).
 
 ``run_ranks`` starts each rank with the ``spawn`` method; a rank joins a
 gloo group through a ``FileStore`` in the test's temporary directory (no
@@ -122,9 +123,44 @@ def vernier_float64(on: bool):
         vernier.compute_dtype = old
 
 
-def vernier_record(cfg, tc, sd, arrays, float64: bool, mesh=None) -> dict:
+@contextlib.contextmanager
+def input_shapes(module):
+    """The shapes of the first inputs ``module`` is called with while
+    open (the list it yields)."""
+    shapes = []
+    hook = module.register_forward_pre_hook(
+        lambda m, args: shapes.append(tuple(args[0].shape)))
+    try:
+        yield shapes
+    finally:
+        hook.remove()
+
+
+@contextlib.contextmanager
+def float64_moments(on: bool):
+    """GroupNorm's moments in float64 while open (``FastGroupNorm.
+    moment_dtype``; float32 otherwise, as JAX's): a float64 step split
+    over a model axis sums each moment from slabs, and float32 moments
+    would round apart from the whole volume's."""
+    from snvc_tpu_torch.models.layers import FastGroupNorm
+
+    if not on:
+        yield
+        return
+    FastGroupNorm.moment_dtype = torch.float64
+    try:
+        yield
+    finally:
+        FastGroupNorm.moment_dtype = torch.float32
+
+
+def vernier_record(cfg, tc, sd, arrays, float64: bool, mesh=None,
+                   steps: int = 2) -> dict:
     """``steps_record`` of the Vernier step from the numpy state dict
-    ``sd`` on the numpy batch ``arrays``; data-parallel with ``mesh``."""
+    ``sd`` on the numpy batch ``arrays``; data-parallel with ``mesh``,
+    the voxel's length split over its model axis.  ``voxel_shapes``: the
+    shapes of the voxel the head's first conv takes (a step's forward and
+    its remat)."""
     from snvc_tpu_torch.models.vernier import VernierScale
     from snvc_tpu_torch.training.train import (
         batch_to_device,
@@ -139,7 +175,10 @@ def vernier_record(cfg, tc, sd, arrays, float64: bool, mesh=None) -> dict:
             model.double()
         state = create_train_state(model, cfg, tc)
         step = make_train_step(cfg, tc, "cpu", mesh=mesh)
-        return steps_record(state, step, batch_to_device(arrays, "cpu"))
+        with input_shapes(model.head.ConvNorm3d_1) as shapes:
+            rec = steps_record(state, step, batch_to_device(arrays, "cpu"),
+                               steps)
+        return dict(rec, voxel_shapes=shapes)
 
 
 def vernier_steps(rank, cases) -> list:
@@ -152,21 +191,46 @@ def vernier_steps(rank, cases) -> list:
     return [vernier_record(*case, mesh=mesh) for case in cases]
 
 
-def stereo_record(cfg, tc, sd, arrays, mesh=None) -> dict:
-    """``steps_record`` of the stereo step from the numpy state dict
-    ``sd`` on the numpy batch ``arrays``; data-parallel with ``mesh``."""
+def stereo_model(cfg, sd, float64: bool = False):
+    """The StereoNet of ``cfg`` on the CPU with the numpy state dict
+    ``sd``; with ``float64``, computing in float64 (its compute dtype
+    set; the plain K3 / K4 versions, the GroupNorm moments, the depth
+    softmax and the RPN maps stay float32)."""
     from snvc_tpu_torch.models.stereonet import StereoNet
+
+    model = StereoNet(cfg, device="cpu")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    if float64:
+        model.double()
+        model.encoder.dtype = model.head.dtype = torch.float64
+        head = model.head
+        for name in ("bev_zs", "bev_xs", "bev_ys"):  # K4's float32 tables
+            setattr(head, name, getattr(head, name).float())
+    return model
+
+
+def stereo_record(cfg, tc, sd, arrays, mesh=None, float64: bool = False,
+                  steps: int = 2) -> dict:
+    """``steps_record`` of the stereo step from the numpy state dict
+    ``sd`` on the numpy batch ``arrays``; data-parallel with ``mesh``,
+    the volume's depth split over its model axis; with ``float64``, the
+    model in float64 (``stereo_model``) and GroupNorm's moments too
+    (``float64_moments``).  ``volume_shapes``: the shapes of the volume
+    the 3D stack's first conv takes."""
     from snvc_tpu_torch.training.train_stereo import (
         create_stereo_state,
         make_stereo_train_step,
         stereo_batch_to_device,
     )
 
-    model = StereoNet(cfg, device="cpu")
-    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    model = stereo_model(cfg, sd, float64)
     state = create_stereo_state(model, tc)
     step = make_stereo_train_step(cfg, tc, "cpu", mesh=mesh)
-    return steps_record(state, step, stereo_batch_to_device(arrays, "cpu"))
+    with input_shapes(model.head.ConvNorm3d_0) as shapes, \
+            float64_moments(float64):
+        rec = steps_record(state, step,
+                           stereo_batch_to_device(arrays, "cpu"), steps)
+    return dict(rec, volume_shapes=shapes)
 
 
 def stereo_steps(rank, cfg, tc, sd, arrays) -> dict:
@@ -175,6 +239,49 @@ def stereo_steps(rank, cfg, tc, sd, arrays) -> dict:
 
     return stereo_record(cfg, tc, sd, arrays,
                          mesh=initialize_multihost("gloo", "cpu"))
+
+
+def tp_mesh(rank: int, n_model: int):
+    """``initialize_multihost``'s mesh of ``n_model`` model ranks, checked
+    against its layout ("model" fastest)."""
+    from snvc_tpu_torch.parallel.api import initialize_multihost
+
+    mesh = initialize_multihost("gloo", "cpu", n_model=n_model)
+    assert (mesh.rank, mesh.n_model) == (rank, n_model)
+    assert (mesh.data_index, mesh.model_index) == divmod(rank, n_model)
+    return mesh
+
+
+def tp_stereo(rank, n_model, cfg, tc, sd, arrays, request=None) -> dict:
+    """One stereo step in float64 on ``arrays`` (the global batch) over a
+    mesh of ``n_model`` model ranks; with ``request``, also
+    ``DetectRunner.forward`` on it (float32, a fresh model from ``sd``).
+    Rank 0 then computes the one-process references (``one``): the
+    same step and runner without a mesh."""
+    from snvc_tpu_torch.inference.detect import DetectRunner
+
+    mesh = tp_mesh(rank, n_model)
+    rec = dict(step=stereo_record(cfg, tc, sd, arrays, mesh=mesh,
+                                  float64=True, steps=1))
+    if request is not None:
+        runner = DetectRunner(stereo_model(cfg, sd), cfg, device="cpu",
+                              score_threshold=0.0, mesh=mesh)
+        model = runner.model.head.ConvNorm3d_0
+        with input_shapes(model) as shapes:
+            out = runner.forward(request)
+        rec["detect"] = [t.numpy() for t in out]
+        rec["detect_volume_shapes"] = shapes
+    if rank == 0:
+        rec["one"] = dict(step=stereo_record(cfg, tc, sd, arrays,
+                                             float64=True, steps=1))
+        if request is not None:
+            runner = DetectRunner(stereo_model(cfg, sd), cfg, device="cpu",
+                                  score_threshold=0.0)
+            rec["one"]["detect"] = [t.numpy()
+                                    for t in runner.forward(request)]
+    return rec
+
+
 
 
 def train_vernier_cli(rank, argv) -> dict:
@@ -193,3 +300,156 @@ def as_numpy(arrays) -> dict:
     """A batch or a state dict as numpy arrays, which go to a rank by
     value (tensors would go through shared memory); copies."""
     return {k: np.array(v) for k, v in arrays.items()}
+
+
+def _layer_cases():
+    """name -> (module factory, split axis, input shape, train mode): the
+    layers of the port's split stacks at tiny sizes, float64."""
+    from snvc_tpu_torch.models import layers as L
+
+    return {
+        "conv3d_k3": (lambda: L.Conv3d(4, 6, 3, split_axis=1), 1,
+                      (2, 8, 5, 6, 4), False),
+        "conv3d_k3_stride2": (lambda: L.Conv3d(4, 6, 3, 2, split_axis=1), 1,
+                              (2, 8, 6, 6, 4), False),
+        "conv3d_k5_d2_large_tap": (
+            lambda: L.Conv3d(4, 6, 5, dilation=2, split_axis=3), 3,
+            (1, 5, 4, 16, 4), False),
+        "conv3d_k7_large_tap": (lambda: L.Conv3d(4, 6, 7, split_axis=3), 3,
+                                (1, 7, 4, 12, 4), False),
+        "deconv3d": (lambda: L.ConvTranspose3dFast(4, 6, split_axis=1), 1,
+                     (1, 4, 3, 5, 4), False),
+        "deconv2d": (lambda: L.ConvTranspose2d(4, 6, split_axis=2), 2,
+                     (2, 3, 6, 4), False),
+        "convnorm2d": (lambda: L.ConvNorm(4, 8, 3, groups=2, split_axis=2),
+                       2, (2, 5, 8, 4), False),
+        "groupnorm": (lambda: L.FastGroupNorm(8, 4, split_axis=1), 1,
+                      (2, 6, 3, 4, 8), False),
+        "batchnorm": (lambda: L.BatchNorm(8, split_axis=1), 1,
+                      (2, 6, 3, 4, 8), True),
+        "hourglass3d": (lambda: L.Hourglass(4, 3, split_axis=1), 1,
+                        (1, 8, 4, 4, 4), False),
+        "hourglass_deep2d_batchnorm": (
+            lambda: L.HourglassDeep(4, 2, gn=False, split_axis=2), 2,
+            (2, 16, 32, 4), True),
+    }
+
+
+LAYER_CASES = tuple(_layer_cases())
+
+
+@contextlib.contextmanager
+def large_tap_any_dtype():
+    """``Conv3d`` routes float64 large-tap convs to ``conv3d_large_tap``
+    (the K2 wrapper; its plain version on the CPU) while open, as it
+    routes bf16 ones."""
+    from snvc_tpu_torch.models import layers
+
+    eligible = layers.large_tap_eligible
+    layers.large_tap_eligible = (
+        lambda k, s, dt, d=1: eligible(k, s, torch.bfloat16, d))
+    try:
+        yield
+    finally:
+        layers.large_tap_eligible = eligible
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach(), b.detach()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _layer_errors(name, mesh) -> dict:
+    """The split module against the whole one, on this rank's slab: the
+    output, the input's gradient, the parameters' gradients summed over
+    the model group and (train mode) the running statistics, each as the
+    largest difference relative to the whole's scale."""
+    from snvc_tpu_torch.models.layers import Hourglass, init_weights, \
+        tensor_parallel
+    from snvc_tpu_torch.parallel.tensor import shard
+
+    make, axis, shape, train = _layer_cases()[name]
+    mods = []
+    for _ in range(2):
+        m = make().double().train(train)
+        init_weights(m, torch.Generator().manual_seed(1))
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():  # norm scales and biases away from 1, 0
+            for n, p in m.named_parameters():
+                if p.ndim == 1:
+                    p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                             dtype=p.dtype))
+        mods.append(m)
+    whole, split = mods
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+
+    def run(mod, inp):
+        out = mod(inp)
+        return out[0] if isinstance(mod, Hourglass) else out
+
+    xw = x.clone().requires_grad_()
+    y = run(whole, xw)
+    r = torch.randn(y.shape, generator=g, dtype=torch.float64)
+    (y * r).sum().backward()
+    xs = shard(x, axis, mesh).clone().requires_grad_()
+    with tensor_parallel(split, mesh):
+        ys = run(split, xs)
+        (ys * shard(r, axis, mesh)).sum().backward()
+    errs = dict(out=_rel(ys, shard(y, axis, mesh)),
+                dx=_rel(xs.grad, shard(xw.grad, axis, mesh)),
+                extents=(xs.shape[axis], x.shape[axis], ys.shape[axis],
+                         y.shape[axis]))
+    for (n, p), q in zip(whole.named_parameters(), split.parameters()):
+        dq = q.grad.clone()
+        dist.all_reduce(dq, group=mesh.model_group)
+        errs[f"d{n}"] = _rel(dq, p.grad)
+    for (n, b), c in zip(whole.named_buffers(), split.buffers()):
+        errs[n] = _rel(c, b)
+    return errs
+
+
+def tp_layers(rank, x, w_halo, w_gather) -> dict:
+    """On two ranks: the refusals of ``initialize_multihost`` (an
+    ``n_model`` that does not divide the world, one that crosses hosts);
+    ``halo_exchange`` (2 planes below, 1 above) and ``gather`` of the
+    rank's slab of ``x`` (axis 1) with the gradient of
+    sum(halo * w_halo[rank]) + sum(gather * w_gather[rank]); and
+    ``_layer_errors`` of every layer case (float64, GroupNorm's moments
+    too; the large-tap convs through the K2 wrapper)."""
+    from snvc_tpu_torch.parallel.api import initialize_multihost
+    from snvc_tpu_torch.parallel.tensor import gather, halo_exchange, shard
+
+    refusals = []
+    for n_model, env in ((3, {}), (2, {"LOCAL_WORLD_SIZE": "1"})):
+        os.environ.update(env)
+        try:
+            initialize_multihost("gloo", "cpu", n_model=n_model)
+        except ValueError as e:
+            refusals.append(str(e))
+        finally:
+            os.environ.pop("LOCAL_WORLD_SIZE", None)
+    mesh = tp_mesh(rank, 2)
+    xs = shard(x, 1, mesh).clone().requires_grad_()
+    halo = halo_exchange(xs, 1, 2, 1, mesh)
+    whole = gather(xs, 1, mesh)
+    ((halo * w_halo[rank]).sum() + (whole * w_gather[rank]).sum()).backward()
+    with float64_moments(True), large_tap_any_dtype():
+        layers = {name: _layer_errors(name, mesh) for name in LAYER_CASES}
+    return dict(refusals=refusals, halo=halo.detach(), gather=whole.detach(),
+                dx=xs.grad, layers=layers)
+
+
+def tp_vernier(rank, n_model, cases, one_process) -> dict:
+    """One Vernier step in float64 (GroupNorm's moments too) for each
+    (config, TrainConfig, state dict, batch) of ``cases`` over a mesh of
+    ``n_model`` model ranks; rank 0 then takes the one-process step of
+    the cases indexed by ``one_process`` (``one``)."""
+    mesh = tp_mesh(rank, n_model)
+    with float64_moments(True):
+        rec = dict(steps=[vernier_record(*case, True, mesh=mesh, steps=1)
+                          for case in cases])
+        if rank == 0:
+            rec["one"] = {i: vernier_record(*cases[i], True, steps=1)
+                          for i in one_process}
+    return rec
