@@ -224,10 +224,27 @@ Phases, each printing one line with its elapsed seconds:
                100 or 104 lengths wide; ms and peak memory a rank beside
                this process's ("two ranks share one card: no scaling
                figure").
+ 27. release_checkpoint - the reference's checkpoints in the port: a
+               fabricated reference state_dict of a small BEV_type3 model
+               (hrnet-tiny, the part-offset and bbox heads) converted by
+               utils/convert_torch, on the card against the CPU (float32
+               within 1e-3 of scale, bf16 under phase reference's rule);
+               a fabricated tar at validate_epoch80.release_config
+               (hrnet-w48, GroupNorm, 32x192x192, 256x256 ROIs, 8
+               instances, bf16) through validate_epoch80.main over a
+               seeded 4-frame x 3-car val tree with noisy-GT proposals
+               (K1 = batches, K2 = 3 x batches; validation.json with
+               JAX's keys, finite), with the tar's tensor count, its load
+               and conversion seconds, the median ms of a warm batch, the
+               peak memory and the wall seconds; diagnose_proposals.main
+               on phase demos' demo_two_stage directory (a seeded one
+               when run alone): K3 = K4 = frames decoded, the coverage
+               keys present, roiaware_pool3d on the card against the CPU
+               (max and avg; avg twice gives the same bits).
 Then a {"kernels": [...]} line (launches: the serving, detect and
 training phases' counts plus train_cli's, variants', track's, demos',
-parallel's and tensor_parallel's), nvidia-smi's line, and as the last
-line
+parallel's, tensor_parallel's and release_checkpoint's), nvidia-smi's
+line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -334,7 +351,9 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample_bwd,
 )
 from snvc_tpu_torch.parallel.api import initialize_multihost, make_mesh
+from snvc_tpu_torch.ops.points_in_boxes import roiaware_pool3d
 from snvc_tpu_torch.tools import demo_ap_lift, demo_tracking, demo_two_stage
+from snvc_tpu_torch.tools import diagnose_proposals, validate_epoch80
 from snvc_tpu_torch.tools import detect as cli_detect
 from snvc_tpu_torch.tools import evaluate as cli_evaluate
 from snvc_tpu_torch.tools import inference_agnostic as cli_refine
@@ -354,6 +373,11 @@ from snvc_tpu_torch.training.train_stereo import (
     create_stereo_state,
     make_stereo_train_step,
     stereo_batch_to_device,
+)
+from snvc_tpu_torch.utils.convert_torch import (
+    convert_vernier_checkpoint,
+    fabricate_vernier_state_dict,
+    load_torch_checkpoint,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
@@ -2706,6 +2730,257 @@ def check_demos(dev, root: str) -> dict:
     return dict(counts=total)
 
 
+# ------------------------------------------------ release_checkpoint ----
+# phase release_checkpoint's seeded val tree: frames x cars, its seed
+RELEASE_FRAMES, RELEASE_CARS, RELEASE_SEED = 4, 3, 19
+RELEASE_KEYS = {"proposals", "one_part", "all_parts"}
+
+
+def check_converted_reference(dev) -> dict:
+    """A fabricated reference checkpoint of a small BEV_type3 model
+    (hrnet-tiny, 8x32x32 grid, the part-offset and bbox heads) converted
+    by ``utils/convert_torch`` and run on the card against the same
+    converted weights on the CPU: float32 (TF32 off) within 1e-3 of each
+    output's scale, bf16 under phase ``reference``'s rule (three times
+    the CPU's own bf16 drift plus 1 % of the scale)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = tiny_vernier_config(grid_resolution=(8, 32, 32),
+                                image_size=(128, 256), max_instances=2,
+                                use_part_reg_head=True, use_bbox_head=True)
+    target = VernierScale(small, device="cpu").state_dict()
+    sd = convert_vernier_checkpoint(
+        fabricate_vernier_state_dict(target, True, True,
+                                     np.random.default_rng(0)),
+        target, use_part_reg_head=True, use_bbox_head=True)
+    batch = synthetic_batch_arrays(small, seed=7)
+
+    def run(cfg, device):
+        model = VernierScale(cfg, device=device)
+        model.load_state_dict(sd, strict=True)
+        runner = RefineRunner(model, cfg, device=device)
+        with torch.inference_mode():
+            out = runner.heads(runner.encode(batch_to_device(batch, device)))
+        return {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+
+    bf16 = small.replace(compute_dtype="bfloat16")
+    ref = run(small, "cpu")
+    assert set(ref) == {"ncf", "occupancy", "offset", "coordinates", "bbox"}
+    reset_counts()
+    got32 = run(small, dev)
+    assert read_counts() == counts_of(K1=1), "converted f32 launches"
+    cpu_bf16 = run(bf16, "cpu")
+    reset_counts()
+    got = run(bf16, dev)
+    assert read_counts() == counts_of(K1=1, K2=3), "converted launches"
+    fields = {}
+    for k in ref:
+        scale = max(float(np.abs(ref[k]).max()), 1e-6)
+        err32 = float(np.abs(got32[k] - ref[k]).max()) / scale
+        err = float(np.abs(got[k] - ref[k]).max()) / scale
+        drift = float(np.abs(cpu_bf16[k] - ref[k]).max()) / scale
+        assert np.isfinite(got[k]).all(), f"converted {k} not finite"
+        assert err32 <= 1e-3, f"converted {k}: f32 card rel err {err32}"
+        assert err <= 3.0 * drift + 0.01, \
+            f"converted {k}: card rel err {err:.4f}, cpu bf16 {drift:.4f}"
+        fields[f"small_{k}"] = f"{err32:.1e}/{err:.4f}/{drift:.4f}"
+    return fields
+
+
+def release_batch_ms(model, cfg, val_root, pred_dir, dev) -> float:
+    """Median ms a warm refinement batch of the converted release model
+    over the tree's proposals (each batch served twice, the second
+    timed, synchronized)."""
+    ds = KittiDataset(val_root, "val")
+    pipe = RefinementPipeline(build_db_from_predictions(ds, cfg, pred_dir),
+                              cfg, training=False, load_lidar=False)
+    runner = RefineRunner(model, cfg, device=dev)
+    times = []
+    with torch.inference_mode():
+        for batch in pipe.batches():
+            runner.step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def roiaware_on_card(dev, work: str) -> dict:
+    """``roiaware_pool3d`` on the card against the CPU on a diagnosed
+    frame's LiDAR, its proposals and its GT boxes enlarged by 10 % (the
+    synthetic points lie on the GT boxes' faces, where float32 rounding
+    decides; an untrained model's proposals may hold no point), max and
+    avg of random features: the voxels that differ (a point within
+    rounding of a voxel edge lands on either side) and the largest
+    difference elsewhere; avg twice on the card gives the same bits."""
+    ds = KittiDataset(os.path.join(work, "kitti_val"), "val")
+    scene = ds.scene(ds.indices[0])
+    pts = scene.calibration("left").velo_to_rect(
+        scene.lidar()[:, :3]).astype(np.float32)
+    lines = open(os.path.join(work, "diag_val_props", "data",
+                              scene.name + ".txt")).read().split("\n")
+    gt = np.array([lb.box3d for lb in scene.labels()], np.float32)
+    gt[:, :3] *= 1.1
+    boxes = np.concatenate([np.array(
+        [[float(v) for v in ln.split()[8:15]] for ln in lines if ln.strip()],
+        np.float32).reshape(-1, 7), gt])
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((len(pts), 4)).astype(np.float32)
+    valid = np.ones(len(pts), bool)
+    args = [torch.from_numpy(a) for a in (pts, feats, valid, boxes)]
+    out = {"roiaware_boxes": len(boxes)}
+    for mode in ("max", "avg"):
+        ref = roiaware_pool3d(*args, (6, 6, 6), mode=mode)
+        out[f"roiaware_{mode}_filled"] = int((ref != 0).any(-1).sum())
+        assert out[f"roiaware_{mode}_filled"] > 0, "roiaware: nothing pooled"
+        got = roiaware_pool3d(*(a.to(dev) for a in args), (6, 6, 6),
+                              mode=mode)
+        if mode == "avg":
+            again = roiaware_pool3d(*(a.to(dev) for a in args), (6, 6, 6),
+                                    mode=mode)
+            assert torch.equal(got, again), "roiaware avg not deterministic"
+        diff = (got.cpu() - ref).abs().amax(dim=-1)
+        moved = int((diff > 1e-5).sum())
+        assert moved <= 2, f"roiaware {mode}: {moved} voxels differ"
+        out[f"roiaware_{mode}_voxels_moved"] = moved
+        out[f"roiaware_{mode}_max_err"] = (
+            f"{float(diff[diff <= 1e-5].max()):.1e}")
+    return out
+
+
+def seeded_stage1_dir(work: str, dev) -> None:
+    """A stage-1 work directory like ``demo_two_stage``'s cut run: a
+    seeded StereoNet at its config saved as ``stereo_ckpt`` (step 0) and
+    its 4-frame train and 2-frame val trees."""
+    scfg = demo_two_stage.stereo_config(demo_two_stage.parse_args([]))
+    model = StereoNet(scfg, device=dev,
+                      generator=torch.Generator().manual_seed(5))
+    save_checkpoint(os.path.join(work, "stereo_ckpt"),
+                    create_stereo_state(model, TrainConfig()), scfg, 0)
+    make_synthetic_kitti(os.path.join(work, "kitti_train"), 4, 3, seed=0,
+                         split="train")
+    make_synthetic_kitti(os.path.join(work, "kitti_val"), 2, 3, seed=1000,
+                         split="val")
+
+
+def check_release_checkpoint(dev, root: str) -> dict:
+    """Phase ``release_checkpoint``: (a) a small converted model on the
+    card against the CPU; (b) a fabricated release-shaped tar at
+    ``validate_epoch80.release_config`` (hrnet-w48, GroupNorm, 32x192x192,
+    256x256 ROIs, 8 instances, bf16) through ``validate_epoch80.main``
+    over a seeded 4-frame x 3-car val tree with noisy-GT proposals (K1 =
+    batches, K2 = 3 x batches; validation.json with JAX's keys, finite);
+    (c) ``diagnose_proposals.main`` on phase ``demos``' demo_two_stage
+    work directory (a seeded one if it is gone): K3 = K4 = frames decoded,
+    the coverage keys present, ``roiaware_pool3d`` on the card.  Returns
+    the launches of (b) and (c)."""
+    t = time.perf_counter()
+    fields = check_converted_reference(dev)
+    work = os.path.join(root, "release_checkpoint")
+    os.makedirs(work, exist_ok=True)
+
+    # (b) the release path
+    argv = ["--device", str(dev)]
+    args = validate_epoch80.parse_args(argv)
+    cfg = validate_epoch80.release_config(args)
+    tb = time.perf_counter()
+    sd = fabricate_vernier_state_dict(
+        VernierScale(cfg, device="cpu").state_dict())
+    tar = os.path.join(work, "epoch_80.tar")
+    torch.save({"state_dict": {k: torch.from_numpy(v)
+                               for k, v in sd.items()}}, tar)
+    fab_s = time.perf_counter() - tb
+    val_root = os.path.join(work, "kitti_val")
+    boxes = make_synthetic_kitti(val_root, RELEASE_FRAMES, RELEASE_CARS,
+                                 seed=RELEASE_SEED, split="val")
+    pred_dir = os.path.join(work, "proposals")
+    write_predictions(pred_dir, boxes, noise=0.2)
+    out_dir = os.path.join(work, "validation")
+    batches = sum(1 for f in os.listdir(pred_dir)
+                  if open(os.path.join(pred_dir, f)).read().strip())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = validate_epoch80.main(
+        ["--checkpoint", tar, "--data_path", val_root, "--split", "val",
+         "--pred_dir", pred_dir, "--out_dir", out_dir] + argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = counts_of(K1=batches, K2=3 * batches)
+    assert counts == want, f"validate_epoch80 launches {counts} != {want}"
+    with open(os.path.join(out_dir, "validation.json")) as f:
+        written = json.load(f)
+    assert written == result and set(result) == RELEASE_KEYS, sorted(result)
+    for k, v in result.items():
+        assert set(v) == {"ap3d_40", "apbev_40"}, (k, v)
+        assert np.isfinite(np.asarray(list(v.values()), np.float64)).all()
+    # the conversion alone, and the converted model's warm batches
+    tl = time.perf_counter()
+    state_dict = load_torch_checkpoint(tar)
+    load_s = time.perf_counter() - tl
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    model, rcfg = validate_epoch80.convert(args, cfg, state_dict,
+                                           lambda m: None)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - tc
+    batch_ms = release_batch_ms(model, rcfg, val_root, pred_dir, dev)
+    del model
+    torch.cuda.empty_cache()
+    fields.update(
+        tar_tensors=len(sd), fabricate_s=f"{fab_s:.2f}",
+        tar_load_s=f"{load_s:.2f}", convert_s=f"{convert_s:.2f}",
+        batches=batches, batch_ms_median=f"{batch_ms:.1f}",
+        validate_peak_gb=f"{peak_gb:.2f}", validate_wall_s=f"{wall:.2f}",
+        ap3d_refined_all_parts=repr(result["all_parts"]["ap3d_40"]))
+    total = dict(counts)
+
+    # (c) the stage-1 diagnostic
+    diag = os.path.join(root, "demo_two_stage")
+    if not os.path.isdir(os.path.join(diag, "stereo_ckpt")):
+        diag = os.path.join(work, "stage1")
+        seeded_stage1_dir(diag, dev)
+        fields["diagnosed"] = "seeded"
+    frames = sum(len(KittiDataset(os.path.join(diag, f"kitti_{sp}"), sp))
+                 for sp in ("train", "val"))
+    reset_counts()
+    t0 = time.perf_counter()
+    # demo_two_stage's stage 1 trains with its depth offset head
+    stats = diagnose_proposals.main(
+        ["--work_dir", diag, "--depth_offset", "--score_threshold", "0.0"]
+        + argv)
+    torch.cuda.synchronize()
+    diag_wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = counts_of(K3=frames, K4=frames)
+    assert frames > 0 and counts == want, \
+        f"diagnose_proposals launches {counts} != {want}"
+    assert set(stats) == {"train", "val"}, sorted(stats)
+    for split, d in stats.items():
+        missing = {"n_proposals", "n_gt", "center_med_m", "within_1m",
+                   "pts_in_proposal_med", "pts_in_gt_med",
+                   "coverage_ratio_med", "occ_frac_med"} - set(d)
+        assert not missing, (split, missing)
+        assert all(np.isfinite(v) for v in d.values()), (split, d)
+    fields.update(roiaware_on_card(dev, diag))
+    for k, v in counts.items():
+        total[k] += v
+    fields.update(diagnose_frames=frames, diagnose_wall_s=f"{diag_wall:.2f}",
+                  val_coverage_ratio_med=stats["val"]["coverage_ratio_med"])
+    phase("release_checkpoint", t, **fields, nvidia_smi=repr(nvidia_smi()),
+          note=repr("small_*: f32_err/bf16_err/cpu_bf16_drift; "
+                    "convert_s: model build on the card + conversion + "
+                    "load; batch_ms: warm, synchronized; validate_wall_s: "
+                    "tar load, conversion, 4 batches, 3 evaluations"),
+          launches=json.dumps(total).replace(" ", ""))
+    return dict(counts=total)
+
+
 # ---------------------------------------------------------- parallel ----
 # Two gloo ranks share the one card (NCCL refuses two ranks on one GPU):
 # no scaling figure, the two processes share the card's SMs.
@@ -3546,10 +3821,12 @@ def main() -> int:
         world = check_synthetic_world(root)
         trk = check_track(dev, root, world)["counts"]
         demos = check_demos(dev, root)["counts"]
-    par = check_parallel(dev, train)["counts"]
-    tp = check_tensor_parallel(gen, dev)["counts"]
+        par = check_parallel(dev, train)["counts"]
+        tp = check_tensor_parallel(gen, dev)["counts"]
+        rel = check_release_checkpoint(dev, root)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] for k in KERNELS}
+    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + rel[k]
+            for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

@@ -1,6 +1,6 @@
-"""Rotated NMS with fixed shapes (port of the part of snvc_tpu/ops/nms.py
-that proposal decoding uses): one pairwise rotated-IoU matrix, then exact
-greedy suppression in descending score order, as a fixed-size keep mask.
+"""Rotated and axis-aligned NMS with fixed shapes (port of
+snvc_tpu/ops/nms.py): one pairwise IoU matrix, then exact greedy
+suppression in descending score order, as a fixed-size keep mask.
 
 Sorts are stable, as ``jnp.argsort`` is, so tied scores order the same
 way as in JAX.
@@ -38,6 +38,26 @@ def nms_from_iou(iou, scores, valid, iou_threshold: float):
 def rotated_nms_bev(boxes_bev, scores, valid, iou_threshold: float = 0.7):
     """boxes_bev [N, 5] (cx, cz, w, h, angle) -> keep mask [N]."""
     return nms_from_iou(bev_iou(boxes_bev, boxes_bev), scores, valid,
+                        iou_threshold)
+
+
+def axis_aligned_iou(boxes):
+    """Pairwise IoU [N, N] of axis-aligned BEV boxes [N, 4] (x1, z1, x2,
+    z2) (JAX nms.py:52; reference nms_normal_gpu,
+    iou3d_nms_kernel.cu:343-401)."""
+    x1 = torch.maximum(boxes[:, None, 0], boxes[None, :, 0])
+    z1 = torch.maximum(boxes[:, None, 1], boxes[None, :, 1])
+    x2 = torch.minimum(boxes[:, None, 2], boxes[None, :, 2])
+    z2 = torch.minimum(boxes[:, None, 3], boxes[None, :, 3])
+    inter = (x2 - x1).clamp(min=0) * (z2 - z1).clamp(min=0)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    union = area[:, None] + area[None, :] - inter
+    return inter / union.clamp(min=1e-8)
+
+
+def normal_nms(boxes, scores, valid, iou_threshold: float = 0.7):
+    """Axis-aligned NMS (reference nms_normal_gpu): keep mask [N]."""
+    return nms_from_iou(axis_aligned_iou(boxes), scores, valid,
                         iou_threshold)
 
 

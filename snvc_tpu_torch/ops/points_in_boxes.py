@@ -1,10 +1,13 @@
-"""Point-in-box predicates and the occupancy targets of Vernier training
-(port of snvc_tpu/ops/points_in_boxes.py:20-128), batched over instances.
+"""Point-in-box predicates, the occupancy targets of Vernier training and
+RoI-aware pooling (port of snvc_tpu/ops/points_in_boxes.py:20-181),
+batched over instances.
 
 Boxes are [h, w, l, x, y, z, ry], bottom-centered, in the rect camera
 frame.  The JAX functions take one instance and are vmapped; these take a
 leading instance axis.  The per-voxel point count is a ``scatter_add_``
-(JAX ``.at[flat].add``).
+(JAX ``.at[flat].add``).  ``roiaware_pool3d`` is plain PyTorch, as JAX's
+is plain XLA (``segment_max`` / ``segment_sum``, no Pallas kernel); it
+runs on the device of its inputs.
 """
 
 from __future__ import annotations
@@ -97,3 +100,57 @@ def occupancy_targets(points, points_valid, samples, gt_boxes, grid_local,
                                  gt_boxes).reshape(B, nh, nw, nl)
     occ = torch.where(fg_mask, 1.0, -1.0)
     return torch.where(inside_gt, occ, torch.zeros_like(occ))
+
+
+def roiaware_pool3d(points, features, points_valid, boxes,
+                    out_size: Tuple[int, int, int], mode: str = "max"):
+    """RoI-aware voxel pooling of point features into per-box grids (JAX
+    points_in_boxes.py:130; the reference's RoIAwarePool3d,
+    roiaware_pool3d_kernel.cu:111-232).
+
+    points [P, 3], features [P, C], points_valid [P] bool, boxes [B, 7].
+    out_size (ox, oy, oz): voxels along the box's (l, h, w) axes.
+    Returns [B, ox, oy, oz, C]; empty voxels are 0.
+
+    ``max``: ``scatter_reduce(..., "amax", include_self=False)`` into
+    zeros, so an empty voxel keeps its 0.  ``avg``: the sums are not an
+    ``index_add_``, whose float adds on CUDA come in a varying order; the
+    points are sorted by voxel (a stable sort) and each voxel's sum taken
+    by ``torch.segment_reduce``, which adds a voxel's points one after
+    another in point order, so the result is the same from run to run, as
+    JAX's segment sums are."""
+    ox, oy, oz = out_size
+    B = boxes.shape[0]
+    P, C = features.shape
+    nseg = B * ox * oy * oz
+    inside = points_in_cuboid(points, boxes) & points_valid  # [B, P]
+    center = _box_center(boxes, boxes[:, 0])
+    local = _local_coords(points, center, boxes[:, 6])  # [B, P, (w, h, l)]
+
+    def index(coord, extent, n):
+        i = torch.floor((coord + 0.5 * extent[:, None]) / (extent / n)[:, None])
+        return i.clamp(0, n - 1).long()
+
+    ix = index(local[..., 2], boxes[:, 2], ox)
+    iy = index(local[..., 1], boxes[:, 0], oy)
+    iz = index(local[..., 0], boxes[:, 1], oz)
+    b_idx = torch.arange(B, device=points.device)[:, None]
+    seg = ((b_idx * ox + ix) * oy + iy) * oz + iz
+    seg = torch.where(inside, seg, torch.full_like(seg, nseg)).reshape(-1)
+    feats = features.repeat(B, 1)  # [B * P, C], box-major as seg
+    if mode == "max":
+        pooled = torch.zeros((nseg + 1, C), dtype=features.dtype,
+                             device=features.device)
+        pooled.scatter_reduce_(0, seg[:, None].expand(-1, C), feats, "amax",
+                               include_self=False)
+        pooled = torch.where(torch.isfinite(pooled), pooled,
+                             torch.zeros_like(pooled))
+    elif mode == "avg":
+        order = torch.sort(seg, stable=True).indices
+        lengths = torch.bincount(seg, minlength=nseg + 1)
+        sums = torch.segment_reduce(feats[order], "sum", lengths=lengths,
+                                    unsafe=True)
+        pooled = sums / lengths.clamp(min=1).to(sums.dtype)[:, None]
+    else:
+        raise NotImplementedError(mode)
+    return pooled[:-1].reshape(B, ox, oy, oz, C)

@@ -1,6 +1,5 @@
-"""Rotated BEV IoU as fixed-shape masked math (port of the part of
-snvc_tpu/ops/rotated_iou.py that proposal decoding and the bbox losses
-use).
+"""Rotated BEV IoU, 3D IoU and the DIoU loss as fixed-shape masked math
+(port of snvc_tpu/ops/rotated_iou.py).
 
 Per box pair: 24 candidate vertices (the 8 corners that lie inside the
 other box and the 16 edge-edge intersections), a masked angular sort
@@ -126,3 +125,34 @@ def bev_iou(boxes_a, boxes_b):
     area_a = (boxes_a[:, 2] * boxes_a[:, 3])[:, None]
     area_b = (boxes_b[:, 2] * boxes_b[:, 3])[None, :]
     return inter / (area_a + area_b - inter).clamp(min=_EPS)
+
+
+def iou3d(boxes_a, boxes_b):
+    """Pairwise 3D IoU [N, M] of box3d [N, 7] x [M, 7]: rotated BEV overlap
+    x height overlap / volume union (JAX rotated_iou.py:152; reference
+    iou3d_nms_utils.py:52-85).  y is the box's bottom, down: a box spans
+    [y - h, y]."""
+    inter_bev = bev_overlap(bev_from_box3d(boxes_a), bev_from_box3d(boxes_b))
+    top_a, bot_a = boxes_a[:, 4] - boxes_a[:, 0], boxes_a[:, 4]
+    top_b, bot_b = boxes_b[:, 4] - boxes_b[:, 0], boxes_b[:, 4]
+    ymax = torch.minimum(bot_a[:, None], bot_b[None, :])
+    ymin = torch.maximum(top_a[:, None], top_b[None, :])
+    inter = inter_bev * (ymax - ymin).clamp(min=0.0)
+    vol_a = (boxes_a[:, 0] * boxes_a[:, 1] * boxes_a[:, 2])[:, None]
+    vol_b = (boxes_b[:, 0] * boxes_b[:, 1] * boxes_b[:, 2])[None, :]
+    return inter / (vol_a + vol_b - inter).clamp(min=_EPS)
+
+
+def diou_bev(pred, target):
+    """Distance-IoU loss of BEV boxes paired elementwise, [N, 5] x [N, 5]
+    (JAX rotated_iou.py:172).  Returns (loss [N], iou [N]); the distance
+    term is over the diagonal of the axis-aligned box enclosing both."""
+    inter = pair_overlap(pred, target)
+    area_p = pred[:, 2] * pred[:, 3]
+    area_t = target[:, 2] * target[:, 3]
+    iou = inter / (area_p + area_t - inter).clamp(min=_EPS)
+    allc = torch.cat([bev_corners(pred), bev_corners(target)], dim=1)
+    wh = allc.amax(dim=1) - allc.amin(dim=1)
+    c2 = (wh ** 2).sum(dim=1) + _EPS
+    d2 = ((pred[:, :2] - target[:, :2]) ** 2).sum(dim=1)
+    return 1.0 - iou + d2 / c2, iou

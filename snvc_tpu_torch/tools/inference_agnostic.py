@@ -11,7 +11,9 @@ checkpoints: ``checkpoints/<step>.pt`` as ``train_vernier`` writes them,
 or ``<step>.pt`` beside the config.  ``--report_loss`` attaches each
 proposal's nearest GT box and prints the validation losses per batch.
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions.  The
-JAX CLI's ``--debug`` (matplotlib renders) is not ported.
+JAX CLI's ``--debug`` (matplotlib renders of the NCF, occupancy and
+update, ``viz/debug.py``) is not ported: it waits for the visualisation
+item of ROADMAP.md's Queue 1, which draws without matplotlib.
 """
 
 from __future__ import annotations

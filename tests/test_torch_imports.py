@@ -151,6 +151,27 @@ def test_walk_covers_the_world_tracker_and_demos():
     assert "demo_runs" in _port_scripts()
 
 
+def test_walk_covers_the_release_checkpoint_slice():
+    """The walk above imports the checkpoint converter, the two CLIs of
+    the slice and the helpers they brought; importing a CLI runs
+    nothing."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.utils.convert_torch",
+            "snvc_tpu_torch.tools.validate_epoch80",
+            "snvc_tpu_torch.tools.diagnose_proposals",
+            "snvc_tpu_torch.eval.coverage",
+            "snvc_tpu_torch.geometry.boxes2d",
+            "snvc_tpu_torch.geometry.transforms"} <= names
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import snvc_tpu_torch.tools.validate_epoch80, "
+         "snvc_tpu_torch.tools.diagnose_proposals; print('imported')"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "imported"
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout
 
