@@ -241,22 +241,52 @@ Phases, each printing one line with its elapsed seconds:
                when run alone): K3 = K4 = frames decoded, the coverage
                keys present, roiaware_pool3d on the card against the CPU
                (max and avg; avg twice gives the same bits).
+ 28. trained_two_stage - JAX's trained two-stage run
+               (artifacts/two_stage_r4) through the port's CLIs with the
+               committed conversions of its checkpoints
+               (artifacts/two_stage_r4_torch) over its 128-frame val split
+               (make_synthetic_kitti(root, 128, 3, seed=1000), drawn by a
+               child process on the host while the earlier phases run;
+               its seconds printed): bf16 (the checkpoints' dtype) detect
+               over every frame at demo_two_stage's stage-1 settings (K3 =
+               K4 = 128), inference_agnostic on JAX's 181 committed
+               proposals and on the port's own (K1 = batches, K2 = 3 x
+               batches; the argmax decode, both pred types), every AP3D
+               moderate beside JAX's recorded bf16 TPU run (witnesses,
+               not gates); float32 with TF32 off: the 181 proposals
+               refined and held to JAX's float32 CPU output
+               (artifacts/two_stage_r4_torch/witness: AP3D moderate within
+               0.05 of JAX's for each pred type; boxes over 1e-3 and the
+               largest field difference printed), and with cuDNN off too
+               stage 1 on the first 16 frames held to JAX's (boxes paired
+               by nearest BEV centre, every field within 1e-3 m / rad; a
+               box on one side only passes when its score lies within
+               1e-3 of the 0.02 threshold); diagnose_refinement over the
+               run's work dir (K1 = 3 x batches, K2 = 9 x batches; each
+               decode's row printed); visualize over 4 frames in both
+               modes (PNGs decode at their sizes; each projected corner
+               of a drawn edge drawn within 1 px); inference_agnostic
+               --debug over one batch (K1 1, K2 3; the NCF panels'
+               brightest pixels on their parts' argmax cells); each
+               stage's wall seconds.
 Then a {"kernels": [...]} line (launches: the serving, detect and
 training phases' counts plus train_cli's, variants', track's, demos',
-parallel's, tensor_parallel's and release_checkpoint's), nvidia-smi's
-line, and as the last line
+parallel's, tensor_parallel's, release_checkpoint's and
+trained_two_stage's), nvidia-smi's line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -275,6 +305,7 @@ from snvc_tpu_torch.config import (
     TrainConfig,
     VernierConfig,
     flagship_vernier_config,
+    load_config,
     save_config,
     tiny_stereo_config,
     tiny_vernier_config,
@@ -353,7 +384,9 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
 from snvc_tpu_torch.parallel.api import initialize_multihost, make_mesh
 from snvc_tpu_torch.ops.points_in_boxes import roiaware_pool3d
 from snvc_tpu_torch.tools import demo_ap_lift, demo_tracking, demo_two_stage
+from snvc_tpu_torch.eval.witness import compare_matched, compare_ordered
 from snvc_tpu_torch.tools import diagnose_proposals, validate_epoch80
+from snvc_tpu_torch.tools import diagnose_refinement
 from snvc_tpu_torch.tools import detect as cli_detect
 from snvc_tpu_torch.tools import evaluate as cli_evaluate
 from snvc_tpu_torch.tools import inference_agnostic as cli_refine
@@ -2981,6 +3014,359 @@ def check_release_checkpoint(dev, root: str) -> dict:
     return dict(counts=total)
 
 
+# ------------------------------------------------- trained_two_stage ----
+# JAX's trained two-stage run (artifacts/two_stage_r4: demo_two_stage's
+# 128-frame val split, its stage-1 proposals and recorded AP) scored
+# through the port's CLIs with the committed conversions of its two
+# checkpoints (artifacts/two_stage_r4_torch) and held to the JAX float32
+# CPU witnesses committed beside them.
+REPO = os.path.dirname(os.path.abspath(__file__))
+TRAINED = os.path.join(REPO, "artifacts", "two_stage_r4_torch")
+WITNESS = os.path.join(TRAINED, "witness")
+JAX_RUN = os.path.join(REPO, "artifacts", "two_stage_r4")
+VAL_FRAMES, VAL_CARS, VAL_SEED = 128, 3, 1000
+# demo_two_stage's stage-1 settings (--max_proposals, --score_threshold,
+# --nms_iou) and its refinement config (scripts/two_stage_parity._infer_cfg)
+STAGE1_ARGS = ["--max_boxes", "8", "--score_threshold", "0.02",
+               "--nms_iou", "0.25"]
+STAGE1_THRESHOLD = 0.02
+REFINE_FIELDS = dict(usage="inference", sup_type="real", augment=False,
+                     pred_type=["one_part", "all_parts"],
+                     ncf_decode="argmax")
+PRED_TYPES = ("one_part", "all_parts")
+WITNESS_FRAMES = 16  # stage 1's float32 witness
+VIZ_FRAMES = 4
+
+
+def start_val_render(root: str) -> subprocess.Popen:
+    """The val split of JAX's trained run, ``make_synthetic_kitti(root,
+    128, 3, seed=1000, split="val")``, rendered by a child process on the
+    host while the phases before ``trained_two_stage`` use the card; it
+    prints its wall seconds as JSON."""
+    code = ("import json, sys, time\n"
+            "from snvc_tpu_torch.data.synthetic import make_synthetic_kitti\n"
+            "t = time.perf_counter()\n"
+            f"make_synthetic_kitti(sys.argv[1], {VAL_FRAMES}, {VAL_CARS}, "
+            f"seed={VAL_SEED}, split='val')\n"
+            "print(json.dumps({'render_s': time.perf_counter() - t}))\n")
+    return subprocess.Popen([sys.executable, "-c", code, root], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+class ValRender:
+    """``start_val_render`` into a temporary directory; the child is
+    stopped and the directory removed when the script exits."""
+
+    def __init__(self):
+        self.root = tempfile.mkdtemp(prefix="snvc_val_")
+        self.proc = start_val_render(self.root)
+        atexit.register(self.close)
+
+    def wait(self) -> float:
+        """The render's wall seconds; raises if it failed."""
+        out, err = self.proc.communicate(timeout=600)
+        assert self.proc.returncode == 0, f"val render failed: {err[-2000:]}"
+        return float(json.loads(out.strip().splitlines()[-1])["render_s"])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def model_dir_with(src: str, dst: str, **fields) -> str:
+    """A model directory ``dst``: ``src``'s config.json with ``fields``
+    replaced, beside a link to each of ``src``'s checkpoints."""
+    os.makedirs(dst)
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = json.load(f)
+    cfg.update(fields)
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    for name in os.listdir(src):
+        if name.endswith(".pt"):
+            os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    return dst
+
+
+def refine_batches(val_root: str, pred_dir: str, model_dir: str) -> int:
+    """The refinement batches of ``pred_dir``'s proposals: a frame's
+    proposals in batches of ``max_instances`` (frames_per_batch 1)."""
+    cfg = load_config(os.path.join(model_dir, "config.json"), VernierConfig)
+    db = build_db_from_predictions(KittiDataset(val_root, "val"), cfg,
+                                   pred_dir)
+    per_frame = {}
+    for rec in db:
+        per_frame[rec.scene.index] = per_frame.get(rec.scene.index, 0) + 1
+    assert cfg.frames_per_batch == 1, cfg.frames_per_batch
+    return sum(-(-n // cfg.max_instances) for n in per_frame.values())
+
+
+def moderate(res: dict, metric: str = "detection_3d") -> float:
+    return res["car"][metric]["ap40"][1]
+
+
+def timed(fn, *args):
+    """(fn(*args), wall seconds, launch counts), the card synchronized."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def check_viz(val_root: str, pred_dir: str, work: str) -> dict:
+    """``tools/visualize.py`` in both modes over VIZ_FRAMES frames: every
+    PNG decodes at its size (the frame's, TopViewSpec's 501 x 301), and in
+    the camera renders a pixel within 1 px of each projected corner of a
+    drawn edge differs from the frame."""
+    from snvc_tpu_torch.tools import visualize as cli_visualize
+    from snvc_tpu_torch.viz.tracebox import box_edges_2d
+
+    cam, top = os.path.join(work, "viz"), os.path.join(work, "viz_top")
+    assert cli_visualize.main(["--pred_dir", pred_dir, "--data_path",
+                               val_root, "--out_dir", cam, "--max_frames",
+                               str(VIZ_FRAMES)]) == VIZ_FRAMES
+    assert cli_visualize.main(["--pred_dir", pred_dir, "--data_path",
+                               val_root, "--out_dir", top, "--top_view",
+                               "--max_frames", str(VIZ_FRAMES)]) == VIZ_FRAMES
+    ds = KittiDataset(val_root, "val")
+    corners = 0
+    for name in sorted(os.listdir(cam)):
+        scene = ds.scene(int(name[:6]))
+        frame = scene.load_image("left")
+        img = decode_png(os.path.join(cam, name))
+        assert img.shape == frame.shape, (name, img.shape)
+        labels = read_label(os.path.join(pred_dir, name[:6] + ".txt"))
+        boxes = np.array([lb.box3d for lb in labels]).reshape(-1, 7)
+        h, w = img.shape[:2]
+        for _, uv0, uv1, _ in box_edges_2d(boxes, scene.calibration("left")):
+            for x, y in (np.round(uv0).astype(int), np.round(uv1).astype(int)):
+                if 0 <= x < w and 0 <= y < h:
+                    ys = slice(max(y - 1, 0), y + 2)
+                    xs = slice(max(x - 1, 0), x + 2)
+                    assert (img[ys, xs] != frame[ys, xs]).any(), \
+                        f"visualize {name}: corner ({x}, {y}) not drawn"
+                    corners += 1
+    assert corners > 0, "visualize: no corner in the frames"
+    for name in os.listdir(top):
+        assert decode_png(os.path.join(top, name)).shape == (501, 301, 3)
+    return dict(viz_pngs=len(os.listdir(cam)) + len(os.listdir(top)),
+                viz_corners_checked=corners)
+
+
+def check_debug_panels(paths: dict, model_dir: str, val_root: str,
+                       pred_dir: str, dev) -> None:
+    """``--debug``'s panels: each decodes; in the NCF panel the brightest
+    pixel of each part's map lies on its argmax cell (the batch's NCF
+    computed again); the update panel holds the proposals' and both
+    refinements' colours."""
+    from snvc_tpu_torch.viz import debug
+
+    cfg, model, _ = load_model(model_dir, VernierConfig, VernierScale, dev)
+    pipe = RefinementPipeline(build_db_from_predictions(
+        KittiDataset(val_root, "val"), cfg, pred_dir), cfg, training=False,
+        load_lidar=False)
+    out = RefineRunner(model, cfg, device=dev).step(
+        next(iter(pipe.batches())), host_outputs=("ncf",))
+    maps = debug.ncf_maps(out["ncf"])
+    img = decode_png(paths["ncf"])
+    px = debug.CELL_PX
+    h, w = maps.shape[1] * px, maps.shape[2] * px
+    for p, m in enumerate(maps):
+        y, x = debug.panel_origin(p, 3, (h, w))
+        panel = img[y:y + h, x:x + w].astype(np.int64).sum(-1)
+        i, j = np.unravel_index(np.argmax(m), m.shape)
+        row = (m.shape[0] - 1 - i) * px
+        assert panel[row:row + px, j * px:(j + 1) * px].min() == \
+            panel.max(), f"--debug NCF part {p}: peak off its argmax cell"
+    decode_png(paths["occupancy"])
+    upd = decode_png(paths["update"])
+    for key in ("proposal", "one_part", "all_parts"):
+        assert (upd == debug.UPDATE_COLORS[key]).all(-1).any(), key
+
+
+def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
+    """Phase ``trained_two_stage``: JAX's trained checkpoints, converted
+    and committed (artifacts/two_stage_r4_torch), served on the card over
+    the 128-frame val split that ``render`` drew.
+    bf16 (the checkpoints' dtype): the detect CLI over every frame (K3 =
+    K4 = 128), its AP beside JAX's recorded bf16 TPU run (a witness, not a
+    gate); the inference_agnostic CLI on JAX's 181 committed proposals and
+    on the port's own (K1 = batches, K2 = 3 x batches), their AP beside
+    JAX's.  Float32 with TF32 off: the refinement of the 181 proposals
+    held to witness (a) (AP3D moderate within 0.05 of JAX's float32 CPU
+    value for each pred type; boxes over 1e-3 and the largest field
+    difference printed); with cuDNN off too, stage 1 on the first 16
+    frames held to witness (b) (boxes paired by nearest BEV centre, every
+    field within 1e-3 m / rad; a box on one side only within 1e-3 of the
+    0.02 threshold).  Then diagnose_refinement over the run's work dir
+    (each decode's row), visualize in both modes over 4 frames and
+    inference_agnostic --debug over one batch.  Returns the launches."""
+    t = time.perf_counter()
+    render_s = render.wait()
+    val_root = render.root
+    gt_dir = os.path.join(val_root, "training", "label_2")
+    assert len(os.listdir(gt_dir)) == VAL_FRAMES
+    work = os.path.join(root, "trained_two_stage")
+    os.makedirs(work)
+    with open(os.path.join(JAX_RUN, "two_stage.json")) as f:
+        jax_run = json.load(f)
+    with open(os.path.join(WITNESS, "witness.json")) as f:
+        witness = json.load(f)
+    jax_props = os.path.join(work, "jax_proposals")
+    shutil.copytree(os.path.join(JAX_RUN, "proposals", "data"),
+                    os.path.join(jax_props, "data"))
+    jax_props = os.path.join(jax_props, "data")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fields = dict(render_s=f"{render_s:.1f}")
+    total = counts_of()
+
+    def add(counts, want, what):
+        assert counts == want, f"{what} launches {counts} != {want}"
+        for k, v in counts.items():
+            total[k] += v
+
+    # bf16: stage 1 over the split, scored
+    s1 = os.path.join(work, "stage1")
+    n_props, secs, counts = timed(cli_detect.main, [
+        "--model_dir", os.path.join(TRAINED, "stereo"), "--data_path",
+        val_root, "--output_dir", s1, "--device", str(dev)] + STAGE1_ARGS)
+    add(counts, counts_of(K3=VAL_FRAMES, K4=VAL_FRAMES), "stage 1")
+    assert len(os.listdir(os.path.join(s1, "data"))) == VAL_FRAMES
+    ap = cli_evaluate.main([gt_dir, s1, "--json"])
+    fields.update(
+        stage1_s=f"{secs:.1f}", stage1_proposals=n_props,
+        stage1_ap3d_mod=f"{moderate(ap)}/jax_tpu_bf16:"
+        f"{jax_run['ap3d_proposals'][1]}",
+        stage1_apbev_mod=f"{moderate(ap, 'detection_ground')}/jax_tpu_bf16:"
+        f"{jax_run['apbev_proposals'][1]}")
+
+    # bf16: stage 2 on JAX's proposals, then on the port's own
+    vdir = model_dir_with(os.path.join(TRAINED, "vernier"),
+                          os.path.join(work, "vernier_bf16"), **REFINE_FIELDS)
+    for tag, props in (("jax_props", jax_props),
+                       ("own_props", os.path.join(s1, "data"))):
+        b = refine_batches(val_root, props, vdir)
+        out = os.path.join(work, f"refined_{tag}")
+        res, secs, counts = timed(cli_refine.main, [
+            "--model_dir", vdir, "--data_path", val_root, "--pred_dir",
+            props, "--output_dir", out, "--pred_type", *PRED_TYPES,
+            "--evaluate", "--device", str(dev)])
+        add(counts, counts_of(K1=b, K2=3 * b), f"stage 2 {tag}")
+        fields[f"stage2_{tag}_s"] = f"{secs:.1f}"
+        fields[f"stage2_{tag}_batches"] = b
+        for pt in PRED_TYPES:
+            fields[f"{tag}_{pt}_ap3d_mod"] = (
+                f"{moderate(res[pt])}/jax_tpu_bf16:"
+                f"{jax_run[f'ap3d_refined_{pt}'][1]}")
+    refined_jax_props = os.path.join(work, "refined_jax_props")
+
+    # float32: stage 2 on JAX's proposals against witness (a)
+    failed = []
+    vdir32 = model_dir_with(os.path.join(TRAINED, "vernier"),
+                            os.path.join(work, "vernier_f32"),
+                            compute_dtype="float32", **REFINE_FIELDS)
+    b = refine_batches(val_root, jax_props, vdir32)
+    out32 = os.path.join(work, "refined_f32")
+    res, secs, counts = timed(cli_refine.main, [
+        "--model_dir", vdir32, "--data_path", val_root, "--pred_dir",
+        jax_props, "--output_dir", out32, "--pred_type", *PRED_TYPES,
+        "--evaluate", "--device", str(dev)])
+    add(counts, counts_of(K1=b), "stage 2 float32")
+    fields["stage2_f32_s"] = f"{secs:.1f}"
+    for pt in PRED_TYPES:
+        cmp = compare_ordered(os.path.join(out32, pt, "data"),
+                              os.path.join(WITNESS, pt, "data"))
+        want = witness["refine"][pt]["ap3d_jax"][1]
+        got = moderate(res[pt])
+        fields[f"f32_{pt}"] = (f"ap3d_mod:{got}/jax_cpu_f32:{want},"
+                               f"boxes:{cmp['boxes']},over_1e-3:"
+                               f"{cmp['over_tol']},max_diff:"
+                               f"{cmp['max_diff']:.2e}")
+        if not abs(got - want) <= 0.05:
+            failed.append(f"f32 {pt} AP3D {got} vs witness {want}")
+
+    # float32, cuDNN off: stage 1 on the first frames against witness (b)
+    s1_32 = os.path.join(work, "stage1_f32")
+    sdir32 = model_dir_with(os.path.join(TRAINED, "stereo"),
+                            os.path.join(work, "stereo_f32"),
+                            compute_dtype="float32")
+    torch.backends.cudnn.enabled = False
+    try:
+        _, secs, counts = timed(cli_detect.main, [
+            "--model_dir", sdir32, "--data_path", val_root, "--output_dir",
+            s1_32, "--max_frames", str(WITNESS_FRAMES), "--device",
+            str(dev)] + STAGE1_ARGS)
+    finally:
+        torch.backends.cudnn.enabled = True
+    add(counts, counts_of(K3=WITNESS_FRAMES, K4=WITNESS_FRAMES),
+        "stage 1 float32")
+    frames = sorted(f[:-4] for f in os.listdir(
+        os.path.join(WITNESS, "stage1", "data")))[:WITNESS_FRAMES]
+    assert len(frames) == WITNESS_FRAMES, frames
+    cmp = compare_matched(os.path.join(s1_32, "data"),
+                          os.path.join(WITNESS, "stage1", "data"), frames,
+                          STAGE1_THRESHOLD)
+    fields.update(stage1_f32_s=f"{secs:.1f}",
+                  stage1_f32=f"matched:{cmp['matched']},over_1e-3:"
+                  f"{cmp['over_tol']},max_diff:{cmp['max_diff']:.2e},"
+                  f"max_score_diff:{cmp['max_score_diff']:.2e}",
+                  stage1_f32_one_sided=repr(cmp["one_sided"]))
+    if cmp["over_tol"]:
+        failed.append(f"f32 stage 1: {cmp['over_tol']} boxes over 1e-3")
+    failed += [f"f32 stage 1: one-sided box {box}"
+               for box in cmp["one_sided"] if not box[3]]
+
+    # diagnose_refinement over the run's work dir (the port's proposals)
+    diag = os.path.join(work, "diag")
+    model_dir_with(os.path.join(TRAINED, "vernier"),
+                   os.path.join(diag, "vernier_ckpt"))
+    os.symlink(val_root, os.path.join(diag, "kitti_val"))
+    shutil.copytree(os.path.join(s1, "data"),
+                    os.path.join(diag, "proposals", "data"))
+    b = refine_batches(val_root, os.path.join(s1, "data"), vdir)
+    report, secs, counts = timed(diagnose_refinement.main,
+                                 ["--work_dir", diag, "--device", str(dev)])
+    add(counts, counts_of(K1=3 * b, K2=9 * b), "diagnose_refinement")
+    fields["diagnose_s"] = f"{secs:.1f}"
+    for key, row in report.items():
+        if key == "step":
+            continue
+        assert set(row) == {"center_med_m", "yaw_med_deg", "update_med_m",
+                            "n", "ap3d", "apbev", "ap3d_iou50"}, (key, row)
+        fields[f"diag_{key}"] = (
+            f"c{row['center_med_m']:.3f}/y{row['yaw_med_deg']:.2f}/"
+            f"u{row['update_med_m']:.3f}/n{row['n']}/"
+            f"ap3d{row['ap3d'][1]}/bev{row['apbev'][1]}")
+
+    # the visualisations
+    tv = time.perf_counter()
+    fields.update(check_viz(val_root, os.path.join(refined_jax_props,
+                                                   "all_parts", "data"),
+                            work))
+    fields["viz_s"] = f"{time.perf_counter() - tv:.1f}"
+    res, secs, counts = timed(cli_refine.main, [
+        "--model_dir", vdir, "--data_path", val_root, "--pred_dir",
+        jax_props, "--output_dir", os.path.join(work, "debug_run"),
+        "--pred_type", *PRED_TYPES, "--debug", "--device", str(dev)])
+    add(counts, counts_of(K1=1, K2=3), "--debug")
+    check_debug_panels(res["debug"], vdir, val_root, jax_props, dev)
+    fields["debug_s"] = f"{secs:.1f}"
+    phase("trained_two_stage", t, **fields, nvidia_smi=repr(nvidia_smi()),
+          note=repr("*_ap3d_mod: AP40 moderate, the port / JAX's witness; "
+                    "render_s: the val split drawn by a child process "
+                    "during the earlier phases; *_s: CLI wall seconds, "
+                    "model load and first call included"),
+          launches=json.dumps(total).replace(" ", ""))
+    assert not failed, f"trained_two_stage: {failed}"
+    return dict(counts=total)
+
+
 # ---------------------------------------------------------- parallel ----
 # Two gloo ranks share the one card (NCCL refuses two ranks on one GPU):
 # no scaling figure, the two processes share the card's SMs.
@@ -3782,6 +4168,8 @@ def main() -> int:
     t = time.perf_counter()
     secs = _build.build()
     phase("build", t, build_s=f"{secs:.2f}")
+    # phase trained_two_stage's val split, drawn on the host meanwhile
+    render = ValRender()
     for lib in _build.LIBRARIES:
         for fn, regs, spills, notes in ptxas_report(_build.build_log(lib)):
             print(f"  ptxas: {lib} {fn} registers={regs} spill_bytes={spills}"
@@ -3824,8 +4212,9 @@ def main() -> int:
         par = check_parallel(dev, train)["counts"]
         tp = check_tensor_parallel(gen, dev)["counts"]
         rel = check_release_checkpoint(dev, root)["counts"]
+        tts = check_trained_two_stage(dev, root, render)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + rel[k]
+    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + rel[k] + tts[k]
             for k in KERNELS}
 
     kernels = [

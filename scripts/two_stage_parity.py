@@ -26,10 +26,31 @@ build/two_stage_parity/result.json.  The recorded run's numbers
 all_parts 2.5984, AP3D moderate AP40) came from a bf16 TPU run: the
 proposals' value checks the tree and the evaluator; the refined value is a
 witness, not a gate.
+
+    python scripts/two_stage_parity.py --witness   # ~6 min
+
+also writes the witnesses the card's ``chip_smoke.py`` phase
+``trained_two_stage`` is held to, under
+artifacts/two_stage_r4_torch/witness/:
+  (a) ``one_part/data``, ``all_parts/data``: JAX's float32 CPU refinement
+      of the 181 committed proposals (step 3's output);
+  (b) ``stage1/data``: JAX's float32 CPU stage 1 (the trained StereoNet,
+      artifacts/two_stage_r4/stereo_ckpt) on the first STAGE1_FRAMES val
+      frames at demo_two_stage's stage-1 settings (``--max_proposals 8
+      --score_threshold 0.02 --nms_iou 0.25``), beside the port's stage 1
+      from the committed conversion (artifacts/two_stage_r4_torch/stereo)
+      on the CPU;
+  (c) ``witness.json``: both packages' CPU AP3D / APBEV (AP40) of (a) and
+      (b), the box comparisons (``snvc_tpu_torch/eval/witness.py``) and
+      the settings.
+The port's refinement here loads the committed conversion too
+(artifacts/two_stage_r4_torch/vernier; tests/test_torch_ckpt_vernier.py
+holds it to a fresh conversion bit for bit).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -42,10 +63,16 @@ if ROOT not in sys.path:
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 ART = os.path.join(ROOT, "artifacts", "two_stage_r4")
+CONVERTED = os.path.join(ROOT, "artifacts", "two_stage_r4_torch")
+WITNESS = os.path.join(CONVERTED, "witness")
 WORK = os.path.join(ROOT, "build", "two_stage_parity")
 PRED_TYPES = ("one_part", "all_parts")
 # box fields h w l x y z ry (KITTI label columns 8-14) agree within this
 FIELD_TOL = 1e-3
+# stage 1 as demo_two_stage ran it (its --max_proposals, --score_threshold,
+# --nms_iou), on the first STAGE1_FRAMES val frames
+STAGE1 = dict(max_boxes=8, score_threshold=0.02, nms_iou=0.25)
+STAGE1_FRAMES = 16
 
 
 def _infer_cfg(cfg):
@@ -67,13 +94,123 @@ def _ap3d(res):
     return res["car"]["detection_3d"]["ap40"]
 
 
-def main() -> dict:
+def _apbev(res):
+    return res["car"]["detection_ground"]["ap40"]
+
+
+def stage1_witness(val_root: str, gt_dir: str) -> dict:
+    """(b): JAX's and the port's float32 CPU stage 1 on the first
+    STAGE1_FRAMES val frames; JAX's files under WITNESS/stage1; both
+    scored, and the port's boxes matched to JAX's."""
+    import jax
+    import torch
+
+    from scripts.convert_jax_checkpoint import restore_jax_variables
+    from snvc_tpu.data.kitti import KittiDataset as JDataset
+    from snvc_tpu.eval.kitti_ap import run_kitti_eval as jeval
+    from snvc_tpu.inference.detect import DetectRunner as JDetect
+    from snvc_tpu_torch.config import StereoConfig
+    from snvc_tpu_torch.data.kitti import KittiDataset
+    from snvc_tpu_torch.eval.kitti_ap import run_kitti_eval
+    from snvc_tpu_torch.eval.witness import compare_matched, read_rows
+    from snvc_tpu_torch.inference.detect import DetectRunner
+    from snvc_tpu_torch.models.stereonet import StereoNet
+    from snvc_tpu_torch.tools._model_dir import read_model_dir
+
+    res = {}
+    jcfg, variables, step = restore_jax_variables(
+        os.path.join(ART, "stereo_ckpt"))
+    jcfg = jcfg.replace(compute_dtype="float32")
+    want = os.path.join(WITNESS, "stage1")
+    shutil.rmtree(want, ignore_errors=True)
+    t = time.perf_counter()
+    JDetect(jcfg, variables, **STAGE1).run(
+        JDataset(val_root, "val"), want, max_frames=STAGE1_FRAMES,
+        prefetch=0)
+    res["jax_s"] = round(time.perf_counter() - t, 1)
+    del variables
+    jax.clear_caches()
+
+    cfg, tree, tstep = read_model_dir(os.path.join(CONVERTED, "stereo"),
+                                      StereoConfig)
+    assert step == tstep == 4000
+    cfg = cfg.replace(compute_dtype="float32")
+    model = StereoNet(cfg, device="cpu")
+    model.load_state_dict(tree["model"], strict=True)
+    got = os.path.join(WORK, "stage1_port")
+    shutil.rmtree(got, ignore_errors=True)
+    t = time.perf_counter()
+    with torch.inference_mode():
+        DetectRunner(model, cfg, device="cpu", **STAGE1).run(
+            KittiDataset(val_root, "val"), got, max_frames=STAGE1_FRAMES,
+            prefetch=0)
+    res["port_s"] = round(time.perf_counter() - t, 1)
+    frames = sorted(f[:-4] for f in os.listdir(os.path.join(want, "data")))
+    assert len(frames) == STAGE1_FRAMES, frames
+    cmp = compare_matched(os.path.join(got, "data"),
+                          os.path.join(want, "data"), frames,
+                          STAGE1["score_threshold"], FIELD_TOL)
+    res.update({f"port_vs_jax_{k}": v for k, v in cmp.items()})
+    for name, d, ev in (("jax", want, jeval), ("port", got, run_kitti_eval)):
+        r = ev(gt_dir, d)
+        res[f"ap3d_{name}"], res[f"apbev_{name}"] = _ap3d(r), _apbev(r)
+    res["boxes_jax"] = sum(len(b) for b, _ in read_rows(
+        os.path.join(want, "data"), frames).values())
+    return res
+
+
+def write_witness(res, jout, tout, val_root, gt_dir, tcfg, jeval,
+                  teval) -> str:
+    """(a) JAX's refinement files under WITNESS, (b) ``stage1_witness``,
+    (c) witness.json; returns its path."""
+    import jax
+
+    refine = {}
+    for pt in PRED_TYPES:
+        dst = os.path.join(WITNESS, pt, "data")
+        shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
+        shutil.copytree(os.path.join(jout, pt, "data"), dst)
+        refine[pt] = dict(
+            boxes=res[f"{pt}_boxes"],
+            port_vs_jax_over_tol=res[f"{pt}_boxes_over_tol"],
+            ap3d_jax=res[f"{pt}_ap3d_jax"], ap3d_port=res[f"{pt}_ap3d_port"],
+            apbev_jax=_apbev(jeval(gt_dir, os.path.join(jout, pt))),
+            apbev_port=_apbev(teval(gt_dir, os.path.join(tout, pt))))
+    witness = dict(
+        note=f"JAX float32 on the CPU (jax {jax.__version__}); AP40 "
+        "[easy, moderate, hard] of the Car class",
+        val_tree=dict(frames=128, boxes_per_frame=3, seed=1000,
+                      split="val"),
+        refine=dict(proposals="artifacts/two_stage_r4/proposals/data",
+                    checkpoint="artifacts/two_stage_r4/vernier_ckpt (8000)",
+                    config=dict(usage=tcfg.usage, sup_type=tcfg.sup_type,
+                                augment=tcfg.augment,
+                                pred_type=list(tcfg.pred_type),
+                                ncf_decode=tcfg.ncf_decode,
+                                compute_dtype=tcfg.compute_dtype),
+                    field_tol=FIELD_TOL, **refine),
+        stage1=dict(checkpoint="artifacts/two_stage_r4/stereo_ckpt (4000)",
+                    frames=STAGE1_FRAMES, compute_dtype="float32",
+                    field_tol=FIELD_TOL, **STAGE1,
+                    **stage1_witness(val_root, gt_dir)))
+    path = os.path.join(WITNESS, "witness.json")
+    with open(path, "w") as fh:
+        json.dump(witness, fh, indent=1)
+    return path
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--witness", action="store_true",
+                   help="also write the witnesses under " + WITNESS)
+    args = p.parse_args(argv)
+
     import jax
     import numpy as np
     import torch
 
     jax.config.update("jax_platforms", "cpu")
-    from scripts.convert_jax_checkpoint import convert, restore_jax_variables
+    from scripts.convert_jax_checkpoint import restore_jax_variables
     from snvc_tpu.data.instance_db import build_db_from_predictions as jdb
     from snvc_tpu.data.kitti import KittiDataset as JDataset
     from snvc_tpu.data.pipeline import RefinementPipeline as JPipe
@@ -105,10 +242,9 @@ def main() -> dict:
     prop_dir = os.path.join(prop_res, "data")
     res = dict(render_s=round(time.perf_counter() - t0, 1))
 
-    # 2. convert, then load as the CLIs do
+    # 2. the committed conversion, loaded as the CLIs load it
     ckpt = os.path.join(ART, "vernier_ckpt")
-    model_dir = os.path.join(WORK, "vernier")
-    convert(ckpt, model_dir)
+    model_dir = os.path.join(CONVERTED, "vernier")
     tcfg = _infer_cfg(load_config(os.path.join(model_dir, "config.json"),
                                   VernierConfig))
     tree, step = load_checkpoint(model_dir)
@@ -168,6 +304,9 @@ def main() -> dict:
         proposals=rec["ap3d_proposals"],
         all_parts=rec["ap3d_refined_all_parts"],
         one_part=rec["ap3d_refined_one_part"])
+    if args.witness:
+        res["witness"] = write_witness(res, jout, tout, val_root, gt_dir,
+                                       tcfg, jeval, run_kitti_eval)
     os.makedirs(WORK, exist_ok=True)
     with open(os.path.join(WORK, "result.json"), "w") as fh:
         json.dump(res, fh, indent=1)

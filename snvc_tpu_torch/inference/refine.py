@@ -203,9 +203,12 @@ def _encode(model: VernierScale, grid_local: torch.Tensor,
 
 def to_host(out: Mapping, wanted) -> Dict:
     """``out`` with the tensors under the keys in ``wanted`` as numpy (a
-    dict of tensors, such as ``losses``, as a dict of numpy)."""
+    dict of tensors, such as ``losses``, as a dict of numpy; bfloat16,
+    which numpy lacks, as float32)."""
     def host(v):
         if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                v = v.float()
             return v.cpu().numpy()
         if isinstance(v, dict):
             return {k: host(x) for k, x in v.items()}

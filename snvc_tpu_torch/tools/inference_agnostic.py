@@ -10,10 +10,10 @@ write refined KITTI predictions, optionally score them.
 checkpoints: ``checkpoints/<step>.pt`` as ``train_vernier`` writes them,
 or ``<step>.pt`` beside the config.  ``--report_loss`` attaches each
 proposal's nearest GT box and prints the validation losses per batch.
-Runs on the card; ``--device cpu`` runs the plain PyTorch versions.  The
-JAX CLI's ``--debug`` (matplotlib renders of the NCF, occupancy and
-update, ``viz/debug.py``) is not ported: it waits for the visualisation
-item of ROADMAP.md's Queue 1, which draws without matplotlib.
+``--debug`` refines one batch only and renders its NCF, occupancy and
+BEV update panels as PNGs under ``<output_dir>/debug``
+(``viz/debug.render_debug_batch``, no matplotlib).  Runs on the card;
+``--device cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -41,14 +41,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="also compute val losses against GT")
     p.add_argument("--evaluate", action="store_true",
                    help="run the KITTI AP evaluator on the output")
+    p.add_argument("--debug", action="store_true",
+                   help="cap to 1 batch and render NCF / occupancy / update "
+                   "PNGs under <output_dir>/debug")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    """Returns {pred_type: evaluator dict} with ``--evaluate``, and
-    {"losses": one dict of losses a batch} with ``--report_loss``."""
+    """Returns {pred_type: evaluator dict} with ``--evaluate``,
+    {"losses": one dict of losses a batch} with ``--report_loss`` and
+    {"debug": {panel: PNG path}} with ``--debug``."""
     args = parse_args(argv)
 
     from snvc_tpu_torch.config import VernierConfig
@@ -82,13 +86,34 @@ def main(argv=None) -> dict:
                               load_lidar=args.report_loss)
     runner = RefineRunner(model, cfg, device=args.device)
     writer = PredictionWriter(cfg)
-    losses = runner.run(pipe, writer=writer, with_targets=args.report_loss,
-                        max_batches=args.max_batches, prefetch=args.prefetch)
+    if args.debug:
+        from snvc_tpu_torch.viz.debug import render_debug_batch
+
+        batch = next(iter(pipe.batches()))
+        out = runner.step(batch, with_targets=args.report_loss,
+                          host_outputs=runner.HOST_OUTPUTS
+                          + ("ncf", "occupancy"))
+        writer.add_batch(batch, out)
+        paths = render_debug_batch(batch, out,
+                                   os.path.join(args.output_dir, "debug"))
+        log.info(f"debug renders: {sorted(paths.values())}")
+        losses = ([{k: float(v) for k, v in out["losses"].items()}]
+                  if args.report_loss else [])
+        if losses:
+            log.info("losses: " + ", ".join(f"{k}={v:.4f}"
+                                            for k, v in losses[0].items()))
+    else:
+        losses = runner.run(pipe, writer=writer,
+                            with_targets=args.report_loss,
+                            max_batches=args.max_batches,
+                            prefetch=args.prefetch)
     calib_dir = ds.calib_dir if args.split == "test" else None
     out = writer.write(args.output_dir, calib_dir=calib_dir)
     log.info(f"wrote predictions under {out}")
 
     scores = {"losses": losses} if args.report_loss else {}
+    if args.debug:
+        scores["debug"] = paths
     if args.evaluate:
         from snvc_tpu_torch.eval.kitti_ap import run_kitti_eval
 

@@ -5,7 +5,9 @@ packages in float32 on the CPU on one seeded 96x320 pair over x +-4 m,
 z 4-16 m (the voxel sizes, ``ny`` and the planes fix the weight shapes and
 stay as trained): depth, cls, reg and centerness agree within 1e-4 of
 each output's scale (max |diff| over max |JAX|), the rule of
-test_torch_vernier.py.
+test_torch_vernier.py.  The committed conversion
+(artifacts/two_stage_r4_torch/stereo: 4000.pt, float32, the model alone,
+and config.json) equals the script's fresh conversion bit for bit.
 """
 
 import os
@@ -25,6 +27,8 @@ from snvc_tpu_torch.utils.convert_jax import convert_variables
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "two_stage_r4", "stereo_ckpt")
+COMMITTED = os.path.join(os.path.dirname(CKPT), os.pardir,
+                         "two_stage_r4_torch", "stereo")
 CUT = dict(input_size=(96, 320), x_min=-4.0, x_max=4.0, z_min=4.0,
            z_max=16.0, compute_dtype="float32")
 
@@ -76,3 +80,18 @@ def test_trained_stereo_checkpoint_matches_jax(tmp_path):
     assert out.endswith("4000.pt") and step == 4000
     for k, v in model.state_dict().items():
         assert torch.equal(tree["model"][k], v), k
+
+    # the committed conversion the card loads: the same keys in the same
+    # order, the same float32 bits, the same config, nothing else
+    committed = torch.load(os.path.join(COMMITTED, "4000.pt"),
+                           weights_only=True)
+    assert sorted(committed) == ["model", "step"]
+    assert committed["step"] == 4000
+    assert list(committed["model"]) == list(tree["model"])
+    for k, v in tree["model"].items():
+        assert committed["model"][k].dtype == torch.float32, k
+        assert torch.equal(committed["model"][k], v), k
+    assert sorted(os.listdir(COMMITTED)) == ["4000.pt", "config.json"]
+    with open(os.path.join(COMMITTED, "config.json")) as a, \
+            open(os.path.join(CKPT, "config.json")) as b:
+        assert a.read() == b.read()

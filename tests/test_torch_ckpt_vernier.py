@@ -3,7 +3,10 @@ step 8000: hrnet-tiny, an 8x48x48 grid, 128x128 ROIs) restored by the JAX
 package, converted with scripts/convert_jax_checkpoint.py, and run in both
 packages in float32 on the CPU on one seeded instance: the NCF, occupancy
 and part coordinates agree within 1e-4 of each output's scale (max |diff|
-over max |JAX|), the rule of test_torch_vernier.py.
+over max |JAX|), the rule of test_torch_vernier.py.  The committed
+conversion (artifacts/two_stage_r4_torch/vernier: 8000.pt, float32, the
+model alone, and config.json) equals the script's fresh conversion bit
+for bit.
 """
 
 import os
@@ -22,6 +25,8 @@ from snvc_tpu_torch.utils.convert_jax import convert_variables
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "two_stage_r4", "vernier_ckpt")
+COMMITTED = os.path.join(os.path.dirname(CKPT), os.pardir,
+                         "two_stage_r4_torch", "vernier")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,3 +76,18 @@ def test_trained_vernier_checkpoint_matches_jax(tmp_path):
     assert out.endswith("8000.pt") and step == 8000
     for k, v in model.state_dict().items():
         assert torch.equal(tree["model"][k], v), k
+
+    # the committed conversion the card loads: the same keys in the same
+    # order, the same float32 bits, the same config, nothing else
+    committed = torch.load(os.path.join(COMMITTED, "8000.pt"),
+                           weights_only=True)
+    assert sorted(committed) == ["model", "step"]
+    assert committed["step"] == 8000
+    assert list(committed["model"]) == list(tree["model"])
+    for k, v in tree["model"].items():
+        assert committed["model"][k].dtype == torch.float32, k
+        assert torch.equal(committed["model"][k], v), k
+    assert sorted(os.listdir(COMMITTED)) == ["8000.pt", "config.json"]
+    with open(os.path.join(COMMITTED, "config.json")) as a, \
+            open(os.path.join(CKPT, "config.json")) as b:
+        assert a.read() == b.read()

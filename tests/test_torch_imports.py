@@ -2,8 +2,8 @@
 card's machine lacks.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax``, ``snvc_tpu``, ``cv2``, ``PIL`` and
-``torchvision``, then imports every module of ``snvc_tpu_torch`` (the
+``flax``, ``optax``, ``orbax``, ``snvc_tpu``, ``cv2``, ``PIL``,
+``torchvision``, ``matplotlib`` and ``imageio``, then imports every module of ``snvc_tpu_torch`` (the
 CLIs included: importing one must not run it), ``chip_smoke`` and every
 script under ``scripts/`` but the two that convert and compare JAX
 checkpoints on a host with JAX (``SCRIPTS_WITH_JAX``).  Two more cases run
@@ -28,7 +28,7 @@ _GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "snvc_tpu", "cv2",
-           "PIL", "torchvision")
+           "PIL", "torchvision", "matplotlib", "imageio")
 SCRIPTS = sys.argv[1:]
 
 
@@ -170,6 +170,41 @@ def test_walk_covers_the_release_checkpoint_slice():
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "imported"
+
+
+def test_walk_covers_the_visualisations_and_diagnostics():
+    """The walk above imports the renders (viz), the visualize and
+    diagnose_refinement CLIs and the witness comparison; the renders run
+    too, with matplotlib and imageio refused."""
+    names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
+                                                   "snvc_tpu_torch.")}
+    assert {"snvc_tpu_torch.viz", "snvc_tpu_torch.viz.lidar",
+            "snvc_tpu_torch.viz.tracebox", "snvc_tpu_torch.viz.debug",
+            "snvc_tpu_torch.viz.points",
+            "snvc_tpu_torch.tools.visualize",
+            "snvc_tpu_torch.tools.diagnose_refinement",
+            "snvc_tpu_torch.eval.witness"} <= names
+    code = _GUARD.split("sys.meta_path.insert(0, Blocker())")[0] + r"""
+sys.meta_path.insert(0, Blocker())
+import os, tempfile
+import numpy as np
+from snvc_tpu_torch.geometry.calib import Calibration, KittiLabel
+from snvc_tpu_torch.viz import debug, lidar, tracebox
+d = tempfile.mkdtemp()
+box = np.array([1.5, 1.6, 3.9, 0.5, 1.65, 15.0, 0.3])
+tracebox.render_frame(np.zeros((375, 1242, 3), np.uint8),
+                      [KittiLabel("Car", 0.0, 0, 0.0, np.zeros(4), box)],
+                      Calibration.default(), os.path.join(d, "f.png"))
+debug.render_ncf(np.ones((1, 9, 8, 8), np.float32), os.path.join(d, "n.png"))
+lidar.top_view_image(lidar.lidar_to_top(np.ones((4, 4), np.float32)))
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not bad, bad
+print("rendered", len(os.listdir(d)))
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "rendered 2"
 
 
 def _no_ok_line(stdout: str) -> bool:
