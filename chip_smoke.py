@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # the check
     python3 chip_smoke.py --profile    # also profile one request of each
                                        # serving path and one training step
+                                       # (lines "profile_request")
 
 Phases, each printing one line with its elapsed seconds:
   1. device  - the card's name; nvidia-smi's name and power limit;
@@ -88,7 +89,11 @@ Phases, each printing one line with its elapsed seconds:
                within 2 bf16 ulp of the largest value (and the training
                shape in float32 within 1e-5 of it), with kernel (both
                launches) / plain / F.grid_sample-backward times, the
-               memory bound and the feature rows with work;
+               memory bound and the feature rows with work; then P's
+               gradient at the training shape (K4's forward, autograd of
+               the gather form) against the same on the CPU from the
+               plain forward, each row within 2 bf16 ulp of its largest
+               entry;
  16. stereo_train_reference - one training step of a tiny float32
                StereoNet (no SPP branches, cuDNN off) on the card against
                the same step on the CPU (losses, every gradient, BatchNorm
@@ -241,7 +246,14 @@ Phases, each printing one line with its elapsed seconds:
                when run alone): K3 = K4 = frames decoded, the coverage
                keys present, roiaware_pool3d on the card against the CPU
                (max and avg; avg twice gives the same bits).
- 28. trained_two_stage - JAX's trained two-stage run
+ 28. native_loader - the 256 PNGs of phase trained_two_stage's val split
+               decoded into the trained config's canvas by png.decode_png
+               + _place, by native_loader.decode_png_padded one view at a
+               time and by decode_batch_padded 8 views at a time: the
+               same bytes; ms a view each on the card's host beside
+               nproc; load_velodyne equals np.fromfile; a missing PNG
+               raises.
+ 29. trained_two_stage - JAX's trained two-stage run
                (artifacts/two_stage_r4) through the port's CLIs with the
                committed conversions of its checkpoints
                (artifacts/two_stage_r4_torch) over its 128-frame val split
@@ -268,11 +280,21 @@ Phases, each printing one line with its elapsed seconds:
                of a drawn edge drawn within 1 px); inference_agnostic
                --debug over one batch (K1 1, K2 3; the NCF panels'
                brightest pixels on their parts' argmax cells); each
-               stage's wall seconds.
+               stage's wall seconds beside those measured when each
+               view was decoded alone by data/png.py (the images now
+               come through the native loader).
+ 30. profile - tools/profile_vernier.py --config flagship --batch 4 and
+               tools/profile_stereo.py (StereoConfig(), bf16) in child
+               processes: every stage line and JSON printed, K1 / K2
+               (Vernier) and K3 / K4 (stereo) launched there; one
+               flagship refinement request under utils.profiling.trace
+               (K1 1, K2 3): its trace file names the K1 and K2 kernels;
+               device_memory_stats() after it, its peak printed.
 Then a {"kernels": [...]} line (launches: the serving, detect and
 training phases' counts plus train_cli's, variants', track's, demos',
-parallel's, tensor_parallel's, release_checkpoint's and
-trained_two_stage's), nvidia-smi's line, and as the last line
+parallel's, tensor_parallel's, release_checkpoint's,
+trained_two_stage's and profile's traced request's), nvidia-smi's line,
+and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before the last line; without CUDA the script exits non-zero at once.
 """
@@ -316,7 +338,7 @@ from snvc_tpu_torch.data.pipeline import RefinementPipeline
 from snvc_tpu_torch.data.png import decode_png, encode_png
 from snvc_tpu_torch.data.stereo import normalize_images, synthetic_stereo_request
 from snvc_tpu_torch.data.stereo_pipeline import StereoPipeline
-from snvc_tpu_torch.data import synthetic
+from snvc_tpu_torch.data import native_loader, synthetic
 from snvc_tpu_torch.data.synthetic import (
     IMG_H,
     IMG_W,
@@ -1011,7 +1033,8 @@ def profile_request(request) -> None:
               in enumerate(rows) if i < 40 or any(k in key for k in own)]
     for ln in lines:
         print(f"  profile: {ln}")
-    phase("profile", t, wall_ms=f"{wall_ms:.2f}", busy_ms=f"{busy_ms:.2f}")
+    phase("profile_request", t, wall_ms=f"{wall_ms:.2f}",
+          busy_ms=f"{busy_ms:.2f}")
 
 
 def check_reference(dev) -> None:
@@ -1688,6 +1711,14 @@ def k4_bwd_near_case(gen, dev):
     return P.to(dev), k4_tables(depths, zs, xs, ys, dev), g, (8, 32, 96)
 
 
+def k4_dP(vol, P, tabs, g):
+    """P's gradient of K4's wrapper (``FrustumK4``: the volume constant)
+    for the output gradient ``g``."""
+    P = P.clone().requires_grad_()
+    frustum_to_voxel_k4(vol, P, *tabs, 4).backward(g)
+    return P.grad
+
+
 def check_k4_bwd(gen, dev) -> dict:
     t = time.perf_counter()
     # small shapes, both dtypes: rows past both ends of the planes, columns
@@ -1740,6 +1771,16 @@ def check_k4_bwd(gen, dev) -> dict:
     err = assert_within_ulps(
         "K4_bwd train", got,
         frustum_to_voxel_separable_bwd(g, P, *tabs, (D, Hf, Wf), 4))
+    # P's gradient at the training shape: the kernel forward and the
+    # autograd of the gather form on the card against the plain forward
+    # and the same autograd on the CPU, under the same rule
+    vol = torch.randn((1, D, Hf, Wf, C), generator=gen).to(dev, torch.bfloat16)
+    dP = k4_dP(vol, P, tabs, g)
+    want = k4_dP(vol.cpu(), P.cpu(), [a.cpu() for a in tabs], g.cpu())
+    # row by row: the rows of dP differ in scale by orders of magnitude
+    dP_err = max(assert_within_ulps(f"K4 dP train row {r}", dP[:, r],
+                                    want[:, r].to(dev)) for r in range(3))
+    del vol
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: frustum_to_voxel_k4_bwd(g, P, *tabs, (D, Hf, Wf), 4),
                  20)
@@ -1762,6 +1803,8 @@ def check_k4_bwd(gen, dev) -> dict:
     phase("K4_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", f32_max_abs_err=f"{err32:.3e}",
+          dP_max_abs_err=f"{dP_err:.3e}",
+          dP_max_abs=f"{float(dP.abs().max()):.3e}",
           work_rows=f"{work_rows}/{work.numel()}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 library_ms=library_ms)
@@ -1982,9 +2025,10 @@ def check_two_stage(dev, root: str) -> dict:
     t = time.perf_counter()
     smi = nvidia_smi()
     tree = write_kitti_tree(root)
-    # g++ builds the PNG row filter at first use: time it apart
+    # g++ builds the native loader (and PNG row filter) at first use:
+    # time it apart
     t_png = time.perf_counter()
-    _build.build_host(_build.CSRC / "png_unfilter.cpp", shared=True)
+    native_loader.available()
     png_build_s = time.perf_counter() - t_png
     t_dec = time.perf_counter()
     decoded = {path: decode_png(path) for path in tree["images"]}
@@ -3061,13 +3105,18 @@ class ValRender:
     def __init__(self):
         self.root = tempfile.mkdtemp(prefix="snvc_val_")
         self.proc = start_val_render(self.root)
+        self.render_s = None
         atexit.register(self.close)
 
     def wait(self) -> float:
         """The render's wall seconds; raises if it failed."""
-        out, err = self.proc.communicate(timeout=600)
-        assert self.proc.returncode == 0, f"val render failed: {err[-2000:]}"
-        return float(json.loads(out.strip().splitlines()[-1])["render_s"])
+        if self.render_s is None:
+            out, err = self.proc.communicate(timeout=600)
+            assert self.proc.returncode == 0, \
+                f"val render failed: {err[-2000:]}"
+            self.render_s = float(
+                json.loads(out.strip().splitlines()[-1])["render_s"])
+        return self.render_s
 
     def close(self) -> None:
         if self.proc.poll() is None:
@@ -3240,7 +3289,8 @@ def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
     assert len(os.listdir(os.path.join(s1, "data"))) == VAL_FRAMES
     ap = cli_evaluate.main([gt_dir, s1, "--json"])
     fields.update(
-        stage1_s=f"{secs:.1f}", stage1_proposals=n_props,
+        stage1_s=f"{secs:.1f}/one_view:{ONE_VIEW_STAGE_S['stage1']}",
+        stage1_proposals=n_props,
         stage1_ap3d_mod=f"{moderate(ap)}/jax_tpu_bf16:"
         f"{jax_run['ap3d_proposals'][1]}",
         stage1_apbev_mod=f"{moderate(ap, 'detection_ground')}/jax_tpu_bf16:"
@@ -3258,7 +3308,8 @@ def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
             props, "--output_dir", out, "--pred_type", *PRED_TYPES,
             "--evaluate", "--device", str(dev)])
         add(counts, counts_of(K1=b, K2=3 * b), f"stage 2 {tag}")
-        fields[f"stage2_{tag}_s"] = f"{secs:.1f}"
+        fields[f"stage2_{tag}_s"] = (
+            f"{secs:.1f}/one_view:{ONE_VIEW_STAGE_S[f'stage2_{tag}']}")
         fields[f"stage2_{tag}_batches"] = b
         for pt in PRED_TYPES:
             fields[f"{tag}_{pt}_ap3d_mod"] = (
@@ -3278,7 +3329,8 @@ def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
         jax_props, "--output_dir", out32, "--pred_type", *PRED_TYPES,
         "--evaluate", "--device", str(dev)])
     add(counts, counts_of(K1=b), "stage 2 float32")
-    fields["stage2_f32_s"] = f"{secs:.1f}"
+    fields["stage2_f32_s"] = (
+        f"{secs:.1f}/one_view:{ONE_VIEW_STAGE_S['stage2_f32']}")
     for pt in PRED_TYPES:
         cmp = compare_ordered(os.path.join(out32, pt, "data"),
                               os.path.join(WITNESS, pt, "data"))
@@ -3361,10 +3413,167 @@ def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
           note=repr("*_ap3d_mod: AP40 moderate, the port / JAX's witness; "
                     "render_s: the val split drawn by a child process "
                     "during the earlier phases; *_s: CLI wall seconds, "
-                    "model load and first call included"),
+                    "model load and first call included; one_view: the "
+                    "same stage when png.py decoded each view alone"),
           launches=json.dumps(total).replace(" ", ""))
     assert not failed, f"trained_two_stage: {failed}"
     return dict(counts=total)
+
+
+# ------------------------------------------------------ native_loader ----
+LOADER_BATCH = 8  # views a decode_batch_padded call of the phase
+# the wall seconds of phase trained_two_stage's stages when data/png.py
+# decoded each view alone (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's
+ONE_VIEW_STAGE_S = dict(stage1=12.5, stage2_jax_props=9.5,
+                    stage2_own_props=9.1, stage2_f32=7.5)
+
+
+def check_native_loader(render: ValRender) -> None:
+    """Phase ``native_loader``: the 256 PNGs of phase trained_two_stage's
+    val split (both views of 128 frames) decoded three ways into the
+    trained Vernier config's canvas, which must give the same bytes:
+    ``png.decode_png`` + ``kitti._place`` (the plain reader), one view at
+    a time with ``native_loader.decode_png_padded``, and in batches of 8
+    with ``decode_batch_padded`` (its default 4 threads); ms a view of
+    each on the card's host, beside nproc.  One ``load_velodyne`` equals
+    ``np.fromfile``; a missing path raises."""
+    from snvc_tpu_torch.data.kitti import _place
+
+    t = time.perf_counter()
+    render.wait()
+    cfg = load_config(os.path.join(TRAINED, "vernier", "config.json"),
+                      VernierConfig)
+    hw = tuple(cfg.image_size)
+    train = os.path.join(render.root, "training")
+    paths = [os.path.join(train, d, n) for d in ("image_2", "image_3")
+             for n in sorted(os.listdir(os.path.join(train, d)))]
+    assert len(paths) == 2 * VAL_FRAMES, len(paths)
+    t_build = time.perf_counter()
+    native_loader.available()
+    build_s = time.perf_counter() - t_build
+
+    def ms_a_view(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3 / len(paths)
+
+    plain, plain_ms = ms_a_view(lambda: np.stack(
+        [_place(decode_png(p), hw) for p in paths]))
+    single, single_ms = ms_a_view(lambda: np.stack(
+        [native_loader.decode_png_padded(p, hw) for p in paths]))
+    batch, batch_ms = ms_a_view(lambda: np.concatenate(
+        [native_loader.decode_batch_padded(paths[i:i + LOADER_BATCH], hw)
+         for i in range(0, len(paths), LOADER_BATCH)]))
+    assert np.array_equal(single, plain), "decode_png_padded != decode_png"
+    assert np.array_equal(batch, plain), "decode_batch_padded != decode_png"
+    velo = os.path.join(train, "velodyne", "000000.bin")
+    assert np.array_equal(native_loader.load_velodyne(velo),
+                          np.fromfile(velo, np.float32).reshape(-1, 4))
+    missing = os.path.join(train, "image_2", "missing.png")
+    for fn in (lambda: native_loader.decode_png_padded(missing, hw),
+               lambda: native_loader.decode_batch_padded([paths[0], missing],
+                                                         hw)):
+        try:
+            fn()
+        except FileNotFoundError:
+            continue
+        raise AssertionError("a missing PNG did not raise")
+    phase("native_loader", t, views=len(paths), canvas=f"{hw[0]}x{hw[1]}",
+          png_py_ms_per_view=f"{plain_ms:.2f}",
+          single_ms_per_view=f"{single_ms:.2f}",
+          batch8_ms_per_view=f"{batch_ms:.2f}", nproc=os.cpu_count(),
+          build_s=f"{build_s:.2f}", nvidia_smi=repr(nvidia_smi()),
+          note=repr("host wall ms a view, file reads warm (the render "
+                    "wrote them); the three decodes give the same bytes"))
+
+
+# ------------------------------------------------------------ profile ----
+# a profiler's run in a child process, then the launches of the path's
+# kernels in that process (each wrapper's counter starts at 0 there)
+PROFILE_CHILD = (
+    "import json, sys\n"
+    "from snvc_tpu_torch.tools import {tool} as tool\n"
+    "from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample\n"
+    "from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap\n"
+    "from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3\n"
+    "from snvc_tpu_torch.ops.frustum import frustum_to_voxel_k4\n"
+    "tool.main(sys.argv[1:])\n"
+    "print(json.dumps({{'launches': dict(\n"
+    "    K1=stereo_voxel_sample.launches, K2=conv3d_large_tap.launches,\n"
+    "    K3=plane_sweep_volume_k3.launches,\n"
+    "    K4=frustum_to_voxel_k4.launches)}}))\n")
+
+
+def run_profiler(tool: str, args, want) -> dict:
+    """``tools/<tool>.py args`` in a child process: its stage lines and
+    JSON printed here; its kernel launches (printed after its run) must
+    include every kernel of ``want``.  Returns the tool's JSON."""
+    res = subprocess.run(
+        [sys.executable, "-c", PROFILE_CHILD.format(tool=tool), *args],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, f"{tool} failed:\n{res.stderr[-4000:]}"
+    lines = res.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"  {tool}: {ln}")
+    report = json.loads(lines[-2])
+    launches = json.loads(lines[-1])["launches"]
+    moved = {k: v for k, v in launches.items() if v}
+    assert all(launches[k] > 0 for k in want), f"{tool} launches {launches}"
+    print(f"  {tool}: launches {json.dumps(moved)}")
+    return report
+
+
+def check_profile(dev, root: str) -> dict:
+    """Phase ``profile``: the two profilers in child processes at full
+    width (profile_vernier --config flagship --batch 4: K1 and K2 move;
+    profile_stereo at StereoConfig() bf16: K3 and K4 move), then one
+    flagship refinement request (seeded weights, after a warm-up) under
+    ``utils.profiling.trace``: its trace file must name the K1 and K2
+    CUDA kernels; ``device_memory_stats()`` after it, with its peak.
+    Returns the request's launches."""
+    from snvc_tpu_torch.utils import profiling
+
+    t = time.perf_counter()
+    vern = run_profiler("profile_vernier", ["--config", "flagship",
+                                            "--batch", "4"], ("K1", "K2"))
+    ster = run_profiler("profile_stereo", [], ("K3", "K4"))
+    cfg = flagship_vernier_config()
+    model = VernierScale(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    runner = RefineRunner(model, cfg, device=dev)
+    batch = synthetic_batch_arrays(cfg, seed=5)
+    runner.step(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    log_dir = os.path.join(root, "profile_trace")
+    with profiling.trace(log_dir):
+        out = runner.step(batch)
+    counts = read_counts()
+    assert counts == counts_of(K1=1, K2=3), f"traced request {counts}"
+    assert np.isfinite(out["all_parts"]).all()
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as fh:
+        kernels = {e["name"] for e in json.load(fh)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for want in ("stereo_voxel_sample", "conv3d_large_tap"):
+        assert any(want in k for k in kernels), \
+            f"trace names no {want} kernel: {sorted(kernels)[:20]}"
+    mem = profiling.device_memory_stats()
+    peak = mem[str(dev)]["allocated_bytes.all.peak"]
+    del runner, model
+    torch.cuda.empty_cache()
+    phase("profile", t,
+          vernier_sum_of_stages_ms=vern["sum_of_stages_ms"],
+          vernier_encoder_full_ms=vern["encoder_full"],
+          stereo_full_model_ms=ster["full_model_ms"],
+          stereo_accounted_ms=ster["accounted_ms"],
+          trace_kernels=len(kernels), trace_file=repr(name),
+          peak_allocated_mib=f"{peak:.1f}",
+          memory_keys=len(mem[str(dev)]), nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(counts).replace(" ", ""))
+    return dict(counts=counts)
 
 
 # ---------------------------------------------------------- parallel ----
@@ -4212,10 +4421,12 @@ def main() -> int:
         par = check_parallel(dev, train)["counts"]
         tp = check_tensor_parallel(gen, dev)["counts"]
         rel = check_release_checkpoint(dev, root)["counts"]
+        check_native_loader(render)
         tts = check_trained_two_stage(dev, root, render)["counts"]
+        prof = check_profile(dev, root)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
     late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + rel[k] + tts[k]
-            for k in KERNELS}
+            + prof[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

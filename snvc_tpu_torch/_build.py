@@ -8,7 +8,7 @@ hash covers the source, the shared headers (``csrc/*.cuh``) and the flags;
 PyTorch headers are included, so a build takes seconds.  Nothing here runs
 at import time: the first kernel call builds what is missing.
 
-``build_host`` compiles the host-side C++ (the PNG row filter, the KITTI
+``build_host`` compiles the host-side C++ (the PNG loader, the KITTI
 evaluator) with the host compiler into the same directory, keyed the same
 way.
 """
@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -124,14 +124,16 @@ def build(names=LIBRARIES) -> float:
 HOST_FLAGS = ["-O2", "-std=c++17"]
 
 
-def build_host(source: Path, shared: bool) -> Path:
+def build_host(source: Path, shared: bool, libs: Sequence[str] = ()
+               ) -> Path:
     """Compile the host C++ file ``source`` with g++ into
     ``BUILD_DIR/<stem>_<hash>`` (a shared library with ``shared``, else an
-    executable), unless it is built already; the hash covers the source
-    and the flags.  Raises RuntimeError with the compiler's output."""
+    executable), linked with ``libs`` (``-l`` flags), unless it is built
+    already; the hash covers the source, the flags and the libraries.
+    Raises RuntimeError with the compiler's output."""
     flags = HOST_FLAGS + (["-shared", "-fPIC"] if shared else [])
     h = hashlib.sha256(Path(source).read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(flags + list(libs)).encode())
     out = BUILD_DIR / (f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
                        if shared else
                        f"{Path(source).stem}_{h.hexdigest()[:16]}")
@@ -142,7 +144,7 @@ def build_host(source: Path, shared: bool) -> Path:
         raise RuntimeError("g++ not found: it builds " + str(source))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
+    res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source), *libs],
                          capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)

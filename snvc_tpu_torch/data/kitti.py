@@ -7,8 +7,10 @@ One index-addressed accessor over the standard KITTI object layout:
       testing/  image_2/ image_3/ calib/ velodyne/
       train.txt val.txt trainval.txt test.txt
 
-Images are read by ``data/png.py`` (no cv2, no libpng): the same pixels
-as the JAX package's cv2 and libpng readers give for KITTI's 8-bit PNGs.
+Images are decoded by the native loader (``data/native_loader.py``,
+``csrc/dataloader.cpp``: zlib, no cv2, no libpng) straight into their
+padded canvases, as the JAX package's ``load_image_padded`` decodes them
+with its libpng loader: the same pixels for KITTI's 8-bit PNGs.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from snvc_tpu_torch.data.png import decode_png, png_size, resize_area
+from snvc_tpu_torch.data import native_loader
+from snvc_tpu_torch.data.png import png_size, resize_area
 from snvc_tpu_torch.geometry.calib import Calibration, KittiLabel, read_label
 
 
@@ -88,17 +91,20 @@ class KittiScene:
             self._native_hw = png_size(self.left_image_path)
         return self._native_hw
 
+    def image_path(self, camera: str) -> str:
+        return (self.left_image_path if camera == "left"
+                else self.right_image_path)
+
     def load_image(self, camera: str = "left") -> np.ndarray:
         """RGB uint8 [H, W, 3]."""
-        path = (self.left_image_path if camera == "left"
-                else self.right_image_path)
-        if not os.path.exists(path):
-            raise FileNotFoundError(path)
-        return decode_png(path)
+        path = self.image_path(camera)
+        return native_loader.decode_png_padded(path, png_size(path))
 
     def load_image_padded(self, camera: str, out_hw) -> np.ndarray:
-        """RGB uint8 [out_h, out_w, 3], zero padded / cropped."""
-        return _place(self.load_image(camera), out_hw)
+        """RGB uint8 [out_h, out_w, 3], zero padded / cropped, decoded
+        straight into the canvas by the native loader."""
+        return native_loader.decode_png_padded(self.image_path(camera),
+                                               out_hw)
 
     def load_image_scaled(self, camera: str, out_hw):
         """(RGB uint8 [out_h, out_w, 3], s): an aspect-preserving area

@@ -16,6 +16,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from snvc_tpu_torch.config import VernierConfig
+from snvc_tpu_torch.data import native_loader
 from snvc_tpu_torch.data.instance_db import InstanceRecord, perturb_box
 from snvc_tpu_torch.geometry import boxes as gbox
 from snvc_tpu_torch.geometry import imgproc
@@ -164,16 +165,19 @@ class RefinementPipeline:
             raise ValueError(f"group of {len(frame_recs)} frames exceeds "
                              f"frames_per_batch={F}")
 
-        images_left = np.zeros((F, img_h, img_w, 3), np.uint8)
-        images_right = np.zeros((F, img_h, img_w, 3), np.uint8)
+        # both views of every frame in one native batch decode into the
+        # [2F] canvases (slots past the group's frames stay 0)
+        pad = [None] * (F - len(frame_recs))
+        images = native_loader.decode_batch_padded(
+            [r.scene.left_image_path for r in frame_recs] + pad
+            + [r.scene.right_image_path for r in frame_recs] + pad,
+            (img_h, img_w))
+        images_left, images_right = images[:F], images[F:]
         P_left = np.tile(np.eye(3, 4, dtype=np.float32), (F, 1, 1))
         P_right = P_left.copy()
         pc_rects = [None] * F
         for fi, rec in enumerate(frame_recs):
             scene = rec.scene
-            images_left[fi] = scene.load_image_padded("left", (img_h, img_w))
-            images_right[fi] = scene.load_image_padded("right",
-                                                       (img_h, img_w))
             P_left[fi] = rec.calib_left.as_array()
             P_right[fi] = rec.calib_right.as_array()
             if self.load_lidar:

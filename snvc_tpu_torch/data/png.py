@@ -8,39 +8,27 @@ has neither.  ``decode_png`` gives what ``cv2.imread(path, IMREAD_COLOR)``
 followed by ``COLOR_BGR2RGB`` gives for the files it takes: 8-bit RGB or
 RGBA (alpha dropped), not interlaced, with any of the five row filters.
 Anything else raises ``ValueError``.  The row reconstruction is a
-sequential loop per row, so it runs in ``csrc/png_unfilter.cpp``, built
-with the host compiler at first use (``_build.build_host``).
+sequential loop per row, so it runs in the native loader's library
+(``snvc_png_unfilter`` of ``csrc/dataloader.cpp``, built at first use by
+``data/native_loader.py``).  The loader decodes the same files without
+Python in the pixel path; ``decode_png`` is its plain version.
 """
 
 from __future__ import annotations
 
-import ctypes
 import struct
 import zlib
-from typing import Dict, Sequence, Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 
-from snvc_tpu_torch import _build
+from snvc_tpu_torch.data import native_loader
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> bytes per pixel at bit depth 8 (2: RGB, 6: RGBA)
 _BPP = {2: 3, 6: 4}
-
-_lib: Dict[str, ctypes.CDLL] = {}
-
-
-def _unfilter_lib() -> ctypes.CDLL:
-    lib = _lib.get("png")
-    if lib is None:
-        lib = ctypes.CDLL(str(_build.build_host(
-            _build.CSRC / "png_unfilter.cpp", shared=True)))
-        lib.snvc_png_unfilter.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int]
-        lib.snvc_png_unfilter.restype = ctypes.c_int
-        _lib["png"] = lib
-    return lib
+# the largest side read (libpng's default limit, as csrc/dataloader.cpp)
+MAX_SIDE = 1000000
 
 
 def _chunks(data: bytes, path: str):
@@ -92,6 +80,9 @@ def decode_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: interlaced or non-standard PNG "
                          f"(compression {comp}, filter {filt}, "
                          f"interlace {interlace})")
+    if not (0 < w <= MAX_SIDE and 0 < h <= MAX_SIDE):
+        raise ValueError(f"{path}: {w} x {h} pixels; each side must be 1 "
+                         f"to {MAX_SIDE}")
     bpp = _BPP[color]
     stride = w * bpp
     raw = zlib.decompress(b"".join(idat))
@@ -100,7 +91,7 @@ def decode_png(path: str) -> np.ndarray:
                          f"{h * (stride + 1)} expected")
     src = np.frombuffer(raw, np.uint8)
     out = np.empty((h, w, bpp), np.uint8)
-    bad = _unfilter_lib().snvc_png_unfilter(
+    bad = native_loader.library().snvc_png_unfilter(
         src.ctypes.data, out.ctypes.data, h, stride, bpp)
     if bad:
         raise ValueError(f"{path}: row {bad - 1} has filter type "

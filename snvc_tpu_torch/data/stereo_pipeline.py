@@ -1,8 +1,9 @@
 """Frame-level batching for the global stereo detector (port of
 snvc_tpu/data/stereo_pipeline.py).
 
-Host work per frame: decode the stereo pair (``data/png.py``), downscale
-and pad to the static input size, parse calib / labels, and rasterize a
+Host work per frame: decode the stereo pair, downscale and pad to the
+static input size (the views of a batch that fit it decode in one
+native batch, ``data/native_loader.py``), parse calib / labels, and rasterize a
 sparse GT depth map from LiDAR (``data/stereo.rasterize_depth``).  With
 ``augment_flip`` a training frame may be flipped exactly: the world and
 both images mirrored, the views swapped.
@@ -11,12 +12,14 @@ both images mirrored, the views swapped.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 from snvc_tpu_torch.config import StereoConfig
-from snvc_tpu_torch.data.kitti import KittiDataset
+from snvc_tpu_torch.data import native_loader
+from snvc_tpu_torch.data.kitti import KittiDataset, KittiScene
+from snvc_tpu_torch.data.png import png_size
 from snvc_tpu_torch.data.stereo import rasterize_depth
 from snvc_tpu_torch.geometry.calib import CLASS_IDS, filter_annotations
 
@@ -44,6 +47,21 @@ class StereoBatch:
             gt_classes=self.gt_classes,
             depth_gt=self.depth_gt,
         )
+
+
+def load_views_scaled(views: Sequence[Tuple[KittiScene, str]], out_hw
+                      ) -> List[Tuple[np.ndarray, float]]:
+    """``scene.load_image_scaled(camera, out_hw)`` of each (scene, camera):
+    the views that fit the canvas (s = 1) decode in one
+    ``decode_batch_padded`` call, the others one at a time through
+    ``load_image_scaled``'s area downscale."""
+    fits = [h <= out_hw[0] and w <= out_hw[1] for h, w in
+            (png_size(sc.image_path(cam)) for sc, cam in views)]
+    direct = native_loader.decode_batch_padded(
+        [sc.image_path(cam) if f else None
+         for (sc, cam), f in zip(views, fits)], out_hw)
+    return [(direct[i], 1.0) if f else sc.load_image_scaled(cam, out_hw)
+            for i, ((sc, cam), f) in enumerate(zip(views, fits))]
 
 
 class StereoPipeline:
@@ -111,15 +129,16 @@ class StereoPipeline:
         classes = np.zeros((B, G), np.int32)
         depth = np.full((B, H // 4, W // 4), -1.0, np.float32)
         names = []
-        for b, idx in enumerate(frame_indices):
-            scene = self.ds.scene(idx)
+        scenes = [self.ds.scene(idx) for idx in frame_indices]
+        # aspect-preserving downscale when the target resolution is below
+        # native, with the projection scaled to match (reduced-resolution
+        # training keeps full-frame geometry)
+        views = load_views_scaled(
+            [(sc, cam) for cam in ("left", "right") for sc in scenes], (H, W))
+        for b, scene in enumerate(scenes):
             names.append(scene.name)
             flip = bool(flips[b]) if flips is not None else False
-            # aspect-preserving downscale when the target resolution is
-            # below native, with the projection scaled to match (reduced-
-            # resolution training keeps full-frame geometry)
-            iml, s = scene.load_image_scaled("left", (H, W))
-            imr, _ = scene.load_image_scaled("right", (H, W))
+            (iml, s), (imr, _) = views[b], views[B + b]
             cl = scene.calibration("left")
             cr = scene.calibration("right")
             S = np.diag([s, s, 1.0]).astype(np.float32)

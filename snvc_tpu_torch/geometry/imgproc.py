@@ -1,5 +1,7 @@
-"""Affine ROI-crop math (the part of snvc_tpu/geometry/imgproc.py the
-serving path uses): keypoints -> crop box -> 2x3 source->ROI affine."""
+"""Affine ROI-crop math and heatmaps, host numpy (port of
+snvc_tpu/geometry/imgproc.py): keypoints -> crop box -> 2x3 source->ROI
+affine, the inverse and application of 2x3 affines, and the dense 2D
+gaussian dot."""
 
 from __future__ import annotations
 
@@ -35,3 +37,32 @@ def roi_crop_transform(kpts_2d, out_hw: Tuple[int, int],
     """Keypoints -> 2x3 source->ROI affine, using out_hw's aspect ratio."""
     c, s = points_to_crop(kpts_2d, enlarge, out_hw[0] / out_hw[1])
     return crop_affine(c, s, out_hw)
+
+
+def invert_affine(t: np.ndarray) -> np.ndarray:
+    """Invert a 2x3 affine."""
+    Ai = np.linalg.inv(t[:, :2])
+    return np.concatenate([Ai, (-Ai @ t[:, 2])[:, None]], axis=1)
+
+
+def apply_affine(pts, t) -> np.ndarray:
+    """Apply 2x3 affine(s) t [..., 2, 3] to points [..., N, 2] ->
+    [..., N, 2] (row-major points, where the reference returns [2, N])."""
+    pts, t = np.asarray(pts), np.asarray(t)
+    return (np.einsum("...ij,...nj->...ni", t[..., :2], pts)
+            + t[..., None, :, 2])
+
+
+def gaussian_heatmap_2d(shape_hw, center_xy, sigma: float) -> np.ndarray:
+    """Dense 2D gaussian dot exp(-d^2 / (2 sigma^2)) over an (h, w) grid,
+    zero outside the square |dx|, |dy| <= 3 sigma, the window the
+    reference blits (KITTIRefinement_dataset.py:666-702)."""
+    h, w = shape_hw
+    ys = np.arange(h).reshape(h, 1)
+    xs = np.arange(w).reshape(1, w)
+    mx, my = center_xy
+    dx2 = (xs - mx) ** 2
+    dy2 = (ys - my) ** 2
+    g = np.exp(-(dx2 + dy2) / (2.0 * sigma ** 2))
+    r2 = float((3 * sigma) ** 2)
+    return np.where((dx2 <= r2) & (dy2 <= r2), g, 0.0)

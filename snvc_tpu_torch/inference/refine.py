@@ -1,5 +1,6 @@
 """Refinement serving runner (port of snvc_tpu/inference/refine.py:89-118,
-:126-311, ``RefineRunner.step`` and ``run``), on one device or a mesh.
+:126-311, ``RefineRunner.step`` and ``run``), on one device or a mesh, and
+``refinement_step`` (refine.py:39-61), the same step as one function.
 
 One step has the JAX runner's three parts:
   1. ``encode``: ``assemble_instances`` (ROI warps + grid projections) and
@@ -11,6 +12,10 @@ One step has the JAX runner's three parts:
      ``ncf_decode="coordinates"``, as JAX does), and with
      ``with_targets`` the training targets and ``vernier_losses`` against
      the batch's GT boxes and LiDAR (validation losses).
+
+``refinement_step`` runs assemble -> the model's forward -> ``finalize``
+on one device; the runner keeps its split (it gathers the head outputs
+of a mesh before ``finalize``), and both call the one ``finalize``.
 
 ``run`` serves a ``RefinementPipeline`` into a ``PredictionWriter``, with
 up to ``prefetch`` batches queued on the card before the oldest one's
@@ -111,26 +116,6 @@ class RefineRunner:
             [p[k].to(self.device, non_blocking=True) for p in parts])
             for k in parts[0]}
 
-    def finalize(self, outputs, arrays, with_targets: bool = False
-                 ) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        upd = ncf_to_update(
-            outputs["ncf"], arrays["samples"], cfg.x_range, cfg.z_range,
-            coordinates=outputs.get("coordinates"),
-            filter_min=cfg.filter_min, filter_max=cfg.filter_max,
-            decode=cfg.ncf_decode)
-        out = dict(one_part=upd.one_part, all_parts=upd.all_parts,
-                   confidence=upd.confidence, keep=upd.keep,
-                   occupancy=outputs.get("occupancy"), ncf=outputs["ncf"],
-                   coordinates=outputs.get("coordinates"))
-        if with_targets:
-            targets = make_targets(arrays["samples"], arrays["gt_boxes"],
-                                   arrays["points"], arrays["points_valid"],
-                                   self.grid_local, cfg)
-            out["losses"] = vernier_losses(outputs, targets, arrays["valid"],
-                                           cfg)
-        return out
-
     def step(self, batch: Union[InstanceBatch, Mapping[str, np.ndarray]],
              with_targets: bool = False, host_outputs=None) -> Dict:
         """One refinement request.  Returns the outputs dict; the keys in
@@ -148,7 +133,8 @@ class RefineRunner:
             arrays = self._to_device(batch, with_targets)
             outputs = (self.heads(self.encode(arrays)) if self.mesh is None
                        else self._sharded_heads(arrays))
-            out = self.finalize(outputs, arrays, with_targets)
+            out = finalize(outputs, arrays, self.cfg, self.grid_local,
+                           with_targets)
         wanted = self.HOST_OUTPUTS if host_outputs is None else host_outputs
         return to_host(out, wanted)
 
@@ -190,15 +176,58 @@ class RefineRunner:
         return loss_log
 
 
-def _encode(model: VernierScale, grid_local: torch.Tensor,
-            arrays: Mapping[str, torch.Tensor],
-            cfg: VernierConfig) -> torch.Tensor:
-    left, right, gpl, gpr = assemble_instances(
+def refinement_step(model: VernierScale, batch: Mapping[str, torch.Tensor],
+                    cfg: VernierConfig, grid_local: torch.Tensor,
+                    with_targets: bool = False) -> Dict[str, torch.Tensor]:
+    """One refinement step as one function (JAX refine.py:39-61, the
+    training / dry-run path): ``assemble_instances`` -> ``model`` ->
+    ``finalize``, on the tensors of ``batch`` (the arrays of an
+    ``InstanceBatch`` on the model's device; with ``with_targets`` also
+    ``valid``, ``gt_boxes``, ``points`` and ``points_valid``).  Takes the
+    port's module where JAX takes ``params``; differentiable when grad
+    mode is on.  ``RefineRunner.step`` serves the same three parts."""
+    left, right, gpl, gpr = _assemble(grid_local, batch, cfg)
+    return finalize(model(left, right, gpl, gpr), batch, cfg, grid_local,
+                    with_targets)
+
+
+def finalize(outputs, arrays: Mapping[str, torch.Tensor],
+             cfg: VernierConfig, grid_local: torch.Tensor,
+             with_targets: bool = False) -> Dict[str, torch.Tensor]:
+    """Head outputs -> the refined boxes (``ncf_to_update``: one_part,
+    all_parts, confidence, keep) beside the dense outputs, and with
+    ``with_targets`` the ``losses`` against the batch's GT and LiDAR
+    (JAX refine.py:_finalize)."""
+    upd = ncf_to_update(
+        outputs["ncf"], arrays["samples"], cfg.x_range, cfg.z_range,
+        coordinates=outputs.get("coordinates"),
+        filter_min=cfg.filter_min, filter_max=cfg.filter_max,
+        decode=cfg.ncf_decode)
+    out = dict(one_part=upd.one_part, all_parts=upd.all_parts,
+               confidence=upd.confidence, keep=upd.keep,
+               occupancy=outputs.get("occupancy"), ncf=outputs["ncf"],
+               coordinates=outputs.get("coordinates"))
+    if with_targets:
+        targets = make_targets(arrays["samples"], arrays["gt_boxes"],
+                               arrays["points"], arrays["points_valid"],
+                               grid_local, cfg)
+        out["losses"] = vernier_losses(outputs, targets, arrays["valid"], cfg)
+    return out
+
+
+def _assemble(grid_local: torch.Tensor, arrays: Mapping[str, torch.Tensor],
+              cfg: VernierConfig):
+    return assemble_instances(
         arrays["images_left"], arrays["images_right"],
         arrays["image_idx"], arrays["trans_l"], arrays["trans_r"],
         arrays["samples"], arrays["P_left"], arrays["P_right"],
         grid_local, cfg)
-    return model.encoder(left, right, gpl, gpr)
+
+
+def _encode(model: VernierScale, grid_local: torch.Tensor,
+            arrays: Mapping[str, torch.Tensor],
+            cfg: VernierConfig) -> torch.Tensor:
+    return model.encoder(*_assemble(grid_local, arrays, cfg))
 
 
 def to_host(out: Mapping, wanted) -> Dict:

@@ -4,8 +4,8 @@ mask.  ``vernier_losses`` is what every Vernier head trains with: the
 heatmap term (BEV maps or the ``3D`` head's fields: the masked means
 take any rank), and the occupancy, coordinate, part-offset and FC bbox
 terms of the heads that give those outputs.  The 3D bbox loss, its
-approximate 3D IoU and the disentangled corner loss are ported beside
-them; no training path of either package calls them.
+approximate 3D IoU, the disentangled corner loss and the shape-code L1
+are ported beside them; no training path of either package calls them.
 
 With a process-group ``mesh`` (parallel/api.py) each masked mean divides
 this rank's masked sum by the count of the global batch, so the global
@@ -105,6 +105,13 @@ def coordinate_loss(coords_pred, gt_corners_local, valid, x_range, z_range,
     gz = (gt_corners_local[..., 2] - z_range[0]) / (z_range[1] - z_range[0])
     err = (coords_pred - torch.stack([gx, gz], dim=-1)).abs()
     return weight_l1 * _masked_mean(err, _per_instance(valid, err), mesh)
+
+
+def shape_loss(shape_pred, shape_target, valid, scaling: float = 1e4):
+    """L1 on shape codes, the target divided by ``scaling`` (JAX
+    losses.py:92, the reference's ShapeLoss, loss3d.py:603-612)."""
+    err = (shape_pred - shape_target / scaling).abs()
+    return _masked_mean(err, _per_instance(valid, err))
 
 
 def vernier_losses(outputs: Dict, targets: Dict, valid, cfg,

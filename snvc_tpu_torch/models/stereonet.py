@@ -34,7 +34,7 @@ The BEV head runs whole on every model rank.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -213,34 +213,59 @@ class StereoHead(nn.Module):
         for name, v in (("feature height (input_size[0]/4)", lf.shape[1]),
                         ("feature width (input_size[1]/4)", lf.shape[2])):
             _check_div4(name, v)
-        depths = levels = self.depths
         Pl = P_left.float()
-        shifts = plane_shifts(Pl, P_right, depths)
+        shifts = plane_shifts(Pl, P_right, self.depths)
         mesh = self.tp_mesh
+        levels = None
         if mesh is not None:
             check_split("num_depths", cfg.num_depths, mesh, Hourglass.levels)
             d0, d1 = split_range(cfg.num_depths, mesh)
-            shifts, levels = shifts[:, d0:d1].contiguous(), depths[d0:d1]
+            shifts, levels = shifts[:, d0:d1].contiguous(), self.depths[d0:d1]
         vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(), shifts)
+        vols = self.stack3d(vol)
+        out = self.depth_head(vols, levels)
+        if cfg.rpn3d_enable:
+            vol = vols[-1]
+            if mesh is not None:
+                vol = gather(vol, 1, mesh)
+            out.update(self.bev_head(self.frustum(vol, Pl), rpn_img, Pl))
+        return out
 
+    # the stages of forward, also timed one by one by
+    # tools/profile_stereo.py
+    def stack3d(self, vol) -> List[torch.Tensor]:
+        """Cost volume -> two ConvNorm3d, then each hourglass on the last
+        output: the outputs (base + hourglass), one a hourglass."""
         base = F.relu(self.ConvNorm3d_0(vol))
         base = F.relu(self.ConvNorm3d_1(base))
-        vol_i, pre1, post1 = base, None, None
-        cost, costs = None, []
+        vols, vol_i, pre1, post1 = [], base, None, None
         for i in range(self._n_hg):
             hg = getattr(self, f"Hourglass_{i}")
             hg_out, pre_i, post_i = hg(vol_i, pre1, post1)
             if i == 0:
                 pre1, post1 = pre_i, post_i
             vol_i = base + hg_out
-            c = getattr(self, f"Conv3d_{i}")(vol_i)[..., 0].float()
+            vols.append(vol_i)
+        return vols
+
+    def depth_head(self, vols, levels=None) -> Dict:
+        """The stack's outputs -> depth: each output's k3 Conv3d cost
+        (summed over the hourglasses so far), the optional depth offset,
+        the softmax expectation over the planes (``levels``: this rank's
+        planes under a model axis)."""
+        cfg = self.cfg
+        mesh = self.tp_mesh
+        depths = self.depths
+        if levels is None:
+            levels = depths
+        cost, costs = None, []
+        for i, v in enumerate(vols):
+            c = getattr(self, f"Conv3d_{i}")(v)[..., 0].float()
             cost = c if cost is None else cost + c  # [N, D, Hf, Wf]
             costs.append(cost)
-        vol = vol_i
-
         depth_offset = None
         if cfg.depth_offset:
-            depth_offset = getattr(self, f"Conv3d_{self._n_hg}")(vol)[
+            depth_offset = getattr(self, f"Conv3d_{self._n_hg}")(vols[-1])[
                 ..., 0].float()
 
         def expectation(c, off=None):
@@ -265,27 +290,32 @@ class StereoHead(nn.Module):
             out["depth_offset"] = depth_offset
         out["depth_preds"] = tuple(
             expectation(c)[1] for c in costs[:-1]) + (depth,)
-
-        if cfg.rpn3d_enable:
-            nz, nx = cfg.bev_size
-            if mesh is not None:
-                vol = gather(vol, 1, mesh)
-            voxels = frustum_to_voxel_k4(
-                vol.contiguous(), Pl.contiguous(), self.bev_d0, self.bev_fd,
-                self.bev_zs, self.bev_xs, self.bev_ys, 4)
-            C = voxels.shape[-1]
-            bev = voxels.reshape(-1, nz, nx, cfg.ny * C).to(self.dtype)
-            bev = F.relu(self.ConvNorm_0(bev))
-            if self.cat_img and rpn_img is not None:
-                img_bev = frustum_img_to_bev(rpn_img, Pl, cfg)
-                bev = torch.cat([bev, img_bev.to(self.dtype)], dim=-1)
-                bev = F.relu(self.ConvNorm_1(bev))
-            hg2, _, _ = getattr(self, f"Hourglass_{self._n_hg}")(bev)
-            bev = bev + hg2
-            out["cls"] = conv2d_nhwc(bev, self.Conv_0).float()
-            out["reg"] = conv2d_nhwc(bev, self.Conv_1).float()
-            out["centerness"] = conv2d_nhwc(bev, self.Conv_2).float()
         return out
+
+    def frustum(self, vol, Pl) -> torch.Tensor:
+        """The whole volume [N, D, Hf, Wf, 32] -> BEV voxels (K4)."""
+        return frustum_to_voxel_k4(
+            vol.contiguous(), Pl.contiguous(), self.bev_d0, self.bev_fd,
+            self.bev_zs, self.bev_xs, self.bev_ys, 4)
+
+    def bev_head(self, voxels, rpn_img, Pl) -> Dict:
+        """BEV voxels -> ConvNorm, the RPN image feature sampled to the BEV
+        cells and joined, ConvNorm, 2D hourglass + residual, the cls / reg
+        / centerness convs (float32)."""
+        cfg = self.cfg
+        nz, nx = cfg.bev_size
+        C = voxels.shape[-1]
+        bev = voxels.reshape(-1, nz, nx, cfg.ny * C).to(self.dtype)
+        bev = F.relu(self.ConvNorm_0(bev))
+        if self.cat_img and rpn_img is not None:
+            img_bev = frustum_img_to_bev(rpn_img, Pl, cfg)
+            bev = torch.cat([bev, img_bev.to(self.dtype)], dim=-1)
+            bev = F.relu(self.ConvNorm_1(bev))
+        hg2, _, _ = getattr(self, f"Hourglass_{self._n_hg}")(bev)
+        bev = bev + hg2
+        return {"cls": conv2d_nhwc(bev, self.Conv_0).float(),
+                "reg": conv2d_nhwc(bev, self.Conv_1).float(),
+                "centerness": conv2d_nhwc(bev, self.Conv_2).float()}
 
 
 def _check_div4(name: str, v: int) -> None:

@@ -20,9 +20,14 @@ edge planes, zeros outside the image).
     ``FrustumK4``.  A CPU tensor goes to ``frustum_to_voxel_separable``; a
     CUDA tensor goes to the kernel or raises.
   * ``frustum_to_voxel_separable_bwd`` / ``frustum_to_voxel_k4_bwd``: the
-    backward with respect to the volume, plain and kernel.  JAX takes the
-    XLA VJP of the gather form (frustum_pallas.py:271-289), which also
-    gives P a gradient; no path uses that one, and the port gives none.
+    backward with respect to the volume, plain and kernel.
+  * ``frustum_to_voxel_dP``: the backward with respect to P.  JAX takes
+    the XLA VJP of the gather form (frustum_pallas.py:271-289) for both
+    gradients, not a Pallas kernel; the port takes P's the same way,
+    through autograd of ``frustum_to_voxel`` with the volume detached, so
+    that every entry of P gets JAX's gradient, P[:, 2, :2] too, which
+    the separable form assumes zero.  It runs only when P requires a
+    gradient.
 
 The TPU kernels express the hats as dense matmuls and select channels with
 a mod-C 0/1 matrix: matrix-unit shapes for a chip with no gather.  The CUDA
@@ -115,12 +120,19 @@ def frustum_to_voxel(volume, P_mat, depths, voxel_centers,
     """Gather form (JAX ``frustum_to_voxel``): volume [N, D, Hf, Wf, C],
     P_mat [N, 3, 4], depths [D], voxel_centers [V, 3] rect-frame (x, y, z)
     shared by the batch.  Returns [N, V, C]."""
+    d = depth_plane_coords(voxel_centers[:, 2], depths)
+    return _frustum_to_voxel_at(volume, P_mat, d, voxel_centers,
+                                feature_stride)
+
+
+def _frustum_to_voxel_at(volume, P_mat, d, voxel_centers,
+                         feature_stride: int):
+    """``frustum_to_voxel`` at the fractional planes d [V] of the cells."""
     out = []
     for vol, P in zip(volume, P_mat):
         uvw = voxel_centers @ P[:, :3].T + P[:, 3]
         u = uvw[:, 0] / uvw[:, 2] / feature_stride
         v = uvw[:, 1] / uvw[:, 2] / feature_stride
-        d = depth_plane_coords(voxel_centers[:, 2], depths)
         out.append(sample_frustum(vol, d, v, u))
     return torch.stack(out)
 
@@ -530,36 +542,59 @@ def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
     return dvol
 
 
+def frustum_to_voxel_dP(grad, volume, P_mat, d0, fd, zs, xs, ys,
+                        feature_stride: int = 4):
+    """K4's gradient with respect to P [N, 3, 4] for the output gradient
+    ``grad`` [N, nz, nx, ny, C]: autograd of the gather form
+    (``frustum_to_voxel``) at the cell centres of (zs, xs, ys) and the
+    planes d0 + fd, the volume detached, as JAX's VJP
+    (frustum_pallas.py:271-289).  Plain PyTorch on either device."""
+    nz, nx, ny = zs.shape[0], xs.shape[0], ys.shape[0]
+    gz, gx, gy = torch.meshgrid(zs, xs, ys, indexing="ij")
+    centers = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+    d = (d0.float() + fd)[:, None, None].expand(nz, nx, ny).reshape(-1)
+    with torch.enable_grad():
+        P = P_mat.detach().requires_grad_()
+        out = _frustum_to_voxel_at(volume.detach(), P, d, centers,
+                                   feature_stride)
+        dP, = torch.autograd.grad(out, P, grad.reshape(out.shape))
+    return dP
+
+
 class FrustumK4(torch.autograd.Function):
-    """K4 with its backward with respect to the volume (JAX's VJP also
-    gives one for P, which no path uses: P is batch data)."""
+    """K4 with its backward: the volume's on the backward kernel, P's
+    (``frustum_to_voxel_dP``) only when P requires a gradient."""
 
     @staticmethod
     def forward(ctx, volume, P_mat, d0, fd, zs, xs, ys, feature_stride):
-        ctx.save_for_backward(P_mat, d0, fd, zs, xs, ys)
+        # the volume is kept only for P's gradient
+        ctx.save_for_backward(P_mat, d0, fd, zs, xs, ys,
+                              volume if ctx.needs_input_grad[1] else None)
         ctx.depth_hw = tuple(volume.shape[1:4])
         ctx.stride = feature_stride
         return _f2v_forward(volume, P_mat, d0, fd, zs, xs, ys, feature_stride)
 
     @staticmethod
     def backward(ctx, grad):
-        dvol = frustum_to_voxel_k4_bwd(grad.contiguous(), *ctx.saved_tensors,
-                                       ctx.depth_hw, ctx.stride)
-        return (dvol,) + (None,) * 7
+        *tables, volume = ctx.saved_tensors
+        grad = grad.contiguous()
+        dvol = dP = None
+        if ctx.needs_input_grad[0]:
+            dvol = frustum_to_voxel_k4_bwd(grad, *tables, ctx.depth_hw,
+                                           ctx.stride)
+        if ctx.needs_input_grad[1]:
+            dP = frustum_to_voxel_dP(grad, volume, *tables, ctx.stride)
+        return (dvol, dP) + (None,) * 6
 
 
 def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
                         feature_stride: int = 4):
     """Kernel K4, same arguments and result as
-    ``frustum_to_voxel_separable``, differentiable in the volume.  The
-    kernel assumes P[:, 2, :2] == 0 and does not check it (that would
-    read P back from the card): the caller checks its host copy
-    (``data/stereo.check_stereo_projections``).  The gradient with respect
-    to P is not ported: a P that requires it raises.  See module
-    docstring."""
-    if P_mat.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("frustum_to_voxel_k4 gives no gradient "
-                                  "with respect to P_mat")
+    ``frustum_to_voxel_separable``, differentiable in the volume (the
+    backward kernel) and in P (``frustum_to_voxel_dP``).  The kernel
+    assumes P[:, 2, :2] == 0 and does not check it (that would read P
+    back from the card): the caller checks its host copy
+    (``data/stereo.check_stereo_projections``).  See module docstring."""
     return FrustumK4.apply(volume, P_mat, d0, fd, zs, xs, ys, feature_stride)
 
 

@@ -63,6 +63,21 @@ def hard_argmax_2d(heatmaps):
     return torch.stack([x, y], dim=-1), maxval
 
 
+def soft_argmax_2d(heatmaps, temperature: float = 1.0):
+    """Differentiable soft-argmax (JAX heatmaps.py:76): the softmax of
+    ``heatmaps * temperature`` over each map, the expectation of the
+    (x, y) index grids.  Returns (xy [N, P, 2], maxval [N, P])."""
+    N, P, Hm, Wm = heatmaps.shape
+    flat = heatmaps.reshape(N, P, -1)
+    maxval = flat.max(dim=-1).values
+    w = torch.softmax(flat * temperature, dim=-1).reshape(N, P, Hm, Wm)
+    xs = torch.arange(Wm, dtype=torch.float32, device=flat.device)[None, :]
+    ys = torch.arange(Hm, dtype=torch.float32, device=flat.device)[:, None]
+    x = (w * xs).sum(dim=(-1, -2))
+    y = (w * ys).sum(dim=(-1, -2))
+    return torch.stack([x, y], dim=-1), maxval
+
+
 def soft_argmax_2d_ref(heatmaps):
     """Reference soft-argmax (img_proc.soft_arg_max): weights
     exp(relu(h - 0.01)) - 1 normalized to sum 1; heatmaps with no weight

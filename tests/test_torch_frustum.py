@@ -30,6 +30,7 @@ from snvc_tpu_torch.ops.frustum import (
     frustum_tables,
     frustum_to_voxel,
     frustum_to_voxel_k4,
+    frustum_to_voxel_dP,
     frustum_to_voxel_k4_bwd,
     frustum_to_voxel_separable,
     frustum_to_voxel_separable_bwd,
@@ -201,8 +202,9 @@ def test_k4_kernel_tiles_across_image_edges_match_plain_on_card(
 
 # ---------------------------------------------------------- backward ----
 # JAX gives K4 a custom VJP (frustum_pallas.py:271-289): the XLA VJP of the
-# gather form, with respect to the volume and P.  The port's backward is
-# with respect to the volume only (no path differentiates P).  Float32;
+# gather form, with respect to the volume and P.  The port's backward with
+# respect to the volume is held to it here, P's in
+# tests/test_torch_frustum_dp.py.  Float32;
 # the gather form projects with a matmul and its weights round otherwise,
 # as for the forward: atol 2e-4 of scale.
 
@@ -252,7 +254,8 @@ def test_k4_plain_backward_matches_autograd():
 
 def test_k4_wrapper_on_cpu_carries_gradients():
     """``FrustumK4``: the output has a graph, its backward is the plain
-    backward, uncounted; a P that requires a gradient raises."""
+    backward, uncounted; a P that requires a gradient gets
+    ``frustum_to_voxel_dP``'s, and the volume's is unchanged."""
     vol, P, depths, zs, xs, ys, g = _grad_case(9)
     tabs = _tables(depths, zs, xs, ys, P)
     vt = torch.from_numpy(vol).requires_grad_()
@@ -264,11 +267,13 @@ def test_k4_wrapper_on_cpu_carries_gradients():
                                           vol.shape[1:4], 4)
     assert torch.equal(vt.grad, want)
     assert frustum_to_voxel_k4_bwd.launches == before
+    vt.grad = None
     tabs[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="P_mat"):
-        frustum_to_voxel_k4(vt, *tabs, 4)
-    with torch.no_grad():  # no graph, nothing to refuse
-        frustum_to_voxel_k4(vt, *tabs, 4)
+    frustum_to_voxel_k4(vt, *tabs, 4).backward(torch.from_numpy(g))
+    assert torch.equal(vt.grad, want)
+    assert torch.equal(tabs[0].grad, frustum_to_voxel_dP(
+        torch.from_numpy(g), vt, *tabs, 4))
+    assert frustum_to_voxel_k4_bwd.launches == before
 
 
 def test_k4_bwd_tiling():

@@ -91,11 +91,16 @@ def test_scripts_with_jax_exist():
 
 
 def test_walk_covers_the_serving_slice():
-    """The walk above imports the KITTI host layer, the pipelines, the
-    evaluator wrapper and the three CLIs."""
+    """The walk above imports the KITTI host layer, the native loader, the
+    pipelines, the evaluator wrapper, the three CLIs, the profiling module
+    and the two profilers."""
     names = {m.name for m in pkgutil.walk_packages(snvc_tpu_torch.__path__,
                                                    "snvc_tpu_torch.")}
-    assert {"snvc_tpu_torch.data.png", "snvc_tpu_torch.data.kitti",
+    assert {"snvc_tpu_torch.data.native_loader",
+            "snvc_tpu_torch.utils.profiling",
+            "snvc_tpu_torch.tools.profile_vernier",
+            "snvc_tpu_torch.tools.profile_stereo",
+            "snvc_tpu_torch.data.png", "snvc_tpu_torch.data.kitti",
             "snvc_tpu_torch.data.instance_db",
             "snvc_tpu_torch.data.stereo_pipeline",
             "snvc_tpu_torch.inference.kitti_writer",
