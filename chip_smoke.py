@@ -229,7 +229,30 @@ Phases, each printing one line with its elapsed seconds:
                100 or 104 lengths wide; ms and peak memory a rank beside
                this process's ("two ranks share one card: no scaling
                figure").
- 27. release_checkpoint - the reference's checkpoints in the port: a
+ 27. tensor_parallel_local - the one-process form of the data x model
+               mesh (parallel/local.py: a thread a position, one
+               backward), on the card: first K1 / K1 bwd on the flagship
+               grid's uneven nl slabs at n_model 5 (48 and 32 lengths),
+               K2 / dx / dw on their slabs widened by the prelude's halos
+               (54 / 52 / 56 and 38 / 36 / 40) and K3 / K3 bwd on
+               StereoConfig()'s slabs at n_model 3 (24 / 20 / 20 planes),
+               each against its plain version, timed with its bound; then
+               make_mesh(1, [cuda:0, cuda:0], 2): phase tensor_parallel's
+               paths (DetectRunner 1 warm-up + 2 bf16 frames and 1
+               float32, a StereoConfig() step, a flagship-grid Vernier
+               step at 8 instances: 2 bf16 steps, a float32 step 0), the
+               float32 ones within train_reference's rule of phase
+               tensor_parallel's one-device runs and of its gloo ranks,
+               the float32 scores within 1e-3 of the largest; uneven
+               slabs: StereoConfig() at n_model 3 and the flagship grid at
+               n_model 5 (a bf16 and a float32 step each, the latter
+               under the same rule); the 3D and BEV heads at n_model 2
+               (a small float32 step each against its one-device step);
+               launches a position (the forward kernels by thread) and in
+               all, K2's input widths, ms and peak memory beside the
+               one-device runs' ("positions share one card: no scaling
+               figure").
+ 28. release_checkpoint - the reference's checkpoints in the port: a
                fabricated reference state_dict of a small BEV_type3 model
                (hrnet-tiny, the part-offset and bbox heads) converted by
                utils/convert_torch, on the card against the CPU (float32
@@ -246,14 +269,14 @@ Phases, each printing one line with its elapsed seconds:
                when run alone): K3 = K4 = frames decoded, the coverage
                keys present, roiaware_pool3d on the card against the CPU
                (max and avg; avg twice gives the same bits).
- 28. native_loader - the 256 PNGs of phase trained_two_stage's val split
+ 29. native_loader - the 256 PNGs of phase trained_two_stage's val split
                decoded into the trained config's canvas by png.decode_png
                + _place, by native_loader.decode_png_padded one view at a
                time and by decode_batch_padded 8 views at a time: the
                same bytes; ms a view each on the card's host beside
                nproc; load_velodyne equals np.fromfile; a missing PNG
                raises.
- 29. trained_two_stage - JAX's trained two-stage run
+ 30. trained_two_stage - JAX's trained two-stage run
                (artifacts/two_stage_r4) through the port's CLIs with the
                committed conversions of its checkpoints
                (artifacts/two_stage_r4_torch) over its 128-frame val split
@@ -283,7 +306,7 @@ Phases, each printing one line with its elapsed seconds:
                stage's wall seconds beside those measured when each
                view was decoded alone by data/png.py (the images now
                come through the native loader).
- 30. profile - tools/profile_vernier.py --config flagship --batch 4 and
+ 31. profile - tools/profile_vernier.py --config flagship --batch 4 and
                tools/profile_stereo.py (StereoConfig(), bf16) in child
                processes: every stage line and JSON printed, K1 / K2
                (Vernier) and K3 / K4 (stereo) launched there; one
@@ -292,7 +315,8 @@ Phases, each printing one line with its elapsed seconds:
                device_memory_stats() after it, its peak printed.
 Then a {"kernels": [...]} line (launches: the serving, detect and
 training phases' counts plus train_cli's, variants', track's, demos',
-parallel's, tensor_parallel's, release_checkpoint's,
+parallel's, tensor_parallel's, tensor_parallel_local's,
+release_checkpoint's,
 trained_two_stage's and profile's traced request's), nvidia-smi's line,
 and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -312,6 +336,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -4342,6 +4367,280 @@ def check_tensor_parallel(gen, dev) -> dict:
           nvidia_smi=repr(nvidia_smi()),
           launches=json.dumps(total).replace(" ", ""))
     assert not failed, f"tensor_parallel: {failed}"
+    return dict(counts=total, kernels=kern, one=one, rank0=ranks[0])
+
+
+# the uneven splits: StereoConfig()'s 64 planes over 3 positions (units of
+# 4: 24 / 20 / 20), the flagship grid's 192 lengths over 5 (units of 16:
+# 48 / 48 / 32 / 32 / 32)
+TPL_STEREO_N, TPL_VERNIER_N = 3, 5
+TPL_PLANES, TPL_LENGTHS = (24, 20, 20), (48, 48, 32, 32, 32)
+# the batch of the n_model 5 Vernier steps: every position runs the HRNet
+# on the whole batch, and nothing rematerializes in this form
+TPL_VERNIER_BATCH = 4
+TPL_NOTE = "positions share one card: no scaling figure"
+
+
+@contextlib.contextmanager
+def position_launches():
+    """Counts the forward kernels' launches (K1-K4, through the names the
+    models call them by) by the thread that made them, and K2's input
+    widths, while open: parallel/local.run_positions names each
+    position's thread ``position-<p>``.  Yields {thread: {kernel: n}} and
+    the set of K2 widths."""
+    from snvc_tpu_torch.models import layers, stereonet, vernier
+
+    seen, widths = {}, set()
+    names = ((vernier, "stereo_voxel_sample", "K1"),
+             (layers, "conv3d_large_tap", "K2"),
+             (stereonet, "plane_sweep_volume_k3", "K3"),
+             (stereonet, "frustum_to_voxel_k4", "K4"))
+    orig = [getattr(mod, name) for mod, name, _ in names]
+
+    def counting(fn, key):
+        def call(*args, **kw):
+            c = seen.setdefault(threading.current_thread().name, {})
+            c[key] = c.get(key, 0) + 1
+            if key == "K2":
+                widths.add(int(args[0].shape[3]))
+            return fn(*args, **kw)
+        return call
+
+    for (mod, name, key), fn in zip(names, orig):
+        setattr(mod, name, counting(fn, key))
+    try:
+        yield seen, widths
+    finally:
+        for (mod, name, _), fn in zip(names, orig):
+            setattr(mod, name, fn)
+
+
+def tp_uneven_kernels(gen, dev) -> dict:
+    """K1 and its backward on the flagship grid's nl slabs at n_model 5
+    (4 instances, the batch's own projections), K2 / dx / dw on the three
+    prelude convs' slabs widened by their halos, K3 and its backward on
+    each of StereoConfig()'s slabs at n_model 3, against their plain
+    versions, each slab width timed with its bound."""
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    cfg = flagship_vernier_config()
+    (nh, nw, nl), roi = cfg.grid_resolution, cfg.resolution
+    N = cfg.max_instances
+    gl_all, gr_all = batch_projections(cfg, 0, dev)
+    lf, rf, _, _ = k1_case(gen, N, 64, 64, 32, (1, 1, 1), roi,
+                           torch.bfloat16, dev)
+    for L in sorted(set(TPL_LENGTHS), reverse=True):
+        grid = (nh, nw, L)
+        gl, gr = (g.reshape(N, nh, nw, nl, 2)[:, :, :, :L]
+                  .reshape(N, -1, 2).contiguous() for g in (gl_all, gr_all))
+        err = assert_k1(f"tpl K1 slab {L}", lf, rf, gl, gr, roi, grid)
+        out[f"K1_L{L}"] = dict(max_abs_err=err,
+                               **k1_times(lf, rf, gl, gr, roi, grid))
+        g = torch.randn((N,) + grid + (64,), generator=gen).to(
+            dev, torch.bfloat16)
+        err = assert_k1_bwd(f"tpl K1_bwd slab {L}", lf, rf, gl, gr, g, roi)
+        out[f"K1_bwd_L{L}"] = dict(max_abs_err=err,
+                                   **k1_bwd_times(lf, rf, gl, gr, g, roi))
+        del gl, gr, g
+    del lf, rf, gl_all, gr_all
+    for L in sorted(set(TPL_LENGTHS), reverse=True):
+        for name, C, kernel, dil in (("conv1_k7", 64, (7, 7, 7), 1),
+                                     ("conv2_k5", 32, (5, 5, 5), 1),
+                                     ("conv3_k5_d2", 32, (5, 5, 5), 2)):
+            W = L + (kernel[2] - 1) * dil  # slab + both halos
+            shape = (N, nh, nw, W, C)
+            err, times = run_k2_case(gen, dev, f"tpl {name} W={W}", shape,
+                                     kernel, 32, dil, True)
+            out[f"K2_{name}_W{W}"] = dict(max_abs_err=err, **times)
+            bwd = run_k2_bwd_case(gen, dev, f"tpl {name} W={W}", shape,
+                                  kernel, 32, dil, True)
+            out[f"K2_dx_{name}_W{W}"] = bwd["dx"]
+            out[f"K2_dw_{name}_W{W}"] = bwd["dw"]
+    scfg = StereoConfig()
+    H, W = scfg.input_size[0] // 4, scfg.input_size[1] // 4
+    lf = torch.randn((1, H, W, 32), generator=gen).to(dev, torch.bfloat16)
+    rf = torch.randn((1, H, W, 32), generator=gen).to(dev, torch.bfloat16)
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
+    shifts = plane_shifts(Pl, Pr, torch.from_numpy(
+        depth_hypotheses(scfg)).to(dev))
+    d0 = 0
+    for m, d in enumerate(TPL_PLANES):  # position m's planes
+        s_m = shifts[:, d0:d0 + d].contiguous()
+        d0 += d
+        v = plane_sweep_volume_k3(lf, rf, s_m)
+        err = assert_within_ulps(f"tpl K3 slab {m}", v,
+                                 plane_sweep_shifted(lf, rf, s_m))
+        gv = torch.randn(v.shape, generator=gen).to(dev, torch.bfloat16)
+        berr = max(assert_within_ulps(f"tpl K3_bwd slab {m} {name}", a, b)
+                   for name, a, b in zip(
+                       ("dleft", "dright"),
+                       plane_sweep_volume_k3_bwd(gv, s_m, W),
+                       plane_sweep_shifted_bwd(gv, s_m, W)))
+        if m < 2:  # one slab of each width: 24 planes, 20 planes
+            out[f"K3_D{d}"] = dict(max_abs_err=err, **k3_times(lf, rf, s_m))
+            out[f"K3_bwd_D{d}"] = dict(max_abs_err=berr,
+                                       **k3_bwd_times(gv, s_m, W))
+        del v, gv
+    torch.cuda.empty_cache()
+    phase("tensor_parallel_local kernels", t, **{
+        f"{k}_{key}": (f"{v:.3e}" if key == "max_abs_err" else f"{v:.4f}")
+        for k, d in out.items() for key, v in d.items()})
+    return out
+
+
+def tpl_check_f32(label, got: dict, ref: dict, failed: list) -> str:
+    """train_reference's rule (losses 1e-4, grad_norm 3e-3 relative) of
+    ``got``'s float32 metrics against ``ref``'s; the largest difference
+    as a field."""
+    assert all(math.isfinite(v) for v in got.values()), (label, got)
+    errs = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()}
+    failed += [f"{label} {k} {e:.2e}" for k, e in errs.items()
+               if e > (3e-3 if k == "grad_norm" else 1e-4)]
+    worst = max(errs, key=errs.get)
+    return f"{errs[worst]:.2e}({worst})"
+
+
+def tpl_head_steps(dev, failed: list) -> dict:
+    """The 3D and BEV heads at a small config (hrnet-tiny, 4 instances at
+    384x1280; 3D on 12 lengths, 8 / 4 a position): a float32 step 0 on
+    make_mesh(1, [dev, dev], 2) against the one-device step, each
+    position's K1 sampling its slab once."""
+    mesh = make_mesh(1, [dev, dev], 2)
+    fields = {}
+    for vt, kw in (("3D", dict(grid_type="3D", num_parts=3,
+                               grid_resolution=(8, 16, 12))),
+                   ("BEV", dict(grid_resolution=(8, 16, 16)))):
+        cfg = tiny_vernier_config(vernier_type=vt, max_instances=4,
+                                  image_size=(384, 1280), **kw)
+        one = dp_steps("vernier", dev, None, float32=True, steps=1, cfg=cfg)
+        with position_launches() as (seen, _):
+            got = dp_steps("vernier", dev, mesh, float32=True, steps=1,
+                           cfg=cfg)
+        fields[f"head_{vt}_f32_vs_one"] = tpl_check_f32(
+            f"head {vt}", got["metrics"], one["metrics"], failed)
+        # each position sampled its slab (K1 once)
+        pos = [seen.get(f"position-{p}", {}) for p in range(2)]
+        if pos != [{"K1": 1}] * 2:
+            failed.append(f"head {vt} launches a position {pos}")
+    return fields
+
+
+def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
+    """Phase 27: the one-process data x model mesh (parallel/local.py) on
+    the card.  The kernels at the uneven slabs' shapes
+    (``tp_uneven_kernels``); phase tensor_parallel's paths on
+    make_mesh(1, [dev, dev], 2) (``tp_paths``), the float32 ones held to
+    ``tp``'s one-device runs and gloo rank 0 under train_reference's rule
+    (losses 1e-4, grad_norm 3e-3), the float32 detection scores within
+    1e-3 of the largest; launches in all (detect K3 = K4 = 4 over 2 bf16
+    requests, stereo K3 / K3_bwd / K4 / K4_bwd 4 over 2 bf16 steps,
+    Vernier K1 / K1_bwd 4, K2 / dx / dw 12) and a position (the forward
+    kernels by thread: alike on both), K2 widths 100 / 102 / 104; the
+    uneven meshes (StereoConfig() at n_model 3, the flagship grid at
+    n_model 5, K2 widths 54 / 52 / 56 and 38 / 36 / 40) and the 3D / BEV
+    heads at n_model 2, each float32 step under the same rule."""
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = tp_uneven_kernels(gen, dev)
+    t_paths = time.perf_counter()
+    fields, failed = {}, []
+    one, rank0 = tp["one"], tp["rank0"]
+    total = counts_of()
+    mesh = make_mesh(1, [dev, dev], 2)
+    with position_launches() as (seen, widths):
+        two = tp_paths(dev, mesh)
+    want = dict(detect=counts_of(K3=4, K4=4),
+                stereo=counts_of(K3=4, K3_bwd=4, K4=4, K4_bwd=4),
+                vernier=counts_of(K1=4, K1_bwd=4, K2=12, K2_dx=12, K2_dw=12))
+    for kind in ("detect", "stereo", "vernier"):
+        c = two[kind]["bf16"]["counts"]
+        if c != want[kind]:
+            failed.append(f"{kind} launch counts {c}")
+        for key, v in c.items():
+            total[key] += v
+    by_pos = [seen.get(f"position-{p}", {}) for p in range(2)]
+    if by_pos[0] != by_pos[1] or not all(by_pos[0].get(k) for k in
+                                         ("K1", "K2", "K3", "K4")):
+        failed.append(f"launches a position {by_pos}")
+    fields["launches_a_position"] = json.dumps(by_pos[0]).replace(" ", "")
+    if two["vernier"]["k2_widths"] != [100, 102, 104]:
+        failed.append(f"K2 widths {two['vernier']['k2_widths']}")
+    fields["k2_widths"] = ",".join(map(str, two["vernier"]["k2_widths"]))
+    for kind in ("stereo", "vernier"):
+        got = two[kind]["f32"]["metrics"]
+        fields[f"{kind}_f32_vs_one"] = tpl_check_f32(
+            f"{kind} vs one", got, one[kind]["f32"]["metrics"], failed)
+        fields[f"{kind}_f32_vs_gloo"] = tpl_check_f32(
+            f"{kind} vs gloo", got, rank0[kind]["f32"]["metrics"], failed)
+        errs = {k: abs(two[kind]["bf16"]["metrics"][k] - v)
+                / max(abs(v), 1e-12)
+                for k, v in one[kind]["f32"]["metrics"].items()}
+        fields[f"{kind}_bf16_vs_one_f32"] = f"{max(errs.values()):.2e}"
+        for src, res in (("", two), ("_one", one), ("_gloo", rank0)):
+            fields[f"{kind}_step_ms{src}"] = \
+                f"{res[kind]['bf16']['step_ms'][1]:.1f}"
+            fields[f"{kind}_peak_gb{src}"] = \
+                f"{res[kind]['bf16']['peak_gb']:.2f}"
+    for dt in ("bf16", "f32"):
+        for a, b in zip(two["detect"][dt]["outs"], one["detect"][dt]["outs"]):
+            assert np.isfinite(a[0][a[3] > 0]).all() and a[3].any(), dt
+            sa = np.sort(a[1][a[3] > 0])[::-1]
+            sb = np.sort(b[1][b[3] > 0])[::-1]
+            n = min(len(sa), len(sb))
+            err = float(np.abs(sa[:n] - sb[:n]).max(initial=0.0))
+            fields[f"detect_{dt}_scores_max_diff"] = f"{err:.2e}"
+            if dt == "f32" and (len(sa) != len(sb)
+                                or err > 1e-3 * float(sb.max())):
+                failed.append(f"detect f32 scores {err:.2e}")
+    for src, res in (("", two), ("_one", one), ("_gloo", rank0)):
+        fields[f"detect_ms{src}"] = "/".join(
+            f"{v:.1f}" for v in res["detect"]["bf16"]["ms"])
+        fields[f"detect_peak_gb{src}"] = \
+            f"{res['detect']['bf16']['peak_gb']:.2f}"
+    t_uneven = time.perf_counter()
+    # uneven slabs
+    mesh3 = make_mesh(1, [dev] * TPL_STEREO_N, TPL_STEREO_N)
+    vcfg = flagship_vernier_config(max_instances=TPL_VERNIER_BATCH)
+    mesh5 = make_mesh(1, [dev] * TPL_VERNIER_N, TPL_VERNIER_N)
+    ref = dict(stereo=one["stereo"]["f32"]["metrics"],
+               vernier=dp_steps("vernier", dev, None, float32=True, steps=1,
+                                cfg=vcfg)["metrics"])
+    for kind, cfg, m, n in (("stereo", StereoConfig(), mesh3, TPL_STEREO_N),
+                            ("vernier", vcfg, mesh5, TPL_VERNIER_N)):
+        with position_launches() as (seen, widths):
+            bf16 = dp_steps(kind, dev, m, cfg=cfg, frames=1, steps=1)
+        f32 = dp_steps(kind, dev, m, float32=True, steps=1, cfg=cfg,
+                       frames=1)
+        for key, v in bf16["counts"].items():
+            total[key] += v
+        fields[f"{kind}_n{n}_f32_vs_one"] = tpl_check_f32(
+            f"{kind} n{n}", f32["metrics"], ref[kind], failed)
+        fields[f"{kind}_n{n}_step_ms"] = f"{bf16['step_ms'][0]:.1f}"
+        fields[f"{kind}_n{n}_peak_gb"] = f"{bf16['peak_gb']:.2f}"
+        fields[f"{kind}_n{n}_launches"] = json.dumps(
+            {k: v for k, v in bf16["counts"].items() if v}).replace(" ", "")
+        pos = [seen.get(f"position-{p}", {}) for p in range(n)]
+        if any(p != pos[0] for p in pos) or not pos[0]:
+            failed.append(f"{kind} n{n} launches a position {pos}")
+        if kind == "vernier":
+            fields["vernier_n5_k2_widths"] = ",".join(map(str,
+                                                          sorted(widths)))
+            if sorted(widths) != [36, 38, 40, 52, 54, 56]:
+                failed.append(f"vernier n5 K2 widths {sorted(widths)}")
+            fields["vernier_n5_f32_peak_gb"] = f"{f32['peak_gb']:.2f}"
+    t_heads = time.perf_counter()
+    fields.update(tpl_head_steps(dev, failed))
+    t_end = time.perf_counter()
+    phase("tensor_parallel_local", t, n_model="2,3,5", note=repr(TPL_NOTE),
+          kernels_s=f"{t_paths - t:.1f}", paths_s=f"{t_uneven - t_paths:.1f}",
+          uneven_s=f"{t_heads - t_uneven:.1f}",
+          heads_s=f"{t_end - t_heads:.1f}", **fields,
+          nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(total).replace(" ", ""))
+    assert not failed, f"tensor_parallel_local: {failed}"
     return dict(counts=total, kernels=kern)
 
 
@@ -4419,14 +4718,17 @@ def main() -> int:
         trk = check_track(dev, root, world)["counts"]
         demos = check_demos(dev, root)["counts"]
         par = check_parallel(dev, train)["counts"]
-        tp = check_tensor_parallel(gen, dev)["counts"]
+        tp_res = check_tensor_parallel(gen, dev)
+        tp = tp_res["counts"]
+        tpl = check_tensor_parallel_local(gen, dev, tp_res)["counts"]
+        del tp_res
         rel = check_release_checkpoint(dev, root)["counts"]
         check_native_loader(render)
         tts = check_trained_two_stage(dev, root, render)["counts"]
         prof = check_profile(dev, root)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + rel[k] + tts[k]
-            + prof[k] for k in KERNELS}
+    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + tpl[k] + rel[k]
+            + tts[k] + prof[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

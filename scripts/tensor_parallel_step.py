@@ -5,6 +5,9 @@ steps of either model, or serves as many requests, with the volume split
 over the model axis; each rank prints one JSON line: the last step's
 metrics, each step's ms (the card synchronized) and, on the card, its
 peak memory.  ``--n_model 1`` on one rank is the one-process step.
+``--positions`` runs the one-process form of the mesh instead, with no
+launcher (``parallel.make_mesh(-1, devices, n_model)``: a thread a
+position, parallel/local.py), and prints one line for the process.
 
     # two ranks on one card (gloo: NCCL refuses two ranks on one GPU)
     torchrun --nproc_per_node 2 scripts/tensor_parallel_step.py \\
@@ -14,6 +17,9 @@ peak memory.  ``--n_model 1`` on one rank is the one-process step.
         --model vernier --n_model 2
     torchrun --nproc_per_node 2 scripts/tensor_parallel_step.py \\
         --model stereo --device cpu --tiny
+    # the one-process form: two positions on one card, no launcher
+    python scripts/tensor_parallel_step.py --model vernier \\
+        --positions cuda:0,cuda:0
 
 The models are seeded and random; ``--tiny`` takes the small test
 configs, otherwise ``StereoConfig()`` (batch: a frame a data position)
@@ -46,7 +52,7 @@ def main(argv=None) -> dict:
     from snvc_tpu_torch.inference.detect import DetectRunner
     from snvc_tpu_torch.models.stereonet import StereoNet
     from snvc_tpu_torch.models.vernier import VernierScale
-    from snvc_tpu_torch.parallel.api import initialize_multihost
+    from snvc_tpu_torch.parallel.api import initialize_multihost, make_mesh
     from snvc_tpu_torch.training.train import (
         batch_to_device,
         create_train_state,
@@ -68,15 +74,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None,
                     help="nccl on the card, gloo on the CPU (default)")
+    ap.add_argument("--positions", default=None,
+                    help="comma-separated devices of a one-process mesh, "
+                         "n_model of them a data position (no launcher)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--steps", type=int, default=1)
     args = ap.parse_args(argv)
     on_card = torch.device(args.device).type == "cuda"
     backend = args.backend or ("nccl" if on_card else "gloo")
-    mesh = initialize_multihost(backend, args.device, n_model=args.n_model)
-    if mesh is None:
-        raise SystemExit("run under a launcher: torchrun --nproc_per_node N")
-    dev = mesh.devices[mesh.rank]
+    if args.positions:
+        mesh = make_mesh(-1, args.positions.split(","), args.n_model)
+    else:
+        mesh = initialize_multihost(backend, args.device,
+                                    n_model=args.n_model)
+        if mesh is None:
+            raise SystemExit("run under a launcher: torchrun "
+                             "--nproc_per_node N, or pass --positions")
+    dev = mesh.devices[mesh.rank or 0]
+    cards = set(mesh.devices) if mesh.rank is None else {dev}
+    on_card = dev.type == "cuda"
     gen = torch.Generator().manual_seed(0)
     tc = TrainConfig(warmup_steps=2)
     if args.model == "stereo":
@@ -111,11 +127,14 @@ def main(argv=None) -> dict:
     for _ in range(args.steps):
         t = time.perf_counter()
         metrics = {k: float(v) for k, v in step().items()}
-        if on_card:
-            torch.cuda.synchronize(dev)
+        if on_card:  # every card this process drives
+            for d in cards:
+                torch.cuda.synchronize(d)
         ms.append((time.perf_counter() - t) * 1e3)
-    rec = dict(rank=mesh.rank, data=mesh.data_index, model=mesh.model_index,
-               step_ms=ms, **metrics)
+    where = (dict(positions=len(mesh.devices)) if mesh.rank is None else
+             dict(rank=mesh.rank, data=mesh.data_index,
+                  model=mesh.model_index))
+    rec = dict(**where, n_model=mesh.n_model, step_ms=ms, **metrics)
     if on_card:
         rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(json.dumps(rec), flush=True)

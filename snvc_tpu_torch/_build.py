@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -67,6 +68,9 @@ ENTRY_POINTS = {
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in ENTRY_POINTS.values()))
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the positions of a one-process mesh (parallel/local.py) launch from
+# threads: one of them builds and loads a library, the others wait
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -166,6 +170,11 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
+    with _load_lock:
+        return _loaded.get(name) or _load(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     path = library_path(name)
     if not path.exists():
         build((name,))

@@ -19,7 +19,12 @@ first device.  With a process group's mesh of one data position and
 ``n_model > 1`` (``parallel.initialize_multihost``) every rank serves the
 request on its own device with the stereo volume split on its depth axis
 over the ranks (tensor parallelism, models/stereonet.py), and every rank
-returns the same proposals.
+returns the same proposals.  With a one-process mesh of ``n_model > 1``
+(``parallel.make_mesh(n_data, devices, n_model)``) every position runs
+in its own thread on its replica of the model (parallel/local.py): each
+data position's frames are split in depth over its model positions, and
+the proposals of each data position's first model position are gathered
+in order on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from snvc_tpu_torch.models.stereonet import StereoNet, bev_locations
 from snvc_tpu_torch.ops.nms import rotated_nms_bev, top_k_boxes
 from snvc_tpu_torch.ops.rotated_iou import bev_from_box3d
 from snvc_tpu_torch.parallel.api import Mesh, runner_devices, shard_batch
+from snvc_tpu_torch.parallel.local import Replicas, run_positions
 from snvc_tpu_torch.utils.device import constant, to_device
 
 
@@ -115,10 +121,11 @@ class DetectRunner:
     without a GPU), on every device of ``mesh`` (a ``parallel.make_mesh``;
     ``device`` is then its first), or split over the model axis of a
     process group's ``mesh`` (``parallel.initialize_multihost`` with
-    ``n_model > 1`` and one data position; this rank's device):
-    ``forward`` takes one request (the arrays of ``StereoBatch.arrays()``)
-    and returns the padded proposals as tensors on the device.  The model
-    is moved to that device."""
+    ``n_model > 1`` and one data position; this rank's device) or a
+    one-process mesh's positions (``make_mesh(n_data, devices, n_model >
+    1)``): ``forward`` takes one request (the arrays of
+    ``StereoBatch.arrays()``) and returns the padded proposals as tensors
+    on the device.  The model is moved to that device."""
 
     def __init__(self, model: StereoNet, cfg: StereoConfig,
                  max_boxes: int = 8, score_threshold: float = 0.02,
@@ -135,7 +142,13 @@ class DetectRunner:
         self.score_threshold = score_threshold
         self.nms_iou = nms_iou
         self.locations = torch.from_numpy(bev_locations(cfg)).to(self.device)
-        if mesh is not None and not self.split:
+        # one process drives every position of a data x model mesh
+        self.positions = (mesh is not None and not self.split
+                          and mesh.n_model > 1)
+        if self.positions:
+            with torch.no_grad():  # the replicas' own copies, once
+                self.replicas = Replicas(self.model, mesh)
+        elif mesh is not None and not self.split:
             # (device, model, BEV anchors) of each position
             self.replicas = [(self.device, self.model, self.locations)] + [
                 (d, copy.deepcopy(self.model).to(d), self.locations.to(d))
@@ -157,6 +170,8 @@ class DetectRunner:
                     return self._detect(self.model, self.locations, b)
             if self.mesh is None:
                 return self._detect(self.model, self.locations, b)
+            if self.positions:
+                return self._positions(b)
             parts = []
             for i, (dev, model, locations) in enumerate(self.replicas):
                 shard = {k: v.to(dev, non_blocking=True) for k, v in
@@ -165,6 +180,25 @@ class DetectRunner:
             return tuple(torch.cat([p[j].to(self.device, non_blocking=True)
                                     for p in parts])
                          for j in range(len(parts[0])))
+
+    def _positions(self, b: Mapping[str, torch.Tensor]):
+        """``forward`` on a one-process mesh: every position in its
+        thread on its replica, its data position's frames split in depth
+        over the model axis."""
+        mesh = self.mesh
+
+        def position(pos):
+            dev = pos.devices[pos.rank]
+            model = self.replicas[pos.rank]
+            shard = {k: v.to(dev, non_blocking=True) for k, v in
+                     shard_batch(b, mesh, pos.data_index).items()}
+            with tensor_parallel(model, pos):
+                return self._detect(model, self.locations.to(dev), shard)
+
+        parts = run_positions(mesh, position)[::mesh.n_model]
+        return tuple(torch.cat([p[j].to(self.device, non_blocking=True)
+                                for p in parts])
+                     for j in range(len(parts[0])))
 
     def _detect(self, model: StereoNet, locations: torch.Tensor,
                 b: Mapping[str, torch.Tensor]):

@@ -27,7 +27,10 @@ of its devices; a request's instances are split as
 ``encode`` and ``heads`` run on each device's part with no host sync
 between devices, and the head outputs are gathered in order on the
 mesh's first device, where ``finalize`` runs on the whole request (its
-losses then have the one-device normalizers).
+losses then have the one-device normalizers).  A mesh with a model axis
+(``make_mesh(n_data, devices, n_model)``) is served as JAX serves it:
+its instances split over "data" only and the model replicated over
+"model", so the runner drives the first device of each data position.
 
 The ``3D`` head's fields [N, P, nh, nw, nl] have no pose update: JAX's
 ``_finalize`` fails on them in ``hard_argmax_2d``'s 4-D unpack

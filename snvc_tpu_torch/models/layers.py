@@ -23,7 +23,9 @@ mesh, and as before otherwise.  A conv widens its slab by the halo its
 outputs read (``conv_halo``) and runs unchanged on it: VALID along the
 split axis (``F.conv*``), or SAME with the halo's outputs cropped (K2,
 K5).  A deconv (k3, s2, p1, op1) reads one plane from above.  GroupNorm
-sums its moments over the model group, BatchNorm over the whole world.
+sums its moments and counts over the model group, BatchNorm over the
+whole mesh, so slabs of unequal lengths (parallel/tensor.py) normalize
+as the whole volume does.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from torch import nn
 
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, large_tap_eligible
 from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3, k3_eligible
-from snvc_tpu_torch.parallel.api import AllReduceSum, global_sum
+from snvc_tpu_torch.parallel.api import global_sum, world_sum
 from snvc_tpu_torch.parallel.tensor import halo_exchange, model_sum
 
 
@@ -57,11 +59,22 @@ def _pair(v) -> Tuple[int, int]:
     return (v,) * 2 if isinstance(v, int) else tuple(v)
 
 
-def conv2d_nhwc(x, conv: nn.Conv2d):
-    """Apply an ``nn.Conv2d`` (weights [O, I, kh, kw]) to an NHWC tensor."""
+def conv2d_nhwc(x, conv: nn.Conv2d, mesh=None, axis: Optional[int] = None):
+    """Apply an ``nn.Conv2d`` (weights [O, I, kh, kw]) to an NHWC tensor.
+    With ``mesh`` (a model axis) ``x`` is a slab of ``axis`` (1 or 2),
+    widened by the halo the conv's outputs read and convolved VALID along
+    it."""
     w = conv.weight.to(x.dtype)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, conv.padding,
+    pad = conv.padding
+    if mesh is not None:
+        i = axis - 1
+        x = halo_exchange(x, axis, *conv_halo(conv.kernel_size[i],
+                                              conv.stride[i],
+                                              conv.dilation[i]), mesh)
+        pad = list(pad)
+        pad[i] = 0
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, pad,
                  conv.dilation)
     return y.permute(0, 2, 3, 1)
 
@@ -104,7 +117,9 @@ def tensor_parallel(module: nn.Module, mesh):
     ``split_axis`` compute on this rank's slab of it, over ``mesh``'s
     model group (parallel/tensor.py).  Without a mesh, or with one model
     rank, nothing changes.  Keep it open through the backward: a
-    rematerialized block recomputes its exchanges."""
+    rematerialized block recomputes its exchanges.  Under a one-process
+    mesh each position opens it on its own replica of the module
+    (parallel/local.py), with its position's mesh."""
     if mesh is None or mesh.n_model == 1:
         yield
         return
@@ -147,9 +162,9 @@ class FastGroupNorm(nn.Module):
         xf = x.to(self.moment_dtype)
         s1 = xf.sum(red).reshape(N, G, C // G).sum(-1)
         s2 = (xf * xf).sum(red).reshape(N, G, C // G).sum(-1)
-        if self.tp_mesh is not None:
-            s1, s2 = model_sum(torch.stack([s1, s2]), self.tp_mesh).unbind()
-            n_red *= self.tp_mesh.n_model
+        if self.tp_mesh is not None:  # slabs may differ in length
+            s1, s2, n_red = model_sum(torch.stack(
+                [s1, s2, torch.full_like(s1, n_red)]), self.tp_mesh).unbind()
         mean = s1 / n_red
         var = s2 / n_red - mean * mean
         inv = torch.rsqrt(var + self.eps)  # [N, G]
@@ -166,13 +181,14 @@ def frozen_batch_stats(module: nn.Module):
     this is open: the recompute of a rematerialized block must not update
     them twice."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    was = [m.stats_frozen for m in norms]
     for m in norms:
         m.stats_frozen = True
     try:
         yield
     finally:
-        for m in norms:
-            m.stats_frozen = False
+        for m, w in zip(norms, was):
+            m.stats_frozen = w
 
 
 @contextlib.contextmanager
@@ -208,7 +224,7 @@ class BatchNorm(nn.Module):
     sums of squares and count are summed over the ranks, with the
     gradient through the reduction, as JAX's statistics of a sharded
     batch are.  On a slab (``split_axis``, ``tensor_parallel``) they are
-    summed over every rank of the world: the data and the model
+    summed over every position of the mesh: the data and the model
     groups."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -242,7 +258,7 @@ class BatchNorm(nn.Module):
             sums = torch.cat([xf.sum(red), (xf * xf).sum(red),
                               xf.new_full((1,), x.numel() // C)])
             sums = (global_sum(sums, self.mesh) if self.tp_mesh is None
-                    else AllReduceSum.apply(sums, None))
+                    else world_sum(sums, self.tp_mesh))
             mean = sums[:C] / sums[2 * C]
             var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
         if not self.stats_frozen:
@@ -290,19 +306,8 @@ class ConvNorm(nn.Module):
         self.tp_mesh = None  # see tensor_parallel
 
     def forward(self, x):
-        conv, mesh = self.Conv_0, self.tp_mesh
-        if mesh is None:
-            return self.Norm_0(conv2d_nhwc(x, conv))
-        ax = self.split_axis
-        i = ax - 1
-        x = halo_exchange(x, ax, *conv_halo(conv.kernel_size[i],
-                                            conv.stride[i], conv.dilation[i]),
-                          mesh)
-        pad = list(conv.padding)
-        pad[i] = 0
-        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None,
-                     conv.stride, pad, conv.dilation)
-        return self.Norm_0(y.permute(0, 2, 3, 1))
+        return self.Norm_0(conv2d_nhwc(x, self.Conv_0, self.tp_mesh,
+                                       self.split_axis))
 
 
 class Conv3d(nn.Module):
@@ -471,8 +476,9 @@ def _conv_norm_cls(ndim: int):
 
 def _crop_to(t, shape: Sequence[int]):
     """Crop the spatial axes of a channels-last tensor to ``shape``.  On a
-    split axis the slabs are whole at every level (``check_split``), so
-    the global extents are even there and no rank crops along it."""
+    split axis every slab is a whole number of units of 2^levels planes
+    (``check_split``), so each is even at every level and no position
+    crops along it."""
     sl = (slice(None),) + tuple(slice(0, s) for s in shape) + (slice(None),)
     return t[sl]
 

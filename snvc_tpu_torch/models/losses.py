@@ -11,9 +11,11 @@ With a process-group ``mesh`` (parallel/api.py) each masked mean divides
 this rank's masked sum by the count of the global batch, so the global
 loss is the sum of the data positions' losses.  Under a model axis the
 occupancy and offset outputs are slabs of the length axis (models/
-vernier.py): their targets are split alike, and their sums and counts
-are summed over the model group, so every model rank holds its data
-position's whole loss.
+vernier.py, whole units of ``2^length_levels(cfg)`` lengths, even or
+not): their targets are split alike, and their sums and counts are
+summed over the model group, so every model position holds its data
+position's whole loss.  The heatmap, coordinate and bbox outputs come
+out whole on every model position (gathered in the head).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict
 import torch
 
 from snvc_tpu_torch.models.stereo_losses import gt_corners_24
+from snvc_tpu_torch.models.vernier import length_levels
 from snvc_tpu_torch.ops.rotated_iou import pair_overlap
 from snvc_tpu_torch.parallel.api import global_sum
 from snvc_tpu_torch.parallel.tensor import model_sum, shard
@@ -66,12 +69,13 @@ def voxel_mse_loss_weighted(ncf_pred, ncf_target, valid, mesh=None):
 
 
 def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25,
-                   mesh=None):
+                   mesh=None, unit: int = 1):
     """Focal BCE on voxel foreground; target -1 is ignored (JAX
-    losses.py:35).  Under a model axis ``occ_pred`` is this rank's slab of
-    the length axis (3) and ``occ_target`` whole."""
+    losses.py:35).  Under a model axis ``occ_pred`` is this position's
+    slab of the length axis (3), in units of ``unit`` lengths, and
+    ``occ_target`` whole."""
     p = occ_pred.clamp(1e-7, 1.0 - 1e-7)
-    t = shard(occ_target, 3, mesh) if _split(mesh) else occ_target
+    t = shard(occ_target, 3, mesh, unit) if _split(mesh) else occ_target
     term1 = (1.0 - p) ** gamma * torch.log(p)
     term2 = p ** gamma * torch.log(1.0 - p)
     pos = (t == 1.0).to(p.dtype)
@@ -82,15 +86,15 @@ def occupancy_loss(occ_pred, occ_target, valid, gamma=2.0, alpha=0.25,
 
 
 def offset_loss(offset_pred, offset_target, occupancy_target, valid,
-                mesh=None):
+                mesh=None, unit: int = 1):
     """L1 on the part offsets at the foreground voxels (JAX losses.py:51).
     offset_pred [B, 3*P, nh, nw, nl] (the head's 27 channels), reshaped to
     offset_target [B, 3, P, nh, nw, nl]; occupancy_target [B, nh, nw, nl].
-    Under a model axis ``offset_pred`` is this rank's slab of nl and the
-    targets whole."""
+    Under a model axis ``offset_pred`` is this position's slab of nl (in
+    units of ``unit``) and the targets whole."""
     if _split(mesh):
-        offset_target = shard(offset_target, 5, mesh)
-        occupancy_target = shard(occupancy_target, 3, mesh)
+        offset_target = shard(offset_target, 5, mesh, unit)
+        occupancy_target = shard(occupancy_target, 3, mesh, unit)
     err = (offset_pred.reshape(offset_target.shape) - offset_target).abs()
     fg = (occupancy_target == 1.0)[:, None, None]
     mask = fg & _per_instance(valid, err)
@@ -128,14 +132,15 @@ def vernier_losses(outputs: Dict, targets: Dict, valid, cfg,
               else voxel_mse_loss)
     total = ncf_fn(outputs["ncf"], targets["ncf"], valid, mesh)
     losses = {"ncf": total}
+    unit = 2 ** length_levels(cfg)  # of the slabs under a model axis
     if outputs.get("occupancy") is not None:
         lo = occupancy_loss(outputs["occupancy"], targets["occupancy"], valid,
-                            mesh=mesh)
+                            mesh=mesh, unit=unit)
         losses["occupancy"] = lo
         total = total + occupancy_weight * lo
     if outputs.get("offset") is not None and "offset" in targets:
         loff = offset_loss(outputs["offset"], targets["offset"],
-                           targets["occupancy"], valid, mesh)
+                           targets["occupancy"], valid, mesh, unit)
         losses["offset"] = loff
         total = total + loff
     if outputs.get("coordinates") is not None:

@@ -23,13 +23,15 @@ with batch statistics and moves its running averages, as flax's does.
 
 Under ``layers.tensor_parallel`` with a mesh of ``n_model > 1`` the head
 splits the volume on its depth axis D as JAX's ``volume_sharding``
-(``P("data", "model")``) does: K3 builds this rank's D / n_model planes,
-the 3D stack and the hourglasses run on the slab (halo exchanges along
-D), the depth softmax and its expectations reduce over the model group
+(``P("data", "model")``) does: K3 builds this position's planes (whole
+units of 4 planes, the hourglass's 2^levels, spread as
+``np.array_split`` spreads them: 24 / 20 / 20 of 64 over three; see
+parallel/tensor.py), the 3D stack and the hourglasses run on the slab
+(halo exchanges along D), the depth softmax and its expectations reduce over the model group
 (the shift is the group's maximum), ``depth_prob`` and the per-plane
 outputs come back whole, and the post-stack volume is gathered once for
 K4 (JAX's sharded path takes its XLA resample there: the same numbers).
-The BEV head runs whole on every model rank.
+The BEV head runs whole on every model position.
 """
 
 from __future__ import annotations
@@ -156,6 +158,7 @@ class StereoHead(nn.Module):
     module docstring)."""
 
     split_axis = 1
+    unit = 2 ** Hourglass.levels  # of the depth slabs under a model axis
 
     def __init__(self, cfg: StereoConfig):
         super().__init__()
@@ -219,7 +222,7 @@ class StereoHead(nn.Module):
         levels = None
         if mesh is not None:
             check_split("num_depths", cfg.num_depths, mesh, Hourglass.levels)
-            d0, d1 = split_range(cfg.num_depths, mesh)
+            d0, d1 = split_range(cfg.num_depths, mesh, self.unit)
             shifts, levels = shifts[:, d0:d1].contiguous(), self.depths[d0:d1]
         vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(), shifts)
         vols = self.stack3d(vol)
@@ -227,7 +230,7 @@ class StereoHead(nn.Module):
         if cfg.rpn3d_enable:
             vol = vols[-1]
             if mesh is not None:
-                vol = gather(vol, 1, mesh)
+                vol = gather(vol, 1, mesh, cfg.num_depths, self.unit)
             out.update(self.bev_head(self.frustum(vol, Pl), rpn_img, Pl))
         return out
 
@@ -282,9 +285,10 @@ class StereoHead(nn.Module):
 
         prob, depth = expectation(cost, depth_offset)
         if mesh is not None:
-            prob = gather(prob, 1, mesh)
+            prob = gather(prob, 1, mesh, cfg.num_depths, self.unit)
             if depth_offset is not None:
-                depth_offset = gather(depth_offset, 1, mesh)
+                depth_offset = gather(depth_offset, 1, mesh, cfg.num_depths,
+                                      self.unit)
         out = {"depth": depth, "depth_prob": prob, "depth_levels": depths}
         if depth_offset is not None:
             out["depth_offset"] = depth_offset

@@ -21,16 +21,32 @@ as JAX's ``nn.remat`` does (vernier.py:188-202).
 
 Under ``layers.tensor_parallel`` with a mesh of ``n_model > 1`` the
 object voxel is split on its length axis nl, as JAX's ``voxel_sharding``
-(``P("data", None, None, "model", None)``) splits it: the encoder
-slices the projected grid before K1, so K1 samples this rank's nl /
-n_model lengths (the HRNet runs whole on every model rank); the
-BEV_type2 / BEV_type3 head runs the large-tap prelude (K2 on slabs
-widened by 3, 2 and 4 planes), the 3D hourglass, the occupancy and
-offset heads and the 2D hourglass (on [N, nw, nl / n, C]) on the slab,
-then gathers the heatmap features before ``Conv_0``: ``Conv_0``,
-``CoordHead`` and ``FCModel`` run whole on every model rank.
-``occupancy`` and ``offset`` come out as slabs.  The other heads refuse
-a model axis (JAX's only user is the default training path).
+(``P("data", None, None, "model", None)``, on the voxel of every head)
+splits it: the encoder slices the projected grid before K1, so K1
+samples this position's lengths (the HRNet runs whole on every model
+position).  The slabs are whole units of 2^levels lengths, ``levels``
+the stride-2 steps of the head's hourglass (``length_levels``), spread
+as ``np.array_split`` spreads them, so they may differ by a unit
+(parallel/tensor.py).  Each head runs on the slab up to one gather:
+
+* ``BEV_type2`` / ``BEV_type3``: the large-tap prelude (K2 on slabs
+  widened by 3, 2 and 4 planes), the 3D hourglass, the occupancy and
+  offset heads and the 2D hourglass (on [N, nw, L, C]), then the heatmap
+  features are gathered before ``Conv_0``: ``Conv_0``, ``CoordHead``
+  and ``FCModel`` run whole on every model position;
+* ``3D``: both ConvNorm3d, the hourglass and the 1x1x1 ``Conv3d_0`` on
+  the slab, then the fields are gathered, so ``ncf`` comes out whole and
+  the heatmap loss is the one-device one;
+* ``BEV``: the two ConvNorm3d (strided along the height only), the BEV
+  map's ``ConvNorm_0``, hourglass, ``ConvNorm_1`` and occupancy conv on
+  the [N, nw, L, C] slab, then the BEV map is gathered before the
+  stride-2 ``ConvNorm_2``: it and ``HRNet_0`` run whole.
+
+``occupancy`` and ``offset`` come out as slabs (models/losses.py sums
+their losses over the model group).  Under a one-process mesh
+(parallel/local.py) nothing rematerializes: ``cfg.remat`` is ignored
+there, as a recompute in the backward could not meet the other
+positions.
 """
 
 from __future__ import annotations
@@ -99,6 +115,27 @@ def _coord_maps(n: int, nl: int, nw: int, dtype, device):
     return m[None].expand(n, nl, nw, 2)
 
 
+def length_levels(cfg: VernierConfig) -> int:
+    """The stride-2 steps of the hourglass that runs on the length axis of
+    ``cfg``'s head: the slabs of a model axis are whole units of
+    2^levels lengths."""
+    if cfg.vernier_type in ("BEV_type2", "BEV_type3") and cfg.n_sample_w > 16:
+        return HourglassDeep.levels
+    return Hourglass.levels
+
+
+def _length_halo(cfg: VernierConfig) -> int:
+    """The widest halo along the length that the head's convs read: the
+    BEV_type2 / BEV_type3 prelude's conv3_k5_d2 4, a k3 conv's 1."""
+    return 4 if cfg.vernier_type in ("BEV_type2", "BEV_type3") else 1
+
+
+def check_length_split(cfg: VernierConfig, mesh) -> None:
+    """``parallel.tensor.check_split`` of the grid's length nl."""
+    check_split("grid length nl", cfg.grid_resolution[2], mesh,
+                length_levels(cfg), _length_halo(cfg))
+
+
 class VernierEncoder(nn.Module):
     """ROIs -> object-centric voxel: a shared HRNet over both views, then
     the stereo voxel sampler (JAX vernier.py:89).  With
@@ -125,9 +162,11 @@ class VernierEncoder(nn.Module):
         grid = self.cfg.grid_resolution
         gpl, gpr = grid_proj_left.float(), grid_proj_right.float()
         if self.tp_mesh is not None:
-            # the points of this rank's lengths (h-major ravel of the grid)
+            # the points of this position's lengths (h-major ravel of the
+            # grid)
+            check_length_split(self.cfg, self.tp_mesh)
             nh, nw, nl = grid
-            a, b = split_range(nl, self.tp_mesh)
+            a, b = split_range(nl, self.tp_mesh, 2 ** length_levels(self.cfg))
             gpl, gpr = (g.reshape(n, nh, nw, nl, 2)[:, :, :, a:b]
                         .reshape(n, -1, 2) for g in (gpl, gpr))
             grid = (nh, nw, b - a)
@@ -164,8 +203,8 @@ class VernierHead(nn.Module):
         ``CoordHead`` and, with ``use_bbox_head``, the FC bbox head.
 
     Child names are Flax's automatic names of each head.  Under a model
-    axis the BEV_type2 / BEV_type3 head splits the length axis (3 of the
-    voxel, 2 of the BEV map); the others raise."""
+    axis every head splits the length axis (3 of the voxel, 2 of the BEV
+    map) up to its gather (the module docstring)."""
 
     split_axis = 3
 
@@ -186,37 +225,44 @@ class VernierHead(nn.Module):
     # --- '3D' (JAX vernier.py:211) -------------------------------------
     def _build_3d(self, dim: int):
         cfg = self.cfg
-        g, gn = cfg.gn_groups, cfg.gn
-        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)
-        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g)
-        self.Hourglass_0 = Hourglass(dim, ndim=3, gn=gn)
-        self.Conv3d_0 = Conv3d(dim, cfg.num_parts, (1, 1, 1))
+        g, gn, L = cfg.gn_groups, cfg.gn, 3
+        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g, L)
+        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, 1, 1, gn, g, L)
+        self.Hourglass_0 = Hourglass(dim, ndim=3, gn=gn, split_axis=L)
+        self.Conv3d_0 = Conv3d(dim, cfg.num_parts, (1, 1, 1))  # no halo
 
     def _head_3d(self, voxel):
         x = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(x))
         x = x + self.Hourglass_0(x, None, None)[0]
-        ncf = self.Conv3d_0(x).movedim(-1, 1)  # [N, P, nh, nw, nl]
-        return dict(ncf=ncf, occupancy=None, offset=None, coordinates=None,
-                    bbox=None)
+        ncf = self.Conv3d_0(x)
+        if self.tp_mesh is not None:  # the whole length from here on
+            ncf = gather(ncf, 3, self.tp_mesh, self.cfg.grid_resolution[2],
+                         2 ** length_levels(self.cfg))
+        return dict(ncf=ncf.movedim(-1, 1),  # [N, P, nh, nw, nl]
+                    occupancy=None, offset=None, coordinates=None, bbox=None)
 
     # --- 'BEV' (JAX vernier.py:230) ------------------------------------
     def _build_bev(self, dim: int):
         cfg = self.cfg
         g, gn = cfg.gn_groups, cfg.gn
         nh = cfg.grid_resolution[0]
-        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g)
-        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g)
+        L3, L2 = 3, 2  # the length axis of the voxel, of the BEV map
+        self.ConvNorm3d_0 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g, L3)
+        self.ConvNorm3d_1 = ConvNorm3d(dim, dim, 3, (2, 1, 1), 1, gn, g, L3)
         h = _strided_depth(_strided_depth(nh)) // 2
-        self.ConvNorm_0 = ConvNorm(h * dim, dim * 2, 3, gn=gn, groups=g)
-        self.Hourglass_0 = Hourglass(dim * 2, ndim=2, gn=gn)
-        self.ConvNorm_1 = ConvNorm(dim * 2, dim * 2, 3, gn=gn, groups=g)
+        self.ConvNorm_0 = ConvNorm(h * dim, dim * 2, 3, gn=gn, groups=g,
+                                   split_axis=L2)
+        self.Hourglass_0 = Hourglass(dim * 2, ndim=2, gn=gn, split_axis=L2)
+        self.ConvNorm_1 = ConvNorm(dim * 2, dim * 2, 3, gn=gn, groups=g,
+                                   split_axis=L2)
         self.Conv_0 = nn.Conv2d(dim * 2, nh, 3, padding=1, bias=False)
         self.ConvNorm_2 = ConvNorm(dim * 2, dim * 4, 3, 2, gn=gn, groups=g)
         self.HRNet_0 = HRNet(cfg.backbone, head_type="heatmap_regression",
                              num_heatmaps=cfg.num_parts, in_channels=dim * 4)
 
     def _head_bev(self, voxel):
+        mesh = self.tp_mesh
         x = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(x))
         x = avg_pool_height(x, 2)
@@ -225,7 +271,11 @@ class VernierHead(nn.Module):
         bev = F.relu(self.ConvNorm_0(bev))
         bev = bev + self.Hourglass_0(bev, None, None)[0]
         occ = F.relu(self.ConvNorm_1(bev))
-        occ = torch.sigmoid(conv2d_nhwc(occ, self.Conv_0))  # [N, W, L, nh]
+        occ = conv2d_nhwc(occ, self.Conv_0, mesh, 2)  # [N, W, L, nh]
+        occ = torch.sigmoid(occ)
+        if mesh is not None:  # the whole length from here on
+            bev = gather(bev, 2, mesh, self.cfg.grid_resolution[2],
+                         2 ** length_levels(self.cfg))
         hm = F.relu(self.ConvNorm_2(bev))
         hm = self.HRNet_0(hm)  # [N, W, L, P]
         return dict(ncf=hm.permute(0, 3, 2, 1), occupancy=occ.movedim(-1, 1),
@@ -284,9 +334,6 @@ class VernierHead(nn.Module):
     def _head_bev_type23(self, voxel, dropout_generator):
         cfg = self.cfg
         mesh = self.tp_mesh
-        if mesh is not None:
-            check_split("grid length nl", cfg.grid_resolution[2], mesh,
-                        getattr(self, self._hg3).levels)
         vimg = F.relu(self.ConvNorm3d_0(voxel))
         x = F.relu(self.ConvNorm3d_1(voxel))
         x = F.relu(self.ConvNorm3d_2(x)) + x
@@ -297,7 +344,8 @@ class VernierHead(nn.Module):
         else:
             def run_hg3(t):
                 return hg3(t, None, None)[0]
-        if cfg.remat and self.training and torch.is_grad_enabled():
+        if (cfg.remat and self.training and torch.is_grad_enabled()
+                and (mesh is None or mesh.local is None)):
             # the recompute must not move BatchNorm's running statistics
             x = checkpoint(run_hg3, x, use_reentrant=False,
                            context_fn=lambda: (contextlib.nullcontext(),
@@ -324,8 +372,9 @@ class VernierHead(nn.Module):
             hm = hg2(bev)
         else:
             hm = hg2(bev, None, None)[0]
-        if mesh is not None:
-            hm = gather(hm, 2, mesh)  # the whole length from here on
+        if mesh is not None:  # the whole length from here on
+            hm = gather(hm, 2, mesh, cfg.grid_resolution[2],
+                        2 ** length_levels(cfg))
         hm = hm.permute(0, 2, 1, 3)  # [N, L, W, 64]
         ncf_maps = conv2d_nhwc(hm, self.Conv_0)  # [N, nl, nw, P]
         ncf = ncf_maps.movedim(-1, 1)
@@ -355,9 +404,8 @@ class VernierHead(nn.Module):
         """``dropout_generator`` draws the bbox head's dropout masks in
         train mode (models/fc_model.py).  Outputs are float32."""
         vt = self.cfg.vernier_type
-        if self.tp_mesh is not None and vt not in ("BEV_type2", "BEV_type3"):
-            raise ValueError(f"vernier_type {vt!r} splits no axis over a "
-                             "model axis: BEV_type2 / BEV_type3 only")
+        if self.tp_mesh is not None:
+            check_length_split(self.cfg, self.tp_mesh)
         if vt == "3D":
             out = self._head_3d(voxel)
         elif vt == "BEV":

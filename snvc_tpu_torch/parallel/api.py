@@ -34,18 +34,30 @@ over the batch is summed over the ranks:
 Random draws keyed to the batch (the bbox head's dropout) draw the global
 batch's rows and keep the rank's (``global_rows``).
 
-The "model" axis is tensor parallelism (parallel/tensor.py): a
-process-group mesh of ``n_data x n_model`` ranks, "model" fastest as in
-JAX (``rank = data_index * n_model + model_index``), splits the
-plane-sweep volume on its depth axis (``DetectRunner``,
+The "model" axis is tensor parallelism (parallel/tensor.py): it splits
+the plane-sweep volume on its depth axis (``DetectRunner``,
 ``make_stereo_train_step``) and the Vernier voxel on its length axis
-(``make_train_step``) over the ranks of one data position, each rank
-holding its slab and a halo.  The ranks of a data index form its model
-group, the ranks of a model index its data group; ``global_sum`` and the
-data-parallel reductions run in the data group, the gradients are summed
-over the whole world (``reduce_gradients``).  The one-process form of
-the axis (``make_mesh(n_model > 1)``) is not ported (ROADMAP.md, Queue
-1).
+(``make_train_step``) over the positions of one data index, each holding
+its slab and a halo.  A mesh of ``n_data x n_model`` positions, "model"
+fastest as in JAX (``position = data_index * n_model + model_index``),
+comes in two forms:
+
+* ``initialize_multihost(backend, device, n_model)`` under a launcher:
+  one process per position (a rank), each on its device.  The ranks of a
+  data index form its model group, the ranks of a model index its data
+  group; ``global_sum`` and the data-parallel reductions run in the data
+  group, the gradients are summed over the whole world
+  (``reduce_gradients``).
+* ``make_mesh(n_data, devices, n_model > 1)``: one process drives every
+  position, as JAX's one-process mesh does (parallel/local.py): a thread
+  a position, each position's collectives meeting at a rendezvous, one
+  backward over every position's graph.  A device may repeat (two
+  positions on one card).  ``DetectRunner``, ``make_train_step`` and
+  ``make_stereo_train_step`` take it; ``RefineRunner`` splits its
+  instances over the data axis only and serves on the first device of
+  each data position, as JAX replicates its model over "model".  Nothing
+  rematerializes in this form (``cfg.remat`` is off: a recompute in the
+  backward could not meet the other positions).
 """
 
 from __future__ import annotations
@@ -65,18 +77,21 @@ from snvc_tpu_torch.utils.device import resolve_device
 class Mesh:
     """A "data" x "model" mesh, one device per position.
 
-    ``rank`` is None when this process drives every device (``make_mesh``:
-    the serving runners, "model" 1); otherwise the position this process
-    holds in a process group of ``n_data x n_model`` ranks, one device
-    each (``initialize_multihost``), "model" fastest.  ``groups`` holds
-    the process groups of this rank's data and model positions (None:
-    the whole world, or no group of more than one rank)."""
+    ``rank`` is None when this process drives every device (``make_mesh``);
+    otherwise the position this mesh stands for: this process's in a
+    process group of ``n_data x n_model`` ranks, one device each
+    (``initialize_multihost``), or one thread's of a one-process run
+    (``local``, its ``parallel.local.Rendezvous``), "model" fastest.
+    ``groups`` holds the process groups of this rank's data and model
+    positions (None: the whole world, or no group of more than one
+    rank)."""
 
     devices: Tuple[torch.device, ...]
     rank: Optional[int] = None
     n_model: int = 1
     groups: Tuple[Any, Any] = dataclasses.field(
         default=(None, None), compare=False, repr=False)
+    local: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def n_data(self) -> int:
@@ -104,20 +119,19 @@ class Mesh:
 
 
 def make_mesh(n_data: int, devices: Sequence, n_model: int = 1) -> Mesh:
-    """The first ``n_data`` of ``devices`` as one process's data axis.  A
-    device may repeat (``["cuda:0", "cuda:0"]``: two replicas on one
-    card).  The "model" axis runs one process a rank: a halo exchange
-    between the devices of one process is not ported."""
-    if n_model != 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: the 'model' axis (tensor parallelism) runs "
-            "one process a rank, from initialize_multihost(..., n_model="
-            f"{n_model}); its one-process form is not ported (ROADMAP.md, "
-            "Queue 1)")
-    if not 1 <= n_data <= len(devices):
-        raise ValueError(f"mesh of {n_data} needs more than "
+    """The first ``n_data x n_model`` of ``devices`` as one process's
+    mesh, "model" fastest; ``n_data = -1`` takes ``len(devices) //
+    n_model`` (JAX's ``make_mesh``).  A device may repeat (``["cuda:0",
+    "cuda:0"]``: two positions on one card)."""
+    if n_model < 1:
+        raise ValueError(f"n_model={n_model}")
+    if n_data == -1:
+        n_data = len(devices) // n_model
+    if not 1 <= n_data * n_model <= len(devices):
+        raise ValueError(f"mesh {n_data}x{n_model} needs more than "
                          f"{len(devices)} devices")
-    return Mesh(tuple(torch.device(d) for d in devices[:n_data]))
+    return Mesh(tuple(torch.device(d) for d in devices[:n_data * n_model]),
+                n_model=n_model)
 
 
 def initialize_multihost(backend: str, device,
@@ -134,17 +148,25 @@ def initialize_multihost(backend: str, device,
     a GPU (NCCL refuses a duplicate GPU).  A group the process has already
     joined is used as it is.  ``device`` is this rank's device; "cuda"
     without an index means ``cuda:LOCAL_RANK``.  Returns the mesh of every
-    rank's device, or None in a process with no launcher and no group
-    (one process, as JAX's single-process case).  ``n_model`` must divide
-    the world size and, under a launcher that gives ``LOCAL_WORLD_SIZE``,
-    stay within one host (JAX refuses a model axis that would cross
-    hosts)."""
+    rank's device.  In a process with no launcher and no group (one
+    process, as JAX's single-process case) it returns None with
+    ``n_model`` 1, and with ``n_model > 1`` the one-process mesh
+    (``make_mesh(-1, ..., n_model)``) over every visible device of
+    ``device``'s type.  ``n_model`` must divide the world size and, under
+    a launcher that gives ``LOCAL_WORLD_SIZE``, stay within one host (JAX
+    refuses a model axis that would cross hosts)."""
     dev = torch.device(device)
+    if not dist.is_initialized() and "RANK" not in os.environ:
+        if n_model == 1:
+            return None
+        visible = _visible_devices(dev.type)
+        if n_model > len(visible):
+            raise ValueError(f"model axis {n_model} would cross host "
+                             f"boundaries (local devices: {len(visible)})")
+        return make_mesh(-1, visible, n_model)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     if not dist.is_initialized():
-        if "RANK" not in os.environ:
-            return None
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(backend)
@@ -165,6 +187,14 @@ def initialize_multihost(backend: str, device,
     rank = dist.get_rank()
     return Mesh(tuple(torch.device(n) for n in names), rank=rank,
                 n_model=n_model, groups=_mesh_groups(world, n_model, rank))
+
+
+def _visible_devices(kind: str) -> List[str]:
+    """Every device of ``kind`` this process sees: the GPUs, or the one
+    CPU."""
+    if kind == "cuda":
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [kind]
 
 
 def _mesh_groups(world: int, n_model: int, rank: int) -> Tuple[Any, Any]:
@@ -232,11 +262,13 @@ def shard_batch(arrays: Dict[str, Any], mesh: Mesh,
 
 def runner_devices(device, mesh: Optional[Mesh],
                    model_axis: bool = False) -> List[torch.device]:
-    """The devices a serving runner drives: every device of ``mesh`` (one
-    process drives them all: ``make_mesh``), or ``device`` alone.  A
-    runner that splits its model (``model_axis``: ``DetectRunner``) also
-    takes a process group's mesh of one data position and ``n_model >
-    1``: this rank's device."""
+    """The devices a serving runner drives: those of ``mesh`` (one process
+    drives them all: ``make_mesh``), or ``device`` alone.  A runner that
+    splits its model (``model_axis``: ``DetectRunner``) drives every
+    position of the mesh, and also takes a process group's mesh of one
+    data position and ``n_model > 1``: this rank's device.  One that does
+    not (``RefineRunner``) drives the first device of each data position:
+    JAX replicates its model over "model"."""
     if mesh is None:
         return [resolve_device(device)]
     if mesh.rank is not None:
@@ -247,7 +279,8 @@ def runner_devices(device, mesh: Optional[Mesh],
             raise ValueError(f"a tensor-parallel runner serves one data "
                              f"position, not {mesh.n_data}")
         return [resolve_device(mesh.devices[mesh.rank])]
-    return [resolve_device(d) for d in mesh.devices]
+    devs = mesh.devices if model_axis else mesh.devices[::mesh.n_model]
+    return [resolve_device(d) for d in devs]
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -269,13 +302,22 @@ class AllReduceSum(torch.autograd.Function):
 
 
 def global_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """``x`` summed over the data axis of ``mesh`` (a process group's
-    mesh, as ``check_training_mesh`` holds the steps to), differentiably
-    (see the module docstring); ``x`` itself without a mesh or with one
-    data position."""
+    """``x`` summed over the data axis of ``mesh`` (a position's mesh: a
+    rank's, or a thread's of a one-process run), differentiably (see the
+    module docstring); ``x`` itself without a mesh or with one data
+    position."""
     if mesh is None or mesh.n_data == 1:
         return x
+    if mesh.local is not None:
+        return mesh.local.sum(x, "data", mesh.rank)
     return AllReduceSum.apply(x, mesh.data_group)
+
+
+def world_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over every position of ``mesh``, differentiably."""
+    if mesh.local is not None:
+        return mesh.local.sum(x, "world", mesh.rank)
+    return AllReduceSum.apply(x, None)
 
 
 def global_rows(n_local: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
@@ -313,13 +355,18 @@ def reduce_gradients(grads: Sequence[torch.Tensor],
 
 
 def check_training_mesh(mesh: Optional[Mesh], device) -> None:
-    """A training step holds one position of a process group: the mesh of
-    ``initialize_multihost``, on ``device``."""
+    """A training step holds one position of a process group (the mesh of
+    ``initialize_multihost``), or every position of a one-process mesh
+    with a model axis (``make_mesh(n_data, devices, n_model > 1)``; the
+    "data" axis alone runs a process a position), on ``device``: the
+    rank's, or the mesh's first."""
     if mesh is None:
         return
-    if mesh.rank is None:
-        raise ValueError("a training step runs one process per data "
-                         "position: pass initialize_multihost's mesh")
-    if mesh.devices[mesh.rank] != torch.device(device):
-        raise ValueError(f"rank {mesh.rank} holds {mesh.devices[mesh.rank]}"
-                         f", not {device}")
+    if mesh.rank is None and mesh.n_model == 1:
+        raise ValueError("a data-parallel training step runs one process "
+                         "per data position: pass initialize_multihost's "
+                         "mesh, or make_mesh's with n_model > 1")
+    own = mesh.devices[mesh.rank or 0]
+    if own != torch.device(device):
+        raise ValueError(f"position {mesh.rank or 0} holds {own}, not "
+                         f"{device}")

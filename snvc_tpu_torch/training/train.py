@@ -76,6 +76,7 @@ from snvc_tpu_torch.parallel.api import (
     reduce_gradients,
     shard_instance_batch,
 )
+from snvc_tpu_torch.parallel.local import replicas, run_positions
 
 BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
               "image_idx", "trans_l", "trans_r", "samples", "valid",
@@ -158,9 +159,28 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     where the head has one, draws from ``dropout_generator(tc.seed,
     state.step)``; targets follow ``cfg.grid_type``.  With ``mesh``,
     ``batch`` is the global batch and the metrics are the global ones."""
+    if mesh is not None and mesh.rank is None:
+        return position_steps(state, batch,
+                              functools.partial(_losses, cfg=cfg, tc=tc),
+                              tc, mesh, grid_local=grid_local)
+    # open through the backward: the rematerialized hourglass's recompute
+    # runs its BatchNorms' reductions and its halo exchanges again
+    with data_parallel(state.model, mesh), \
+            tensor_parallel(state.model, mesh):
+        losses, metrics = _losses(state.model, batch, state.step, mesh,
+                                  cfg=cfg, tc=tc, grid_local=grid_local)
+        metrics["grad_norm"] = apply_gradients(state, losses["total"], tc,
+                                               mesh)
+    return metrics
+
+
+def _losses(model, batch, step: int, mesh, cfg: VernierConfig,
+            tc: TrainConfig, grid_local: torch.Tensor):
+    """The losses of ``model`` (the forward in train mode) on ``mesh``'s
+    position's part of the global ``batch`` (all of it without a mesh),
+    and the global metrics (detached)."""
     if mesh is not None:
         batch = shard_instance_batch(batch, mesh, mesh.data_index)
-    model = state.model
     left, right, gpl, gpr = assemble_instances(
         batch["images_left"], batch["images_right"], batch["image_idx"],
         batch["trans_l"], batch["trans_r"], batch["samples"],
@@ -168,20 +188,42 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     targets = make_targets(batch["samples"], batch["gt_boxes"],
                            batch["points"], batch["points_valid"], grid_local,
                            cfg)
-    gen = (dropout_generator(grid_local.device, tc.seed, state.step)
+    gen = (dropout_generator(grid_local.device, tc.seed, step)
            if model.head.has_bbox else None)
-    # open through the backward: the rematerialized hourglass's recompute
-    # runs its BatchNorms' reductions and its halo exchanges again
-    with data_parallel(model, mesh), tensor_parallel(model, mesh):
-        outputs = model(left, right, gpl, gpr, dropout_generator=gen)
-        losses = vernier_losses(outputs, targets, batch["valid"], cfg,
-                                occupancy_weight=tc.occupancy_weight,
-                                coordinate_weight=tc.coordinate_weight,
-                                mesh=mesh)
-        metrics = global_metrics({k: v.detach() for k, v in losses.items()},
-                                 mesh)
-        metrics["grad_norm"] = apply_gradients(state, losses["total"], tc,
-                                               mesh)
+    outputs = model(left, right, gpl, gpr, dropout_generator=gen)
+    losses = vernier_losses(outputs, targets, batch["valid"], cfg,
+                            occupancy_weight=tc.occupancy_weight,
+                            coordinate_weight=tc.coordinate_weight,
+                            mesh=mesh)
+    return losses, global_metrics({k: v.detach() for k, v in losses.items()},
+                                  mesh)
+
+
+def position_steps(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   losses_fn, tc: TrainConfig, mesh: Mesh,
+                   **kw) -> Dict[str, torch.Tensor]:
+    """The step of a one-process ``mesh`` (the module docstring):
+    ``losses_fn(model, batch, step, position, **kw) -> (losses,
+    metrics)`` on every position's replica in its thread, with the
+    global batch and the tensors in ``kw`` on the position's device,
+    then one backward of the positions' summed ``total`` losses over
+    ``n_model`` and the update.  Returns position 0's (global)
+    metrics."""
+    reps = replicas(state.model, mesh)
+
+    def position(pos):
+        dev = pos.devices[pos.rank]
+        model = reps[pos.rank]
+        with data_parallel(model, pos), tensor_parallel(model, pos):
+            return losses_fn(model, {k: v.to(dev) for k, v in batch.items()},
+                             state.step, pos,
+                             **{k: v.to(dev) for k, v in kw.items()})
+
+    results = run_positions(mesh, position)
+    dev = mesh.devices[0]
+    total = sum(losses["total"].to(dev) for losses, _ in results)
+    metrics = results[0][1]
+    metrics["grad_norm"] = apply_gradients(state, total / mesh.n_model, tc)
     return metrics
 
 
@@ -220,6 +262,7 @@ def make_train_step(cfg: VernierConfig, tc: TrainConfig, device,
     """``train_step`` with the config and the object grid bound:
     ``step(state, batch) -> metrics``.  ``mesh``: the process group's
     mesh (``parallel.initialize_multihost``) for a data-parallel step,
+    or a one-process mesh with a model axis (``parallel.make_mesh``),
     the voxel's length split over its model axis; ``cfg.max_instances``
     is the global batch and must split over its data axis."""
     check_training_mesh(mesh, device)

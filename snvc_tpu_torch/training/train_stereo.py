@@ -28,7 +28,9 @@ plane-sweep volume on its depth axis over the model group, as JAX's
 through the 3D stack (models/stereonet.py); the outputs the losses read
 come back whole on every model rank, so the losses are the data
 position's (training/train.apply_gradients seeds the backward with
-1 / n_model).
+1 / n_model).  The one-process mesh of ``parallel.make_mesh(n_data,
+devices, n_model > 1)`` runs every position in one call, as
+``training/train.position_steps`` runs the Vernier step's.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from snvc_tpu_torch.training.train import (
     TrainState,
     apply_gradients,
     make_optimizer,
+    position_steps,
 )
 
 STEREO_BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
@@ -130,23 +133,37 @@ def stereo_train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     gradients' global norm before clipping, as 0-d tensors.  With
     ``mesh``, ``batch`` is the global batch and the metrics are the
     global ones."""
+    if mesh is not None and mesh.rank is None:
+        return position_steps(state, batch,
+                              functools.partial(_losses, cfg=cfg), tc, mesh,
+                              locations=locations)
+    with data_parallel(state.model, mesh), \
+            tensor_parallel(state.model, mesh):
+        losses, metrics = _losses(state.model, batch, state.step, mesh,
+                                  cfg=cfg, locations=locations)
+        metrics["grad_norm"] = apply_gradients(state, losses["total"], tc,
+                                               mesh)
+    return metrics
+
+
+def _losses(model, batch, step: int, mesh, cfg: StereoConfig,
+            locations: torch.Tensor):
+    """The losses of ``model`` (the forward in train mode) on ``mesh``'s
+    position's frames of the global ``batch`` (all of them without a
+    mesh), their ``total``, and the global metrics (detached)."""
     if mesh is not None:
         batch = shard_batch(batch, mesh, mesh.data_index)
     left, right = augment_normalize(batch["images_left"],
-                                    batch["images_right"], cfg, state.step)
-    with data_parallel(state.model, mesh), \
-            tensor_parallel(state.model, mesh):
-        out = state.model(left, right, batch["P_left"].float(),
-                          batch["P_right"].float())
-        losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
-                            batch["gt_classes"], cfg, locations, mesh)
-        dloss = _depth_loss(out, batch["depth_gt"], cfg, mesh)
-        total = losses["total"] + dloss
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics.update(depth=dloss.detach(), total=total.detach())
-        metrics = global_metrics(metrics, mesh)
-        metrics["grad_norm"] = apply_gradients(state, total, tc, mesh)
-    return metrics
+                                    batch["images_right"], cfg, step)
+    out = model(left, right, batch["P_left"].float(),
+                batch["P_right"].float())
+    losses = rpn3d_loss(out, batch["gt_boxes"], batch["gt_valid"],
+                        batch["gt_classes"], cfg, locations, mesh)
+    dloss = _depth_loss(out, batch["depth_gt"], cfg, mesh)
+    total = losses["total"] + dloss
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics.update(depth=dloss.detach(), total=total.detach())
+    return dict(losses, total=total), global_metrics(metrics, mesh)
 
 
 def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device,
@@ -154,8 +171,9 @@ def make_stereo_train_step(cfg: StereoConfig, tc: TrainConfig, device,
     """``stereo_train_step`` with the config and the BEV anchor locations
     bound: ``step(state, batch) -> metrics``.  ``mesh``: the process
     group's mesh (``parallel.initialize_multihost``) for a data-parallel
-    step, the volume's depth split over its model axis; the batch's
-    frames must split over its data axis."""
+    step, or a one-process mesh with a model axis
+    (``parallel.make_mesh``), the volume's depth split over its model
+    axis; the batch's frames must split over its data axis."""
     check_training_mesh(mesh, device)
     locations = torch.from_numpy(bev_locations(cfg)).to(device)
     return functools.partial(stereo_train_step, cfg=cfg, tc=tc,

@@ -91,8 +91,11 @@ def test_shards_refuse_an_indivisible_batch():
 
 
 def test_make_mesh_refuses_the_model_axis_and_too_few_devices():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_mesh(1, ["cpu", "cpu"], n_model=2)
+    """A model axis the devices cannot hold is refused (the one-process
+    data x model mesh itself is built: tests/
+    test_torch_tensor_parallel.py)."""
+    with pytest.raises(ValueError, match="mesh 1x3 needs more than 2"):
+        api.make_mesh(1, ["cpu", "cpu"], n_model=3)
     with pytest.raises(ValueError):
         api.make_mesh(3, ["cpu", "cpu"])
     assert MESH.n_data == 2 and MESH.rank is None

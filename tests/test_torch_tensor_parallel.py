@@ -15,10 +15,12 @@
   running statistics, within 1e-6 of scale (the large-tap convs' plain
   version sums its taps in float32: 3.6e-7 and 4.7e-7; the rest agree
   to 3.4e-12 or better, most to ~3e-16).
-* The refusals: an extent that does not split into whole slabs at every
-  hourglass stride, the one-process ``make_mesh(n_model=2)``, an
-  ``n_model`` that does not divide the world or would cross hosts, the
-  runners given the wrong mesh.
+* The slab rule (``slab_bounds``: whole units of 2^levels planes, spread
+  as ``np.array_split`` spreads them) and what is still refused: an
+  extent of no whole units, a position with no unit, a slab narrower
+  than a halo; a mesh larger than its devices, an ``n_model`` that does
+  not divide the world or would cross hosts, the runners given the
+  wrong mesh.  The one-process ``make_mesh(n_model=2)`` is built.
 """
 
 import numpy as np
@@ -33,7 +35,16 @@ from snvc_tpu_torch.models.layers import tensor_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.parallel import api
-from snvc_tpu_torch.parallel.tensor import check_split
+from snvc_tpu_torch.parallel.local import run_positions
+from snvc_tpu_torch.parallel.tensor import (
+    check_split,
+    gather,
+    halo_exchange,
+    model_max,
+    model_sum,
+    shard,
+    slab_bounds,
+)
 from tests.torch_parallel_ranks import LAYER_CASES, run_ranks, tp_layers
 
 # a [2, 8, 3] tensor split on axis 1: slabs of 4
@@ -98,13 +109,88 @@ def test_split_layer_matches_the_whole_module(ranks, name):
         assert not bad, (name, bad)
 
 
+def test_one_process_collectives_forward_and_backward():
+    """On make_mesh(1, 3 CPUs, 3) a [2, 16, 3] tensor split 8 / 4 / 4
+    (units of 4): each position's halo (2 planes below, 1 above),
+    gather, model_sum and model_max, and one backward of every
+    position's weighted sums, against the same sums on the whole tensor
+    (float64, exact up to the order of the adds)."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 16, 3), generator=g, dtype=torch.float64)
+    b = slab_bounds(16, 3, 4)
+    w = [torch.randn((2, b[p + 1] - b[p] + 3, 3), generator=g,
+                     dtype=torch.float64) for p in range(3)]
+    v = torch.randn((3, 2, 16, 3), generator=g, dtype=torch.float64)
+    xl = x.clone().requires_grad_()
+
+    def position(pos):
+        xs = shard(xl, 1, pos, 4)
+        return (halo_exchange(xs, 1, 2, 1, pos), gather(xs, 1, pos, 16, 4),
+                model_sum(xs.sum(), pos), model_max(xs.amax(1), pos))
+
+    outs = run_positions(api.make_mesh(1, ["cpu"] * 3, 3), position)
+    xw = x.clone().requires_grad_()
+    xpad = F.pad(xw, (0, 0, 2, 1))  # zeros beyond the outer positions
+    total, want = 0.0, 0.0
+    for p, (halo, whole, total_sum, top) in enumerate(outs):
+        ref = xpad[:, b[p]:b[p + 1] + 3]
+        torch.testing.assert_close(halo, ref.detach(), rtol=0, atol=0)
+        torch.testing.assert_close(whole, x, rtol=0, atol=0)
+        torch.testing.assert_close(total_sum, x.sum(), rtol=1e-12, atol=0)
+        torch.testing.assert_close(top, x.amax(1), rtol=0, atol=0)
+        total = total + (halo * w[p]).sum() + (whole * v[p]).sum() \
+            + (p + 1.0) * total_sum
+        want = want + (ref * w[p]).sum() + (xw * v[p]).sum() \
+            + (p + 1.0) * xw.sum()
+    total.backward()
+    want.backward()
+    torch.testing.assert_close(xl.grad, xw.grad, rtol=1e-12, atol=1e-12)
+
+
+def test_one_process_positions_fail_together():
+    """A position that raises frees the others waiting at a collective,
+    and its error is raised; one that ends without meeting them fails
+    them."""
+    mesh = api.make_mesh(1, ["cpu"] * 2, 2)
+
+    def raising(pos):
+        if pos.rank == 1:
+            raise KeyError("position 1")
+        return model_sum(torch.ones(1), pos)
+
+    with pytest.raises(KeyError, match="position 1"):
+        run_positions(mesh, raising)
+
+    def leaving(pos):
+        return None if pos.rank == 1 else model_sum(torch.ones(1), pos)
+
+    with pytest.raises(RuntimeError, match="finished while position 0 "
+                       "waits at a collective"):
+        run_positions(mesh, leaving)
+
+
 def test_uneven_slabs_are_refused():
-    with pytest.raises(ValueError, match="multiple of n_model x 2\\^levels"
-                       " = 2 x 4 = 8"):
-        check_split("num_depths", 12, TP_MESH, 2)
+    """Uneven slabs run (whole units of 2^levels planes spread as
+    np.array_split spreads them); check_split refuses only an extent of
+    no whole units, a position with no unit and a slab narrower than a
+    halo, each with its reason, before any collective."""
+    assert slab_bounds(64, 3, 4) == [0, 24, 44, 64]
+    assert slab_bounds(192, 5, 16) == [0, 48, 96, 128, 160, 192]
+    assert slab_bounds(12, 2, 4) == [0, 8, 12]
+    check_split("num_depths", 12, TP_MESH, 2)  # 8 / 4
     check_split("num_depths", 16, TP_MESH, 2)
+    with pytest.raises(ValueError, match="num_depths = 14 is not a "
+                       "multiple of 2\\^levels = 4"):
+        check_split("num_depths", 14, TP_MESH, 2)
+    with pytest.raises(ValueError, match="fewer than the 2 model "
+                       "positions: a position would hold no plane"):
+        check_split("num_depths", 4, TP_MESH, 2)
+    check_split("nl", 8, TP_MESH, 1, halo=4)  # 4 / 4
+    with pytest.raises(ValueError, match="a slab of 4 planes, narrower "
+                       "than the 5-plane halo"):
+        check_split("nl", 8, TP_MESH, 1, halo=5)
     # through the model: before any collective
-    cfg = tiny_stereo_config(num_depths=12)
+    cfg = tiny_stereo_config(num_depths=4)
     model = StereoNet(cfg, device="cpu")
     x = torch.zeros((1,) + tuple(cfg.input_size) + (3,))
     P = torch.tensor(np.array([[[700.0, 0, 64, 40], [0, 700, 32, 0],
@@ -112,14 +198,26 @@ def test_uneven_slabs_are_refused():
     Pr = P.clone()
     Pr[0, 0, 3] = -40.0
     with tensor_parallel(model, TP_MESH), torch.no_grad():
-        with pytest.raises(ValueError, match="num_depths = 12 must be a "
-                           "multiple of n_model x 2\\^levels"):
+        with pytest.raises(ValueError, match="num_depths = 4 holds 1 units"):
             model(x, x, P, Pr)
 
 
-def test_make_mesh_refuses_the_model_axis_naming_initialize_multihost():
-    with pytest.raises(NotImplementedError, match="initialize_multihost"):
-        api.make_mesh(1, ["cpu", "cpu"], n_model=2)
+def test_make_mesh_refuses_the_model_axis_naming_initialize_multihost(
+        monkeypatch):
+    """make_mesh builds the one-process data x model mesh, "model"
+    fastest, and refuses a mesh larger than its devices; without a
+    launcher initialize_multihost returns that mesh over the visible
+    devices, and refuses a model axis wider than them."""
+    mesh = api.make_mesh(1, ["cpu", "cpu"], n_model=2)
+    assert (mesh.rank, mesh.n_data, mesh.n_model) == (None, 1, 2)
+    assert api.make_mesh(-1, ["cpu"] * 5, n_model=2).n_data == 2
+    with pytest.raises(ValueError, match="mesh 1x3 needs more than 2"):
+        api.make_mesh(1, ["cpu", "cpu"], n_model=3)
+    monkeypatch.delenv("RANK", raising=False)
+    assert api.initialize_multihost("gloo", "cpu") is None
+    with pytest.raises(ValueError, match="model axis 2 would cross host "
+                       "boundaries \\(local devices: 1\\)"):
+        api.initialize_multihost("gloo", "cpu", n_model=2)
 
 
 def test_mesh_layout_puts_model_fastest():
@@ -131,9 +229,12 @@ def test_mesh_layout_puts_model_fastest():
 
 
 def test_runners_take_the_model_axis_where_jax_does():
-    """DetectRunner serves one data position split over the model axis;
-    RefineRunner splits instances on "data" only (as JAX's); the
-    other Vernier heads split nothing."""
+    """DetectRunner serves one data position split over a process group's
+    model axis and every position of a one-process mesh; RefineRunner
+    splits instances on "data" only (as JAX's), on the first device of
+    each data position; every Vernier head splits its lengths, and
+    refuses a split that leaves a position empty before any
+    collective."""
     scfg = tiny_stereo_config()
     four = api.Mesh((torch.device("cpu"),) * 4, rank=0, n_model=2)
     with pytest.raises(ValueError, match="one data position, not 2"):
@@ -141,11 +242,17 @@ def test_runners_take_the_model_axis_where_jax_does():
                      mesh=four)
     assert DetectRunner(StereoNet(scfg, device="cpu"), scfg, device="cpu",
                         mesh=TP_MESH).split
+    assert DetectRunner(StereoNet(scfg, device="cpu"), scfg, device="cpu",
+                        mesh=api.make_mesh(1, ["cpu"] * 2, 2)).positions
     cfg = tiny_vernier_config(max_instances=4)
     with pytest.raises(ValueError, match="make_mesh"):
         RefineRunner(VernierScale(cfg, device="cpu"), cfg, mesh=TP_MESH)
+    assert len(RefineRunner(VernierScale(cfg, device="cpu"), cfg,
+                            mesh=api.make_mesh(2, ["cpu"] * 4, 2)).replicas
+               ) == 2
     bev = tiny_vernier_config(vernier_type="BEV")
     model = VernierScale(bev, device="cpu")
-    with tensor_parallel(model, TP_MESH), pytest.raises(
-            ValueError, match="BEV_type2 / BEV_type3 only"):
-        model.head(torch.zeros(1, 8, 16, 8, 64))
+    eight = api.Mesh((torch.device("cpu"),) * 8, rank=0, n_model=8)
+    with tensor_parallel(model, eight), pytest.raises(
+            ValueError, match="grid length nl = 16 holds 4 units"):
+        model.head(torch.zeros(1, 8, 16, 2, 64))

@@ -432,7 +432,7 @@ def tp_layers(rank, x, w_halo, w_gather) -> dict:
     mesh = tp_mesh(rank, 2)
     xs = shard(x, 1, mesh).clone().requires_grad_()
     halo = halo_exchange(xs, 1, 2, 1, mesh)
-    whole = gather(xs, 1, mesh)
+    whole = gather(xs, 1, mesh, x.shape[1])
     ((halo * w_halo[rank]).sum() + (whole * w_gather[rank]).sum()).backward()
     with float64_moments(True), large_tap_any_dtype():
         layers = {name: _layer_errors(name, mesh) for name in LAYER_CASES}
