@@ -251,8 +251,30 @@ Phases, each printing one line with its elapsed seconds:
                launches a position (the forward kernels by thread) and in
                all, K2's input widths, ms and peak memory beside the
                one-device runs' ("positions share one card: no scaling
-               figure").
- 28. release_checkpoint - the reference's checkpoints in the port: a
+               figure"); the one-device float32 flagship-grid step run
+               twice in this process, then twice with
+               cudnn.deterministic: each pair's gap in grad_norm and in
+               the encoder's and the head's gradients.
+ 28. tensor_parallel_padded - the model axis at every extent JAX's mesh
+               splits (a short last unit, positions that hold no plane),
+               on the one-process mesh: K1 / K1 bwd on the trained
+               Vernier model's slabs (32, 16 and the short 12 of a
+               44-length grid), K2 / dx / dw on them widened by the
+               prelude's halos, K3 / K3 bwd on a 4-plane slab, each
+               against its plain version and timed with its bound, and
+               each wrapper on an empty slab returning without a launch;
+               then the repo's trained model
+               (artifacts/two_stage_r4_torch/vernier) trained from its
+               checkpoint on make_mesh(1, [cuda:0]*4, 4) (16 / 16 / 16 /
+               0), (1, 2) (32 / 16) and on a 44-length grid at n_model 4
+               (16 / 16 / 12 / 0), and StereoConfig(num_depths=8) served
+               (1 warm-up, 1 bf16 and 1 float32 frame) and trained at
+               n_model 3 (4 / 4 / 0): float32 against the one-device runs
+               under phase tensor_parallel's rules, the launches by
+               position thread (none on the empty one, K4 on every
+               position's gathered volume), ms and peak memory beside the
+               one-device runs'.
+ 29. release_checkpoint - the reference's checkpoints in the port: a
                fabricated reference state_dict of a small BEV_type3 model
                (hrnet-tiny, the part-offset and bbox heads) converted by
                utils/convert_torch, on the card against the CPU (float32
@@ -269,14 +291,16 @@ Phases, each printing one line with its elapsed seconds:
                when run alone): K3 = K4 = frames decoded, the coverage
                keys present, roiaware_pool3d on the card against the CPU
                (max and avg; avg twice gives the same bits).
- 29. native_loader - the 256 PNGs of phase trained_two_stage's val split
+ 30. native_loader - the 256 PNGs of phase trained_two_stage's val split
                decoded into the trained config's canvas by png.decode_png
                + _place, by native_loader.decode_png_padded one view at a
                time and by decode_batch_padded 8 views at a time: the
                same bytes; ms a view each on the card's host beside
                nproc; load_velodyne equals np.fromfile; a missing PNG
-               raises.
- 30. trained_two_stage - JAX's trained two-stage run
+               raises; 46 seeded files of every other PNG kind
+               (PNG_KINDS: each colour type and bit depth, PLTE, tRNS,
+               Adam7) decode to their known RGB in the three readers.
+ 31. trained_two_stage - JAX's trained two-stage run
                (artifacts/two_stage_r4) through the port's CLIs with the
                committed conversions of its checkpoints
                (artifacts/two_stage_r4_torch) over its 128-frame val split
@@ -306,7 +330,7 @@ Phases, each printing one line with its elapsed seconds:
                stage's wall seconds beside those measured when each
                view was decoded alone by data/png.py (the images now
                come through the native loader).
- 31. profile - tools/profile_vernier.py --config flagship --batch 4 and
+ 32. profile - tools/profile_vernier.py --config flagship --batch 4 and
                tools/profile_stereo.py (StereoConfig(), bf16) in child
                processes: every stage line and JSON printed, K1 / K2
                (Vernier) and K3 / K4 (stereo) launched there; one
@@ -316,7 +340,7 @@ Phases, each printing one line with its elapsed seconds:
 Then a {"kernels": [...]} line (launches: the serving, detect and
 training phases' counts plus train_cli's, variants', track's, demos',
 parallel's, tensor_parallel's, tensor_parallel_local's,
-release_checkpoint's,
+tensor_parallel_padded's, release_checkpoint's,
 trained_two_stage's and profile's traced request's), nvidia-smi's line,
 and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
@@ -333,6 +357,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -340,6 +365,7 @@ import threading
 import time
 import traceback
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -393,7 +419,7 @@ from snvc_tpu_torch.models.stereonet import (
     depth_hypotheses,
     plane_shifts,
 )
-from snvc_tpu_torch.models.vernier import VernierScale
+from snvc_tpu_torch.models.vernier import VernierScale, length_levels
 from snvc_tpu_torch.ops.conv3d_fold import (
     conv3d_input_grad,
     conv3d_large_tap,
@@ -429,6 +455,7 @@ from snvc_tpu_torch.ops.stereo_sample_cuda import (
     stereo_voxel_sample_bwd,
 )
 from snvc_tpu_torch.parallel.api import initialize_multihost, make_mesh
+from snvc_tpu_torch.parallel.tensor import slab_bounds
 from snvc_tpu_torch.ops.points_in_boxes import roiaware_pool3d
 from snvc_tpu_torch.tools import demo_ap_lift, demo_tracking, demo_two_stage
 from snvc_tpu_torch.eval.witness import compare_matched, compare_ordered
@@ -3447,6 +3474,97 @@ def check_trained_two_stage(dev, root: str, render: ValRender) -> dict:
 
 # ------------------------------------------------------ native_loader ----
 LOADER_BATCH = 8  # views a decode_batch_padded call of the phase
+# kind -> (colour type, bit depth, tRNS chunk, Adam7): every colour type
+# at every bit depth the PNG specification allows it, PLTE and tRNS, and
+# Adam7, beside the 8-bit RGB(A) the renderer writes
+PNG_KINDS = {
+    **{f"grey{d}": (0, d, False, False) for d in (1, 2, 4, 8, 16)},
+    "rgb16": (2, 16, False, False),
+    **{f"palette{d}": (3, d, False, False) for d in (1, 2, 4, 8)},
+    "grey_alpha8": (4, 8, False, False),
+    "grey_alpha16": (4, 16, False, False),
+    "rgba16": (6, 16, False, False),
+    "grey8_trns": (0, 8, True, False),
+    "grey16_trns": (0, 16, True, False),
+    "rgb8_trns": (2, 8, True, False),
+    "palette2_trns": (3, 2, True, False),
+    "palette8_trns": (3, 8, True, False),
+    "rgb8_adam7": (2, 8, False, True),
+    "grey1_adam7": (0, 1, False, True),
+    "palette4_trns_adam7": (3, 4, True, True),
+    "grey_alpha16_adam7": (4, 16, False, True),
+    "rgba8_adam7": (6, 8, False, True),
+}
+# (h, w) of the files of each kind: the Adam7 passes of a 3 x 2 image
+# are partly empty, 37 x 53 fills every pass with ragged rows
+PNG_KIND_SIZES = ((3, 2), (37, 53))
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def write_png_kind(path: str, kind: str, hw, rng) -> np.ndarray:
+    """Writes a PNG of ``kind`` (PNG_KINDS) with ``rng``'s samples, rows
+    filtered with ``rng``'s filter types and the image data in two IDAT
+    chunks, and returns the 8-bit RGB [h, w, 3] that cv2.imread(
+    IMREAD_COLOR) + BGR->RGB gives for it: grey replicated, 16-bit
+    samples' high bytes, grey below 8 bits scaled to 0-255, palette
+    entries looked up, alpha and tRNS dropped."""
+    from snvc_tpu_torch.data.png import (
+        PNG_SIGNATURE,
+        _chunk,
+        _filter_rows,
+    )
+
+    color, depth, trns, adam7 = PNG_KINDS[kind]
+    h, w = hw
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    top = 1 << depth
+    extra = b""
+    if color == 3:
+        n = int(rng.integers(1, min(256, top) + 1))
+        palette = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+        samples = rng.integers(0, n, (h, w, 1))
+        rgb = palette[samples[..., 0]]
+        extra = _chunk(b"PLTE", palette.tobytes())
+        if trns:
+            extra += _chunk(b"tRNS", rng.integers(
+                0, 256, int(rng.integers(1, n + 1)), dtype=np.uint8)
+                .tobytes())
+    else:
+        samples = rng.integers(0, top, (h, w, ch))
+        eight = (samples >> 8 if depth == 16 else
+                 samples * (255 // (top - 1)) if depth < 8 else samples)
+        rgb = (np.repeat(eight[..., :1], 3, -1) if color in (0, 4)
+               else eight[..., :3]).astype(np.uint8)
+        if trns:  # a key colour of the image's own
+            extra = _chunk(b"tRNS", samples[0, 0, :(1 if color == 0 else 3)]
+                           .astype(">u2").tobytes())
+    bpp = max(1, ch * depth // 8)
+
+    def scanlines(sub):
+        ph, pw = sub.shape[:2]
+        if depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(ph, -1)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(ph, -1)
+        else:
+            bits = (sub.reshape(ph, -1, 1) >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.reshape(ph, -1).astype(np.uint8), axis=1)
+        filters = [int(f) for f in rng.integers(0, 5, ph)]
+        return _filter_rows(rows.reshape(ph, -1, bpp), filters)
+
+    passes = _ADAM7 if adam7 else ((0, 0, 1, 1),)
+    raw = b"".join(scanlines(samples[y0::dy, x0::dx])
+                   for x0, y0, dx, dy in passes
+                   if samples[y0::dy, x0::dx].size)
+    idat = zlib.compress(raw, 6)
+    cut = len(idat) // 2
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(adam7))
+    with open(path, "wb") as fh:
+        fh.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + extra
+                 + _chunk(b"IDAT", idat[:cut]) + _chunk(b"IDAT", idat[cut:])
+                 + _chunk(b"IEND", b""))
+    return rgb
 # the wall seconds of phase trained_two_stage's stages when data/png.py
 # decoded each view alone (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W),
 # printed beside this run's
@@ -3462,7 +3580,9 @@ def check_native_loader(render: ValRender) -> None:
     a time with ``native_loader.decode_png_padded``, and in batches of 8
     with ``decode_batch_padded`` (its default 4 threads); ms a view of
     each on the card's host, beside nproc.  One ``load_velodyne`` equals
-    ``np.fromfile``; a missing path raises."""
+    ``np.fromfile``; a missing path raises.  Every other kind of PNG
+    (``check_png_kinds``: each colour type and bit depth, PLTE, tRNS,
+    Adam7) decodes to its known RGB in the three readers."""
     from snvc_tpu_torch.data.kitti import _place
 
     t = time.perf_counter()
@@ -3504,13 +3624,40 @@ def check_native_loader(render: ValRender) -> None:
         except FileNotFoundError:
             continue
         raise AssertionError("a missing PNG did not raise")
+    kinds = check_png_kinds(os.path.join(render.root, "png_kinds"))
     phase("native_loader", t, views=len(paths), canvas=f"{hw[0]}x{hw[1]}",
+          png_kinds=len(PNG_KINDS), png_kind_files=kinds,
           png_py_ms_per_view=f"{plain_ms:.2f}",
           single_ms_per_view=f"{single_ms:.2f}",
           batch8_ms_per_view=f"{batch_ms:.2f}", nproc=os.cpu_count(),
           build_s=f"{build_s:.2f}", nvidia_smi=repr(nvidia_smi()),
           note=repr("host wall ms a view, file reads warm (the render "
                     "wrote them); the three decodes give the same bytes"))
+
+
+def check_png_kinds(root: str) -> int:
+    """Every kind of PNG_KINDS at each of PNG_KIND_SIZES, written from
+    seeded samples whose RGB is known (``write_png_kind``), decoded by
+    ``png.decode_png``, ``decode_png_padded`` (at its size and into a
+    larger canvas) and one ``decode_batch_padded`` of all of them: each
+    the known RGB bit for bit.  Returns the files' count."""
+    from snvc_tpu_torch.data.kitti import _place
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    files = []
+    for kind in PNG_KINDS:
+        for hw in PNG_KIND_SIZES:
+            path = os.path.join(root, f"{kind}_{hw[0]}x{hw[1]}.png")
+            files.append((path, write_png_kind(path, kind, hw, rng)))
+    canvas = (40, 60)
+    batch = native_loader.decode_batch_padded([p for p, _ in files], canvas)
+    for (path, rgb), got in zip(files, batch):
+        assert np.array_equal(decode_png(path), rgb), f"decode_png {path}"
+        assert np.array_equal(native_loader.decode_png_padded(
+            path, rgb.shape[:2]), rgb), f"decode_png_padded {path}"
+        assert np.array_equal(got, _place(rgb, canvas)), f"batch {path}"
+    return len(files)
 
 
 # ------------------------------------------------------------ profile ----
@@ -3668,14 +3815,16 @@ def run_dp_ranks(fn, *args, timeout: float = 300.0, n_model: int = 1
 
 
 def dp_steps(kind: str, dev, mesh=None, float32: bool = False,
-             steps: int = 2, cfg=None, frames: int = 2) -> dict:
+             steps: int = 2, cfg=None, frames: int = 2,
+             weights=None) -> dict:
     """``steps`` steps of the flagship training config on its global
     batch: the Vernier model (VernierConfig(), 8 instances) or
-    StereoConfig() (``frames`` pairs, 4 cars each), seeded weights,
-    TrainConfig with warmup_steps=2; ``cfg`` replaces the config;
-    parallel over ``mesh``; with ``float32``, the config in float32 with
-    TF32 off.  Step 0's metrics (rate 0: the same parameters on every
-    side), each step's ms, peak memory, counters."""
+    StereoConfig() (``frames`` pairs, 4 cars each), seeded weights
+    (``weights``: a state dict loaded over them), TrainConfig with
+    warmup_steps=2; ``cfg`` replaces the config; parallel over ``mesh``;
+    with ``float32``, the config in float32 with TF32 off.  Step 0's
+    metrics (rate 0: the same parameters on every side), each step's ms,
+    peak memory, counters."""
     # the card's defaults, or float32 work that is float32
     torch.backends.cudnn.allow_tf32 = not float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3685,8 +3834,10 @@ def dp_steps(kind: str, dev, mesh=None, float32: bool = False,
         cfg = cfg or VernierConfig()
         if float32:
             cfg = cfg.replace(compute_dtype="float32")
-        state = create_train_state(VernierScale(cfg, device=dev,
-                                                generator=gen), cfg, tc)
+        model = VernierScale(cfg, device=dev, generator=gen)
+        if weights is not None:
+            model.load_state_dict(weights, strict=True)
+        state = create_train_state(model, cfg, tc)
         step = make_train_step(cfg, tc, dev, mesh=mesh)
         batch = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
     else:
@@ -4116,20 +4267,22 @@ def tp_slab_kernels(gen, dev) -> dict:
     return out
 
 
-def tp_detect(dev, mesh=None) -> dict:
-    """The full-width DetectRunner (StereoConfig(), seeded weights) on one
-    warm-up and two seeded frames in bf16 (request ms, counters, peak
-    memory), then one frame in float32 (TF32 off); split over ``mesh``'s
-    model axis with a mesh.  Outputs as numpy."""
+def tp_detect(dev, mesh=None, cfg=None, frames: int = 2) -> dict:
+    """The full-width DetectRunner (``cfg``, StereoConfig() by default,
+    seeded weights) on one warm-up and ``frames`` seeded frames in bf16
+    (request ms, counters, peak memory), then one frame in float32 (TF32
+    off); split over ``mesh``'s model axis with a mesh.  Outputs as
+    numpy."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    base = cfg or StereoConfig()
     res = {}
-    for label, cfg in (("bf16", StereoConfig()),
-                       ("f32", StereoConfig(compute_dtype="float32"))):
+    for label, cfg in (("bf16", base),
+                       ("f32", base.replace(compute_dtype="float32"))):
         torch.backends.cudnn.allow_tf32 = label == "bf16"
         model = StereoNet(cfg, device=dev,
                           generator=torch.Generator().manual_seed(0))
         runner = DetectRunner(model, cfg, device=dev, mesh=mesh)
-        seeds = (1, 2) if label == "bf16" else (1,)
+        seeds = tuple(range(1, frames + 1)) if label == "bf16" else (1,)
         if label == "bf16":
             runner.forward(synthetic_stereo_request(cfg, seed=100))
         torch.cuda.synchronize()
@@ -4503,6 +4656,53 @@ def tpl_check_f32(label, got: dict, ref: dict, failed: list) -> str:
     return f"{errs[worst]:.2e}({worst})"
 
 
+def f32_step_drift(dev, cfg) -> dict:
+    """The one-device float32 Vernier step of ``cfg`` (TF32 off) run twice
+    in this process from the same seeded state on the same batch, then
+    twice more with ``torch.backends.cudnn.deterministic``: each pair's
+    gap in ``grad_norm`` (relative) and the largest gradient difference
+    among the encoder's and among the head's parameters (of each
+    tensor's scale).  K1's backward is the only kernel between the head
+    and the encoder, and it sums in float32 with shared-memory atomics;
+    cuDNN's algorithms may add in another order from run to run
+    unless deterministic."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tc = TrainConfig(warmup_steps=2)
+    cfg = cfg.replace(compute_dtype="float32")
+    batch = batch_to_device(synthetic_batch_arrays(cfg, seed=0), dev)
+
+    def run():
+        model = VernierScale(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, cfg, tc)
+        m = make_train_step(cfg, tc, dev)(state, batch)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        del state, model
+        return float(m["grad_norm"]), grads
+
+    def gap(a, b, prefix):
+        return max(float((a[k] - b[k]).abs().max())
+                   / max(float(b[k].abs().max()), 1e-30)
+                   for k in b if k.startswith(prefix))
+
+    was = torch.backends.cudnn.deterministic
+    res = {}
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            (n1, g1), (n2, g2) = run(), run()
+            res["deterministic" if det else "default"] = dict(
+                grad_norm=abs(n1 - n2) / abs(n2),
+                encoder=gap(g1, g2, "encoder."), head=gap(g1, g2, "head."))
+            del g1, g2
+    finally:
+        torch.backends.cudnn.deterministic = was
+    torch.cuda.empty_cache()
+    return res
+
+
 def tpl_head_steps(dev, failed: list) -> dict:
     """The 3D and BEV heads at a small config (hrnet-tiny, 4 instances at
     384x1280; 3D on 12 lengths, 8 / 4 a position): a float32 step 0 on
@@ -4541,7 +4741,9 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
     kernels by thread: alike on both), K2 widths 100 / 102 / 104; the
     uneven meshes (StereoConfig() at n_model 3, the flagship grid at
     n_model 5, K2 widths 54 / 52 / 56 and 38 / 36 / 40) and the 3D / BEV
-    heads at n_model 2, each float32 step under the same rule."""
+    heads at n_model 2, each float32 step under the same rule; the
+    one-device float32 flagship-grid step rerun in this process
+    (``f32_step_drift``), its gaps printed."""
     t = time.perf_counter()
     torch.cuda.empty_cache()
     kern = tp_uneven_kernels(gen, dev)
@@ -4608,6 +4810,10 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
     ref = dict(stereo=one["stereo"]["f32"]["metrics"],
                vernier=dp_steps("vernier", dev, None, float32=True, steps=1,
                                 cfg=vcfg)["metrics"])
+    # the one-device float32 step against itself: the drift's source
+    for mode, gaps in f32_step_drift(dev, vcfg).items():
+        for part, v in gaps.items():
+            fields[f"vernier_f32_rerun_{mode}_{part}_gap"] = f"{v:.3e}"
     for kind, cfg, m, n in (("stereo", StereoConfig(), mesh3, TPL_STEREO_N),
                             ("vernier", vcfg, mesh5, TPL_VERNIER_N)):
         with position_launches() as (seen, widths):
@@ -4641,6 +4847,281 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
           nvidia_smi=repr(nvidia_smi()),
           launches=json.dumps(total).replace(" ", ""))
     assert not failed, f"tensor_parallel_local: {failed}"
+    return dict(counts=total, kernels=kern)
+
+
+# ------------------------------------------------ tensor_parallel_padded ----
+# the repo's trained Vernier model (BEV_type3, hrnet-tiny, 8 x 48 x 48,
+# HourglassDeep: units of 16 lengths) on (n_model, nl): 3 units over 4
+# positions (16 / 16 / 16 / 0), over 2 (32 / 16), and its weights on a
+# 44-length grid (the CoordHead's shapes are 48's), 16 / 16 / 12 / 0
+TPP_TRAINED = ((4, 48), (2, 48), (4, 44))
+# StereoConfig() at 8 planes, 2 units of 4 over three positions: 4 / 4 /
+# 0 (both packages refuse a num_depths that 4 does not divide)
+TPP_STEREO = StereoConfig(num_depths=8)
+TPP_STEREO_N = 3
+# the forward kernels' libraries (models call them on the positions'
+# threads; the backward runs on autograd's)
+TPP_LIBS = dict(stereo_voxel_sample="K1", conv3d_large_tap="K2",
+                plane_sweep_volume="K3", frustum_to_voxel="K4")
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Counts kernel launches by the thread that made them while open:
+    every wrapper loads its library (``_build.load_library``) once a
+    launch, after the checks that return an empty output without one.
+    Yields {thread: {kernel: n}} (the forward kernels, TPP_LIBS)."""
+    seen = {}
+    orig = _build.load_library
+
+    def counting(name):
+        c = seen.setdefault(threading.current_thread().name, {})
+        key = TPP_LIBS.get(name, name)
+        c[key] = c.get(key, 0) + 1
+        return orig(name)
+
+    _build.load_library = counting
+    try:
+        yield seen
+    finally:
+        _build.load_library = orig
+
+
+def trained_vernier(nl: int):
+    """(config, float32 state dict) of the repo's trained Vernier model
+    on an 8 x 48 x ``nl`` grid."""
+    from snvc_tpu_torch.tools._model_dir import read_model_dir
+
+    cfg, tree, _ = read_model_dir(os.path.join(TRAINED, "vernier"),
+                                  VernierConfig)
+    grid = tuple(cfg.grid_resolution[:2]) + (nl,)
+    return cfg.replace(grid_resolution=grid), tree["model"]
+
+
+def tpp_kernels(gen, dev) -> dict:
+    """K1 / K1 bwd on the trained model's slabs of lengths (32, 16 and the
+    short 12 of the 44-length grid; a seeded batch's own projections, 8
+    instances), K2 / dx / dw on its prelude convs' slabs widened by their
+    halos (L + 6, + 4, + 8), K3 / K3 bwd on TPP_STEREO's 4-plane slab,
+    against their plain versions, each timed with its bound; and the
+    wrappers on an empty slab, which return without a launch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for nl, lengths in ((48, (32, 16)), (44, (12,))):
+        cfg, _ = trained_vernier(nl)
+        (nh, nw, _), roi = cfg.grid_resolution, cfg.resolution
+        N, C = cfg.max_instances, cfg.backbone.output_channel
+        gl_all, gr_all = batch_projections(cfg, 0, dev)
+        lf, rf, _, _ = k1_case(gen, N, roi[0] // 4, roi[1] // 4, C,
+                               (1, 1, 1), roi, torch.bfloat16, dev)
+        for L in lengths:
+            a = nl - L  # the last slab's lengths
+            grid = (nh, nw, L)
+            gl, gr = (g.reshape(N, nh, nw, nl, 2)[:, :, :, a:]
+                      .reshape(N, -1, 2).contiguous() for g in (gl_all,
+                                                                 gr_all))
+            err = assert_k1(f"tpp K1 slab {L}", lf, rf, gl, gr, roi, grid)
+            out[f"K1_L{L}"] = dict(max_abs_err=err,
+                                   **k1_times(lf, rf, gl, gr, roi, grid))
+            g = torch.randn((N,) + grid + (2 * C,), generator=gen).to(
+                dev, torch.bfloat16)
+            err = assert_k1_bwd(f"tpp K1_bwd slab {L}", lf, rf, gl, gr, g,
+                                roi)
+            out[f"K1_bwd_L{L}"] = dict(max_abs_err=err,
+                                       **k1_bwd_times(lf, rf, gl, gr, g,
+                                                      roi))
+            for name, cin, kernel, dil in (("conv1_k7", 2 * C, (7, 7, 7), 1),
+                                           ("conv2_k5", C, (5, 5, 5), 1),
+                                           ("conv3_k5_d2", C, (5, 5, 5), 2)):
+                W = L + (kernel[2] - 1) * dil  # slab + both halos
+                shape = (N, nh, nw, W, cin)
+                err, times = run_k2_case(gen, dev, f"tpp {name} W={W}",
+                                         shape, kernel, C, dil, True)
+                out[f"K2_{name}_W{W}"] = dict(max_abs_err=err, **times)
+                bwd = run_k2_bwd_case(gen, dev, f"tpp {name} W={W}", shape,
+                                      kernel, C, dil, True)
+                out[f"K2_dx_{name}_W{W}"] = bwd["dx"]
+                out[f"K2_dw_{name}_W{W}"] = bwd["dw"]
+        # the empty slab: no launch, the empty voxel / zero gradients
+        reset_counts()
+        empty = gl_all[:, :0].contiguous()
+        v = stereo_voxel_sample(lf, rf, empty, empty, roi, (nh, nw, 0))
+        dl, dr, dpl, _ = stereo_voxel_sample_bwd(lf, rf, empty, empty, v,
+                                                 roi)
+        x0 = torch.zeros((N, nh, nw, 0, C), device=dev, dtype=torch.bfloat16)
+        w = torch.zeros((5, 5, 5, C, C), device=dev, dtype=torch.bfloat16)
+        assert (v.shape == (N, nh, nw, 0, 2 * C) and not dl.any()
+                and not dr.any() and dpl.shape == (N, 0, 2))
+        assert conv3d_large_tap(x0, w).shape == x0.shape
+        assert conv3d_input_grad(x0, w).shape == x0.shape
+        assert not conv3d_weight_grad(x0, x0, (5, 5, 5)).any()
+        assert read_counts() == counts_of(), f"empty slab {read_counts()}"
+        del lf, rf, gl_all, gr_all, gl, gr, g
+    scfg = TPP_STEREO
+    H, W = scfg.input_size[0] // 4, scfg.input_size[1] // 4
+    lf = torch.randn((1, H, W, 32), generator=gen).to(dev, torch.bfloat16)
+    rf = torch.randn((1, H, W, 32), generator=gen).to(dev, torch.bfloat16)
+    Pl = torch.from_numpy(Calibration.default().as_array()[None]).to(dev)
+    Pr = torch.from_numpy(Calibration.default_right().as_array()[None]).to(dev)
+    shifts = plane_shifts(Pl, Pr, torch.from_numpy(
+        depth_hypotheses(scfg)).to(dev))
+    s_m = shifts[:, 4:8].contiguous()  # position 1's planes
+    v = plane_sweep_volume_k3(lf, rf, s_m)
+    err = assert_within_ulps("tpp K3 slab 4", v,
+                             plane_sweep_shifted(lf, rf, s_m))
+    gv = torch.randn(v.shape, generator=gen).to(dev, torch.bfloat16)
+    berr = max(assert_within_ulps(f"tpp K3_bwd slab 4 {name}", a, b)
+               for name, a, b in zip(
+                   ("dleft", "dright"), plane_sweep_volume_k3_bwd(gv, s_m, W),
+                   plane_sweep_shifted_bwd(gv, s_m, W)))
+    out["K3_D4"] = dict(max_abs_err=err, **k3_times(lf, rf, s_m))
+    out["K3_bwd_D4"] = dict(max_abs_err=berr, **k3_bwd_times(gv, s_m, W))
+    none = shifts[:, 8:].contiguous()  # position 2's: none
+    reset_counts()
+    v0 = plane_sweep_volume_k3(lf, rf, none)
+    d0 = plane_sweep_volume_k3_bwd(v0, none, W)
+    assert v0.shape == (1, 0, H, W, 64) and not any(d.any() for d in d0)
+    assert read_counts() == counts_of(), f"empty slab {read_counts()}"
+    del lf, rf, v, gv, v0
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpp_vernier(dev, failed: list, fields: dict, total: dict) -> None:
+    """The trained model on each (n_model, nl) of TPP_TRAINED: a bf16 step
+    (K1 / K2 launches by position thread: none on the empty position; in
+    all, a kernel and its backwards once per position that holds
+    lengths, K2 three times) and a float32 step 0 on the one-process
+    mesh, the float32 one held to the one-device step under
+    train_reference's rule; ms, peak memory beside the one-device
+    run's."""
+    one = {}
+    for n, nl in TPP_TRAINED:
+        cfg, weights = trained_vernier(nl)
+        if nl not in one:
+            one[nl] = dict(
+                bf16=dp_steps("vernier", dev, None, steps=2, cfg=cfg,
+                              weights=weights),
+                f32=dp_steps("vernier", dev, None, float32=True, steps=1,
+                             cfg=cfg, weights=weights))
+            fields[f"vernier_nl{nl}_step_ms_one"] = \
+                f"{one[nl]['bf16']['step_ms'][1]:.1f}"
+            fields[f"vernier_nl{nl}_peak_gb_one"] = \
+                f"{one[nl]['bf16']['peak_gb']:.2f}"
+        mesh = make_mesh(1, [dev] * n, n)
+        b = slab_bounds(nl, n, 2 ** length_levels(cfg))
+        slabs = [hi - lo for lo, hi in zip(b, b[1:])]
+        with thread_launches() as seen:
+            bf16 = dp_steps("vernier", dev, mesh, steps=2, cfg=cfg,
+                            weights=weights)
+        f32 = dp_steps("vernier", dev, mesh, float32=True, steps=1, cfg=cfg,
+                       weights=weights)
+        key = f"vernier_n{n}_nl{nl}"
+        held = sum(1 for L in slabs if L)
+        want = counts_of(K1=2 * held, K1_bwd=2 * held, K2=6 * held,
+                         K2_dx=6 * held, K2_dw=6 * held)
+        if bf16["counts"] != want:
+            failed.append(f"{key} launches {bf16['counts']}")
+        for k, v in bf16["counts"].items():
+            total[k] += v
+        pos = [seen.get(f"position-{p}", {}) for p in range(n)]
+        for L, c in zip(slabs, pos):
+            if (c != {}) if not L else (c != {"K1": 2, "K2": 6}):
+                failed.append(f"{key} position launches {pos}")
+        fields[f"{key}_slabs"] = "/".join(map(str, slabs))
+        fields[f"{key}_launches_by_position"] = json.dumps(pos).replace(
+            " ", "")
+        fields[f"{key}_f32_vs_one"] = tpl_check_f32(
+            key, f32["metrics"], one[nl]["f32"]["metrics"], failed)
+        fields[f"{key}_step_ms"] = f"{bf16['step_ms'][1]:.1f}"
+        fields[f"{key}_peak_gb"] = f"{bf16['peak_gb']:.2f}"
+
+
+def tpp_stereo(dev, failed: list, fields: dict, total: dict) -> None:
+    """TPP_STEREO at n_model TPP_STEREO_N (4 / 4 / 0): DetectRunner (1
+    warm-up, 1 bf16 and 1 float32 frame) and one training step (bf16, and
+    float32 step 0) on the one-process mesh against the one-device
+    runs: float32 detection scores within 1e-3 of the largest, the
+    float32 step under train_reference's rule; K3 on the positions that
+    hold planes only (K4 on the gathered volume on every position)."""
+    mesh = make_mesh(1, [dev] * TPP_STEREO_N, TPP_STEREO_N)
+    one = tp_detect(dev, None, TPP_STEREO, frames=1)
+    with thread_launches() as seen:
+        got = tp_detect(dev, mesh, TPP_STEREO, frames=1)
+    pos = [seen.get(f"position-{p}", {}) for p in range(TPP_STEREO_N)]
+    # bf16 warm-up + frame and the float32 frame: 3 forwards a position
+    if pos[:2] != [{"K3": 3, "K4": 3}] * 2 or pos[2] != {"K4": 3}:
+        failed.append(f"stereo detect position launches {pos}")
+    fields["stereo_detect_launches_by_position"] = json.dumps(pos).replace(
+        " ", "")
+    c = got["bf16"]["counts"]
+    if c != counts_of(K3=2, K4=3):
+        failed.append(f"stereo detect launches {c}")
+    for k, v in c.items():
+        total[k] += v
+    for dt in ("bf16", "f32"):
+        a, b = got[dt]["outs"][0], one[dt]["outs"][0]
+        assert np.isfinite(a[0][a[3] > 0]).all() and a[3].any(), dt
+        sa = np.sort(a[1][a[3] > 0])[::-1]
+        sb = np.sort(b[1][b[3] > 0])[::-1]
+        k = min(len(sa), len(sb))
+        err = float(np.abs(sa[:k] - sb[:k]).max(initial=0.0))
+        fields[f"stereo_detect_{dt}_scores_max_diff"] = f"{err:.2e}"
+        if dt == "f32" and (len(sa) != len(sb)
+                            or err > 1e-3 * float(sb.max())):
+            failed.append(f"stereo detect f32 scores {err:.2e}")
+    fields["stereo_detect_ms"] = f"{got['bf16']['ms'][0]:.1f}"
+    fields["stereo_detect_ms_one"] = f"{one['bf16']['ms'][0]:.1f}"
+    fields["stereo_detect_peak_gb"] = f"{got['bf16']['peak_gb']:.2f}"
+    ref = dp_steps("stereo", dev, None, float32=True, steps=1,
+                   cfg=TPP_STEREO, frames=1)
+    bf16_one = dp_steps("stereo", dev, None, steps=1, cfg=TPP_STEREO,
+                        frames=1)
+    bf16 = dp_steps("stereo", dev, mesh, steps=1, cfg=TPP_STEREO, frames=1)
+    f32 = dp_steps("stereo", dev, mesh, float32=True, steps=1,
+                   cfg=TPP_STEREO, frames=1)
+    if bf16["counts"] != counts_of(K3=2, K3_bwd=2, K4=3, K4_bwd=3):
+        failed.append(f"stereo train launches {bf16['counts']}")
+    for k, v in bf16["counts"].items():
+        total[k] += v
+    fields["stereo_f32_vs_one"] = tpl_check_f32(
+        "stereo n3", f32["metrics"], ref["metrics"], failed)
+    fields["stereo_step_ms"] = f"{bf16['step_ms'][0]:.1f}"
+    fields["stereo_step_ms_one"] = f"{bf16_one['step_ms'][0]:.1f}"
+    fields["stereo_peak_gb"] = f"{bf16['peak_gb']:.2f}"
+    fields["stereo_peak_gb_one"] = f"{bf16_one['peak_gb']:.2f}"
+
+
+def check_tensor_parallel_padded(gen, dev) -> dict:
+    """Phase 28: the model axis at every extent JAX's mesh splits
+    (parallel/tensor.py: a short last unit, positions that hold no
+    plane), on the one-process mesh on the card.  The kernels at the
+    short slab widths and on empty slabs (``tpp_kernels``); the repo's
+    trained Vernier model on TPP_TRAINED's meshes (``tpp_vernier``) and
+    TPP_STEREO at n_model 3 (``tpp_stereo``), the float32 runs held to
+    the one-device runs under phase tensor_parallel's rules, the empty
+    positions' launches 0."""
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = tpp_kernels(gen, dev)
+    phase("tensor_parallel_padded kernels", t, **{
+        f"{k}_{key}": (f"{v:.3e}" if key == "max_abs_err" else f"{v:.4f}")
+        for k, d in kern.items() for key, v in d.items()})
+    t_paths = time.perf_counter()
+    fields, failed, total = {}, [], counts_of()
+    tpp_vernier(dev, failed, fields, total)
+    t_stereo = time.perf_counter()
+    tpp_stereo(dev, failed, fields, total)
+    t_end = time.perf_counter()
+    phase("tensor_parallel_padded", t, note=repr(TPL_NOTE),
+          kernels_s=f"{t_paths - t:.1f}",
+          vernier_s=f"{t_stereo - t_paths:.1f}",
+          stereo_s=f"{t_end - t_stereo:.1f}", **fields,
+          nvidia_smi=repr(nvidia_smi()),
+          launches=json.dumps(total).replace(" ", ""))
+    assert not failed, f"tensor_parallel_padded: {failed}"
     return dict(counts=total, kernels=kern)
 
 
@@ -4722,13 +5203,14 @@ def main() -> int:
         tp = tp_res["counts"]
         tpl = check_tensor_parallel_local(gen, dev, tp_res)["counts"]
         del tp_res
+        tpp = check_tensor_parallel_padded(gen, dev)["counts"]
         rel = check_release_checkpoint(dev, root)["counts"]
         check_native_loader(render)
         tts = check_trained_two_stage(dev, root, render)["counts"]
         prof = check_profile(dev, root)["counts"]
     # the launches of the phases that drive whole paths, summed a kernel
-    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + tpl[k] + rel[k]
-            + tts[k] + prof[k] for k in KERNELS}
+    late = {k: var[k] + trk[k] + demos[k] + par[k] + tp[k] + tpl[k]
+            + tpp[k] + rel[k] + tts[k] + prof[k] for k in KERNELS}
 
     kernels = [
         dict(name="stereo_voxel_sample", route="cuda",

@@ -1,14 +1,19 @@
 """The native batch image loader (port of snvc_tpu/data/native_loader.py):
 ctypes bindings of ``csrc/dataloader.cpp``.
 
-The library decodes PNGs (zlib inflate and the five row filters, no
-libpng) straight into zero-padded uint8 batch buffers, a batch spread
-over a pool of threads, and reads velodyne files in bulk.  It is built
-with the host compiler into ``build/snvc_tpu_torch/`` at first use
+The library decodes PNGs (zlib inflate, the five row filters and
+Adam7, no libpng) straight into zero-padded uint8 batch buffers, a batch
+spread over a pool of threads, and reads velodyne files in bulk.  It is
+built with the host compiler into ``build/snvc_tpu_torch/`` at first use
 (``_build.build_host``, linked with ``-lz -lpthread``).
 
-It reads what ``data/png.py`` reads: 8-bit RGB or RGBA PNGs, not
-interlaced, alpha dropped; each chunk's CRC is checked.  Where the JAX
+It reads what ``data/png.py`` reads, with the same pixel reconstruction
+(``snvc_png_pixels``): every colour type, bit depth, palette, ``tRNS``
+and Adam7 case of the PNG specification, into the 8-bit RGB that
+``cv2.imread(IMREAD_COLOR)`` gives; each chunk's CRC is checked.  Where
+JAX's libpng loader differs (it copies Adam7 passes as rows and
+4-byte pixels as 3-byte ones after a ``tRNS`` chunk), the port follows
+cv2, which gives the image's true pixels.  Where the JAX
 package returns ``None`` (a missing file, a PNG it cannot read, a build
 that failed) these functions raise: ``FileNotFoundError`` for a file
 that does not open, ``ValueError`` naming the path for a PNG that is not
@@ -32,8 +37,10 @@ _NO_FILE = 1
 _MESSAGES = {
     2: "not a PNG file",
     3: "corrupt chunk (length, CRC or no IEND)",
-    4: "only 8-bit RGB / RGBA PNGs that are not interlaced, 1 to 1e6 "
-       "pixels a side, are read",
+    4: "not a PNG the decoder takes: a colour type / bit depth the PNG "
+       "specification does not allow, a palette image without a valid "
+       "PLTE, an unknown compression, filter or interlace method, or a "
+       "side of 0 or over 1e6 pixels",
     5: "the image data does not inflate to the image's size",
     6: "a row's filter type is not 0-4",
     7: "no IHDR or IDAT chunk",
@@ -53,9 +60,14 @@ def library() -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(_build.build_host(SOURCE, shared=True,
                                                 libs=LIBS)))
-        lib.snvc_png_unfilter.argtypes = [_P, _P, ctypes.c_int64,
-                                          ctypes.c_int64, _I]
-        lib.snvc_png_unfilter.restype = _I
+        lib.snvc_png_raw_bytes.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                           _I, _I, _I]
+        lib.snvc_png_raw_bytes.restype = ctypes.c_int64
+        lib.snvc_png_pixels.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32,
+            ctypes.c_uint32, _I, _I, _I, ctypes.c_char_p, _I, _P,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.snvc_png_pixels.restype = _I
         lib.snvc_decode_png_rgb.argtypes = [ctypes.c_char_p, _P, _I, _I]
         lib.snvc_decode_png_rgb.restype = _I
         lib.snvc_decode_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), _I,

@@ -4,18 +4,26 @@ built on ``zlib`` and numpy, and the area downscale of
 
 The JAX package reads and writes images through cv2 and a libpng loader
 (snvc_tpu/data/kitti.py:89-146, data/native_loader.py); the card's machine
-has neither.  ``decode_png`` gives what ``cv2.imread(path, IMREAD_COLOR)``
-followed by ``COLOR_BGR2RGB`` gives for the files it takes: 8-bit RGB or
-RGBA (alpha dropped), not interlaced, with any of the five row filters.
-Anything else raises ``ValueError``.  The row reconstruction is a
-sequential loop per row, so it runs in the native loader's library
-(``snvc_png_unfilter`` of ``csrc/dataloader.cpp``, built at first use by
-``data/native_loader.py``).  The loader decodes the same files without
-Python in the pixel path; ``decode_png`` is its plain version.
+has neither.  ``decode_png`` gives what ``cv2.imread(path,
+IMREAD_COLOR)`` followed by ``COLOR_BGR2RGB`` gives for every PNG of the
+specification: colour types 0, 2, 3, 4 and 6 at each bit depth they
+allow (1, 2, 4, 8, 16), ``PLTE`` and ``tRNS``, Adam7 interlacing, any of
+the five row filters.  Grey is replicated, 16-bit samples keep their
+high byte, grey below 8 bits is scaled to 0-255, palette indices are
+looked up, alpha and ``tRNS`` are dropped.  A corrupt chunk, image data
+of the wrong size, a bad filter byte or a header the specification does
+not allow raises ``ValueError``.  The chunks are parsed and inflated
+here; the pixels are reconstructed (each row a sequential loop) in the
+native loader's library (``snvc_png_pixels`` of ``csrc/dataloader.cpp``,
+built at first use by ``data/native_loader.py``), the one reconstruction
+both readers share.  The loader decodes the same files without Python in
+the pixel path; ``decode_png`` is its plain version.  The writer writes
+8-bit RGB or RGBA.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Sequence, Tuple, Union
@@ -25,10 +33,10 @@ import numpy as np
 from snvc_tpu_torch.data import native_loader
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> bytes per pixel at bit depth 8 (2: RGB, 6: RGBA)
-_BPP = {2: 3, 6: 4}
 # the largest side read (libpng's default limit, as csrc/dataloader.cpp)
 MAX_SIDE = 1000000
+# csrc/dataloader.cpp's Status codes of snvc_png_pixels
+_FORMAT, _BAD_FILTER = 4, 6
 
 
 def _chunks(data: bytes, path: str):
@@ -59,44 +67,49 @@ def png_size(path: str) -> Tuple[int, int]:
 
 
 def decode_png(path: str) -> np.ndarray:
-    """RGB uint8 [H, W, 3] of an 8-bit RGB or RGBA PNG (alpha dropped)."""
+    """RGB uint8 [H, W, 3] of a PNG (the module docstring)."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    ihdr, idat = None, []
+    ihdr, plte, idat = None, b"", []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
         elif kind == b"IDAT":
             idat.append(body)
     if ihdr is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
     w, h, depth, color, comp, filt, interlace = ihdr
-    if depth != 8 or color not in _BPP:
-        raise ValueError(f"{path}: only 8-bit RGB / RGBA PNGs are read "
-                         f"(bit depth {depth}, colour type {color})")
-    if comp != 0 or filt != 0 or interlace != 0:
-        raise ValueError(f"{path}: interlaced or non-standard PNG "
-                         f"(compression {comp}, filter {filt}, "
-                         f"interlace {interlace})")
-    if not (0 < w <= MAX_SIDE and 0 < h <= MAX_SIDE):
-        raise ValueError(f"{path}: {w} x {h} pixels; each side must be 1 "
-                         f"to {MAX_SIDE}")
-    bpp = _BPP[color]
-    stride = w * bpp
+    lib = native_loader.library()
+    want = lib.snvc_png_raw_bytes(w, h, depth, color, interlace)
+    if want < 0 or comp != 0 or filt != 0:
+        raise ValueError(
+            f"{path}: {w} x {h} pixels, bit depth {depth}, colour type "
+            f"{color}, compression {comp}, filter {filt}, interlace "
+            f"{interlace}: not a PNG the specification allows (sides 1 to "
+            f"{MAX_SIDE})")
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
+    if len(raw) != want:
         raise ValueError(f"{path}: image data holds {len(raw)} bytes, "
-                         f"{h * (stride + 1)} expected")
-    src = np.frombuffer(raw, np.uint8)
-    out = np.empty((h, w, bpp), np.uint8)
-    bad = native_loader.library().snvc_png_unfilter(
-        src.ctypes.data, out.ctypes.data, h, stride, bpp)
-    if bad:
-        raise ValueError(f"{path}: row {bad - 1} has filter type "
-                         f"{src[(bad - 1) * (stride + 1)]}")
-    return np.ascontiguousarray(out[..., :3])
+                         f"{want} expected")
+    out = np.empty((h, w, 3), np.uint8)
+    bad = ctypes.c_int64(-1)
+    rc = lib.snvc_png_pixels(raw, len(raw), w, h, depth, color, interlace,
+                             plte, len(plte), out.ctypes.data,
+                             ctypes.byref(bad))
+    if rc == _BAD_FILTER:
+        raise ValueError(f"{path}: a scanline has filter type "
+                         f"{raw[bad.value]} (byte {bad.value} of the image "
+                         "data)")
+    if rc == _FORMAT:
+        raise ValueError(f"{path}: a palette image without a PLTE chunk of "
+                         f"1 to 256 entries ({len(plte)} bytes)")
+    if rc:
+        raise ValueError(f"{path}: {native_loader._MESSAGES.get(rc, rc)}")
+    return out
 
 
 def _paeth(a, b, c):

@@ -25,7 +25,11 @@ split axis (``F.conv*``), or SAME with the halo's outputs cropped (K2,
 K5).  A deconv (k3, s2, p1, op1) reads one plane from above.  GroupNorm
 sums its moments and counts over the model group, BatchNorm over the
 whole mesh, so slabs of unequal lengths (parallel/tensor.py) normalize
-as the whole volume does.
+as the whole volume does.  A short last slab that a stride does not
+divide reads zeros past the volume's end (``_widen``); a slab of no
+plane exchanges its halos and takes part in every reduction as the
+others do, and its convs make 0-plane outputs without running
+(``_empty_output``).
 """
 
 from __future__ import annotations
@@ -67,16 +71,50 @@ def conv2d_nhwc(x, conv: nn.Conv2d, mesh=None, axis: Optional[int] = None):
     w = conv.weight.to(x.dtype)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
     pad = conv.padding
+    empty = x.numel() == 0
     if mesh is not None:
         i = axis - 1
-        x = halo_exchange(x, axis, *conv_halo(conv.kernel_size[i],
-                                              conv.stride[i],
-                                              conv.dilation[i]), mesh)
+        x, _, _ = _widen(x, axis, conv.kernel_size[i], conv.stride[i],
+                         conv.dilation[i], mesh)
         pad = list(pad)
         pad[i] = 0
+    if empty:
+        return _empty_output(x, conv.kernel_size, conv.stride,
+                             conv.dilation, pad, conv.out_channels)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, pad,
                  conv.dilation)
     return y.permute(0, 2, 3, 1)
+
+
+def _widen(x, axis: int, kernel: int, stride: int, dilation: int, mesh):
+    """(``x``'s slab widened by the halo a conv's outputs read, lo, hi).
+    On a short last slab of a length that ``stride`` does not divide, the
+    last output reads planes past the volume's end: zeros are appended
+    for them, so the slab gives ``ceil(L / stride)`` outputs, its share of
+    the whole extent's."""
+    L = x.shape[axis]
+    lo, hi = conv_halo(kernel, stride, dilation)
+    x = halo_exchange(x, axis, lo, hi, mesh)
+    extra = ((-(-L // stride) - 1) * stride + (kernel - 1) * dilation + 1
+             - (lo + L + hi))
+    if L and extra > 0:
+        shape = list(x.shape)
+        shape[axis] = extra
+        x = torch.cat([x, x.new_zeros(shape)], dim=axis)
+    return x, lo, hi
+
+
+def _empty_output(x, kernel, stride, dilation, pad, features: int):
+    """The output of a conv on a slab of no plane (``x``, widened by its
+    halo along a split axis), channels-last, with 0 planes: no conv runs
+    and no kernel launches, but the output still depends on ``x``, so the
+    halo exchange's backward runs on this position as on the others."""
+    dilation = (dilation,) * len(kernel) if isinstance(dilation, int) \
+        else dilation
+    shape = [x.shape[0]] + [
+        max(0, (n + 2 * p - d * (k - 1) - 1) // s + 1) for n, k, s, d, p in
+        zip(x.shape[1:-1], kernel, stride, dilation, pad)]
+    return x.new_zeros(shape + [features]) + x.flatten()[:0].sum()
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -346,11 +384,15 @@ class Conv3d(nn.Module):
         w = self.weight.to(dt)
         pad = [(k - 1) // 2 * self.dilation for k in self.kernel]
         lo = hi = 0
+        empty = x.numel() == 0
         if self.tp_mesh is not None:
             i = self.split_axis - 1
-            lo, hi = conv_halo(self.kernel[i], self.stride[i], self.dilation)
-            x = halo_exchange(x, self.split_axis, lo, hi, self.tp_mesh)
+            x, lo, hi = _widen(x, self.split_axis, self.kernel[i],
+                               self.stride[i], self.dilation, self.tp_mesh)
             pad[i] = 0
+        if empty:
+            return _empty_output(x, self.kernel, self.stride, self.dilation,
+                                 pad, w.shape[0])
         if self.pallas == "auto" and k3_eligible(self.kernel, self.stride,
                                                  self.dilation, dt):
             out = conv3d_k3(x.contiguous(),
@@ -476,9 +518,11 @@ def _conv_norm_cls(ndim: int):
 
 def _crop_to(t, shape: Sequence[int]):
     """Crop the spatial axes of a channels-last tensor to ``shape``.  On a
-    split axis every slab is a whole number of units of 2^levels planes
-    (``check_split``), so each is even at every level and no position
-    crops along it."""
+    split axis every slab but the last that holds planes is a whole
+    number of units of 2^levels planes (parallel/tensor.py), even at every
+    level: only that last slab, short, crops along it, at each level to
+    its ``ceil(r / 2^l)`` planes, and the whole volume's crop is the
+    same."""
     sl = (slice(None),) + tuple(slice(0, s) for s in shape) + (slice(None),)
     return t[sl]
 

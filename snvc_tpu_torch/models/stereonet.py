@@ -25,8 +25,11 @@ Under ``layers.tensor_parallel`` with a mesh of ``n_model > 1`` the head
 splits the volume on its depth axis D as JAX's ``volume_sharding``
 (``P("data", "model")``) does: K3 builds this position's planes (whole
 units of 4 planes, the hourglass's 2^levels, spread as
-``np.array_split`` spreads them: 24 / 20 / 20 of 64 over three; see
-parallel/tensor.py), the 3D stack and the hourglasses run on the slab
+``np.array_split`` spreads them: 24 / 20 / 20 of 64 over three, 4 / 4 /
+0 of 8 over three; see parallel/tensor.py.  D is a multiple of 4, as in
+JAX, so no stereo slab is short; a position beyond D's units holds no
+plane, launches no K3, and adds -inf to the softmax's maximum and
+zeros to its sums), the 3D stack and the hourglasses run on the slab
 (halo exchanges along D), the depth softmax and its expectations reduce over the model group
 (the shift is the group's maximum), ``depth_prob`` and the per-plane
 outputs come back whole, and the post-stack volume is gathered once for
@@ -60,6 +63,7 @@ from snvc_tpu_torch.parallel.tensor import (
     gather,
     model_max,
     model_sum,
+    slab_amax,
     split_range,
 )
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
@@ -279,7 +283,7 @@ class StereoHead(nn.Module):
                 p = torch.softmax(c, dim=1)
                 return p, (p * lvl).sum(dim=1)
             # the softmax over every rank's planes
-            e = torch.exp(c - model_max(c.amax(1, keepdim=True), mesh))
+            e = torch.exp(c - model_max(slab_amax(c, 1), mesh))
             p = e / model_sum(e.sum(1, keepdim=True), mesh)
             return p, model_sum((p * lvl).sum(dim=1), mesh)
 

@@ -24,10 +24,21 @@ object voxel is split on its length axis nl, as JAX's ``voxel_sharding``
 (``P("data", None, None, "model", None)``, on the voxel of every head)
 splits it: the encoder slices the projected grid before K1, so K1
 samples this position's lengths (the HRNet runs whole on every model
-position).  The slabs are whole units of 2^levels lengths, ``levels``
-the stride-2 steps of the head's hourglass (``length_levels``), spread
-as ``np.array_split`` spreads them, so they may differ by a unit
-(parallel/tensor.py).  Each head runs on the slab up to one gather:
+position).  The length is cut into ``ceil(nl / 2^levels)`` units,
+``levels`` the stride-2 steps of the head's hourglass
+(``length_levels``), the last unit short where 2^levels does not divide
+nl, and the units are spread as ``np.array_split`` spreads them, so the
+slabs may differ by a unit, the last may be short, and the positions
+beyond the units hold no length (parallel/tensor.py): the trained
+BEV_type3 model's 48 lengths over four positions are 16 / 16 / 16 / 0,
+a 40-length grid over three 16 / 16 / 8.  A short slab arises only
+under the four-level ``HourglassDeep`` (BEV_type2 / BEV_type3 with
+``n_sample_w > 16``), which crops as JAX's does; the two-level
+``Hourglass`` does not crop, so there, as in JAX, nl is a multiple of 4.
+A position of no length samples no point (K1 is not launched), runs
+its convs on nothing (K2 is not launched) and takes part in every
+exchange, norm and gather.  Each head runs on the slab up to one
+gather:
 
 * ``BEV_type2`` / ``BEV_type3``: the large-tap prelude (K2 on slabs
   widened by 3, 2 and 4 planes), the 3D hourglass, the occupancy and
@@ -131,7 +142,9 @@ def _length_halo(cfg: VernierConfig) -> int:
 
 
 def check_length_split(cfg: VernierConfig, mesh) -> None:
-    """``parallel.tensor.check_split`` of the grid's length nl."""
+    """``parallel.tensor.check_split`` of the grid's length nl: every
+    split runs (units of 4 or 16 lengths are never narrower than the
+    head's widest halo, 4)."""
     check_split("grid length nl", cfg.grid_resolution[2], mesh,
                 length_levels(cfg), _length_halo(cfg))
 
@@ -168,7 +181,7 @@ class VernierEncoder(nn.Module):
             nh, nw, nl = grid
             a, b = split_range(nl, self.tp_mesh, 2 ** length_levels(self.cfg))
             gpl, gpr = (g.reshape(n, nh, nw, nl, 2)[:, :, :, a:b]
-                        .reshape(n, -1, 2) for g in (gpl, gpr))
+                        .reshape(n, nh * nw * (b - a), 2) for g in (gpl, gpr))
             grid = (nh, nw, b - a)
         voxel = stereo_voxel_sample(
             feats[:n], feats[n:], gpl.contiguous(), gpr.contiguous(),

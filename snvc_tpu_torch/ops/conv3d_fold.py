@@ -42,7 +42,9 @@ VJP of ``conv3d_pertap_xla`` through XLA, conv3d_fold_pallas.py:285-292):
     split count.
 
 Each wrapper sends a CPU tensor to its plain version below and a CUDA
-tensor to its kernel, or raises.
+tensor to its kernel, or raises.  An input of no element (the slab of a
+model position that holds no plane) gives the empty output or a zero
+weight gradient without a launch.
 """
 
 from __future__ import annotations
@@ -319,12 +321,19 @@ def _launch_conv3d(x, w, dilation: int):
     return out if f8 == Fo else out[..., :Fo].contiguous()
 
 
+def _empty_conv(x, w):
+    """The output of a SAME conv of ``x`` with no element: no launch."""
+    return x.new_zeros(x.shape[:-1] + w.shape[-1:])
+
+
 def _large_tap_forward(x, w, dilation):
     if not x.is_cuda:
         return conv3d_pertap(x, w, dilation)
     kd, kh, kw = w.shape[:3]
     if kd < 5:
         raise ValueError(f"kernel {(kd, kh, kw)} has kd < 5 (K5 takes k3)")
+    if x.numel() == 0:
+        return _empty_conv(x, w)
     out = _launch_conv3d(x, w, dilation)
     conv3d_large_tap.launches += 1
     return out
@@ -336,6 +345,8 @@ def conv3d_input_grad(g, w, dilation: int = 1):
     wf = flip_weight(w)
     if not g.is_cuda:
         return conv3d_pertap(g, wf, dilation)
+    if g.numel() == 0:
+        return _empty_conv(g, wf)
     out = _launch_conv3d(g.contiguous(), wf, dilation)
     conv3d_input_grad.launches += 1
     return out
@@ -359,6 +370,9 @@ def conv3d_weight_grad(x, g, kernel, dilation: int = 1):
         raise ValueError(f"kernel {kernel} is not odd with kh <= 7")
     N, D, H, W, C = x.shape
     Fo = g.shape[-1]
+    if x.numel() == 0:  # no output position: a zero gradient, no launch
+        return torch.zeros((kd, kh, kw, C, Fo), dtype=torch.bfloat16,
+                           device=x.device)
     c8, f8 = _round_up(C, 8), _round_up(Fo, 8)
     xk = pad_channels(x.contiguous(), c8)
     gk = pad_channels(g.contiguous(), f8)

@@ -16,7 +16,9 @@ right features read at x - shift[d] (linear in x, zeros outside):
   * ``plane_sweep_volume_k3``: the wrapper of the CUDA kernel
     (csrc/plane_sweep_volume.cu), differentiable through ``PlaneSweepK3``.
     A CPU tensor goes to ``plane_sweep_shifted``; a CUDA tensor goes to
-    the kernel or raises.
+    the kernel or raises.  No plane (the slab of a model position that
+    holds none) gives the empty volume, and zeros backward, without a
+    launch.
   * ``plane_sweep_shifted_bwd`` / ``plane_sweep_volume_k3_bwd``: the
     backward, plain and kernel.  JAX takes the VJP of the gather form
     through XLA (``_psv_bwd``, snvc_tpu/ops/cost_volume.py:160-169) and
@@ -232,9 +234,11 @@ def _psv_forward(left, right, shifts):
     if left.data_ptr() % 16 or right.data_ptr() % 16:
         raise ValueError("left and right must be 16-byte aligned")
     D = table.shape[1]
+    out = torch.empty((N, D, H, W, 2 * C), dtype=dt, device=left.device)
+    if out.numel() == 0:  # a slab of no plane: no launch
+        return out
     t = k3_tiling(N, D, H, W, C, dt, torch.cuda.get_device_properties(
         left.device).multi_processor_count)
-    out = torch.empty((N, D, H, W, 2 * C), dtype=dt, device=left.device)
     from snvc_tpu_torch._build import error_string, load_library
 
     lib = load_library("plane_sweep_volume")
@@ -304,6 +308,9 @@ def plane_sweep_volume_k3_bwd(grad, shifts, W: int):
         raise ValueError("grad and shifts must lie on one CUDA device")
     if not (grad.is_contiguous() and shifts.is_contiguous()):
         raise ValueError("grad and shifts must be contiguous")
+    if grad.numel() == 0:  # a slab of no plane: zeros, no launch
+        dleft = grad.new_zeros((N, H, W, C))
+        return dleft, torch.zeros_like(dleft)
     if grad.data_ptr() % 16:
         raise ValueError("grad must be 16-byte aligned")
     t = k3_bwd_tiling(N, H, W, C, dt, torch.cuda.get_device_properties(

@@ -132,7 +132,7 @@ def sample_stereo_voxel(left_feat, right_feat, grid_proj_left,
     elif aggregate != "concat":
         raise NotImplementedError(aggregate)
     vox = torch.cat([sl, sr], dim=-1)
-    return vox.reshape(vox.shape[0], nh, nw, nl, -1)
+    return vox.reshape(vox.shape[0], nh, nw, nl, vox.shape[-1])
 
 
 def sample_stereo_voxel_bwd(left_feat, right_feat, grid_proj_left,

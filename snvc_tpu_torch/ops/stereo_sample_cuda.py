@@ -34,7 +34,9 @@ the crop affines, which are not parameters, so that part is skipped
 there.
 
 Each wrapper sends a CPU tensor to its plain version (ops/grid_sample.py)
-and a CUDA tensor to its kernel, or raises.
+and a CUDA tensor to its kernel, or raises.  A grid of no point (the
+slab of a model position that holds no length) returns the empty voxel
+or zero gradients without a launch.
 """
 
 from __future__ import annotations
@@ -148,6 +150,8 @@ def _forward(left_feat, right_feat, grid_proj_left, grid_proj_right, roi_hw,
     N, Hf, Wf, C = left_feat.shape
     out = torch.empty((N, nh, nw, nl, 2 * C), dtype=dt,
                       device=left_feat.device)
+    if out.numel() == 0:  # a slab of no length: no launch
+        return out
     from snvc_tpu_torch._build import error_string, load_library
 
     lib = load_library("stereo_voxel_sample")
@@ -180,6 +184,11 @@ def stereo_voxel_sample_bwd(left_feat, right_feat, grid_proj_left,
     P = grid_proj_left.shape[1]
     _check_all(left_feat, right_feat, grid_proj_left, grid_proj_right, P)
     dt = left_feat.dtype
+    if P == 0:  # no point sampled: zero gradients, no launch
+        dl = torch.zeros_like(left_feat)
+        dpl = torch.zeros_like(grid_proj_left) if need_grid else None
+        return (dl, torch.zeros_like(dl), dpl,
+                None if dpl is None else torch.zeros_like(dpl))
     # the grid's [nh, nw, nl] from a [N, nh, nw, nl, 2C] gradient (the
     # kernel walks l or w fastest); a flat [N, P, 2C] one walks in order
     nw, nl = gvox.shape[2:4] if gvox.ndim == 5 else (1, P)

@@ -23,6 +23,15 @@ device.)  For the same reason nothing rematerializes under this form: a
 recompute inside the backward could not meet the other positions
 (models/vernier.py turns ``cfg.remat`` off here).
 
+The slabs follow parallel/tensor.py's rule: a position may hold a
+short last slab or no plane at all.  Such a position meets the others at
+every collective in the same order (its layers make 0-plane outputs
+that still depend on their inputs), adds nothing to a gather, zeros to
+a sum and -inf to a maximum; a halo that reaches past a short or an
+empty neighbour takes what it holds and zeros beyond, and the meeting
+refuses a halo that would reach past a slab that is not the last to hold
+planes.
+
 Each position runs its own module (``Replicas``): position 0 the module
 itself, the others copies of its module tree that use its parameters and
 buffers, the same tensors on its device and differentiable copies
@@ -151,7 +160,8 @@ class Rendezvous:
         return self.meet("model", rank, x, fn)
 
     def gather(self, x, axis: int, rank: int):
-        """The model group's slabs concatenated along ``axis``."""
+        """The model group's slabs concatenated along ``axis`` (a position
+        of no plane adds none)."""
         def fn(xs):
             dev = xs[0].device
             whole = torch.cat([y.to(dev) for y in xs], dim=axis)
@@ -160,25 +170,42 @@ class Rendezvous:
 
     def halo(self, x, axis: int, lo: int, hi: int, rank: int):
         """Each slab widened by the ``lo`` last planes of the previous
-        position and the ``hi`` first of the next, zeros beyond the
-        outer ones."""
+        position and the ``hi`` first of the next, zeros beyond the outer
+        ones and beyond the planes of a neighbour that holds fewer (a
+        short or an empty last slab: the volume's edge).  Raises where a
+        halo would reach past a slab that is not the last to hold
+        planes."""
+        def edge(src, dst, n, first):
+            shape = list(dst.shape)
+            shape[axis] = n
+            if src is None:
+                return dst.new_zeros(shape)
+            have = min(n, src.shape[axis])
+            part = src.narrow(axis, 0 if first else src.shape[axis] - have,
+                              have).to(dst.device)
+            shape[axis] = n - have
+            pad = dst.new_zeros(shape)
+            return torch.cat([part, pad] if first else [pad, part],
+                             dim=axis)
+
         def fn(xs):
+            sizes = [y.shape[axis] for y in xs]
+            last = max((i for i, L in enumerate(sizes) if L), default=-1)
+            narrow = [L for L in sizes[:last]]
+            if narrow and min(narrow) < max(lo, hi):
+                raise ValueError(
+                    f"a halo of ({lo}, {hi}) planes reaches past a slab of "
+                    f"{min(narrow)} planes (slabs {sizes})")
             n, out = len(xs), []
             for i, y in enumerate(xs):
-                shape = list(y.shape)
                 parts = []
                 if lo:
-                    shape[axis] = lo
-                    prev = xs[i - 1] if i > 0 else None
-                    parts.append(y.new_zeros(shape) if prev is None else
-                                 prev.narrow(axis, prev.shape[axis] - lo,
-                                             lo).to(y.device))
+                    parts.append(edge(xs[i - 1] if i > 0 else None, y, lo,
+                                      False))
                 parts.append(y)
                 if hi:
-                    shape[axis] = hi
-                    nxt = xs[i + 1] if i < n - 1 else None
-                    parts.append(y.new_zeros(shape) if nxt is None else
-                                 nxt.narrow(axis, 0, hi).to(y.device))
+                    parts.append(edge(xs[i + 1] if i < n - 1 else None, y,
+                                      hi, True))
                 out.append(torch.cat(parts, dim=axis))
             return out
         return self.meet("model", rank, x, fn)

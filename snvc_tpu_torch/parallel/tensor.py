@@ -26,21 +26,36 @@ A position of a one-process mesh (parallel/local.py) meets the other
 positions at its ``Rendezvous`` instead, where each collective is plain
 differentiable ops over every position's tensor.
 
-The slab rule (``slab_bounds``): an axis split under an hourglass of
-``levels`` stride-2 steps is cut into units of ``2^levels`` planes, and
-its ``k`` units are spread over the ``n`` model positions as
-``np.array_split`` spreads them: contiguous slabs, the first ``k mod n``
-positions one unit more.  So every slab starts on a stride at every
-level and no position crops (``layers._crop_to``): GSPMD pads an extent
-that does not split evenly, the port gives its slabs unequal lengths.
-``check_split`` refuses the splits that cannot run, each with its
-reason: an extent that is not a whole number of units, a position with
-no unit (an exchange across an empty neighbour), and a slab narrower
-than a halo its convs read.
+The slab rule (``slab_bounds``): an axis of ``extent`` planes split
+under an hourglass of ``levels`` stride-2 steps is cut into ``k =
+ceil(extent / 2^levels)`` units of ``2^levels`` planes, of which only the
+last may be short, and the units are spread over the ``n`` model
+positions as ``np.array_split`` spreads them: contiguous slabs, the
+first ``k mod n`` positions one unit more, and the positions from ``k``
+on hold no plane when ``k < n``.  So every slab starts on a stride at
+every level, only the last slab that holds planes can be short, and
+beyond it lies the volume's edge: a halo that reaches past a short or an
+empty neighbour is zeros, as GSPMD's padded split (and the unsplit
+volume) has it.  At level ``l`` a short slab of ``r`` planes holds
+``ceil(r / 2^l)``, and the slabs' planes sum to the whole extent's
+``ceil(extent / 2^l)``, so the crops of ``layers._crop_to`` fall on the
+last slab alone, as on the whole volume.  ``check_split`` refuses one
+split only: a slab of whole units narrower than a halo its convs read
+(a neighbour's halo would then reach past it into planes it does not
+hold).  No model of the port reaches it: every hourglass has at least 2
+levels, so units hold at least 4 planes, and the widest halo is 4
+(the BEV_type2 / BEV_type3 prelude's k5 d2 conv).
+
+An empty position takes part in every collective, forward and backward,
+in the same order as the others: its layers make 0-plane outputs that
+still depend on their (halo-widened) inputs, launch no kernel, and add
+zeros to the sums (``model_sum``), ``-inf`` to the maxima (the caller's
+``amax`` over no plane: ``slab_amax``) and nothing to a ``gather``.
 
 Both exchanges of the rank form go through ``all_gather`` of the edge
-planes in the model group (equal shapes whatever the slabs' lengths;
-``gather`` pads the slabs to the widest and trims): gloo's ``send`` /
+planes in the model group (equal shapes whatever the slabs' lengths: a
+slab shorter than a halo offers what it has and zeros beyond; ``gather``
+pads the slabs to the widest and trims): gloo's ``send`` /
 ``recv`` take CPU tensors only, and two ranks sharing one GPU can only
 use gloo, whose ``all_gather`` takes CUDA tensors (copied through the
 host).
@@ -58,44 +73,47 @@ from snvc_tpu_torch.parallel.api import AllReduceSum, Mesh
 
 def slab_bounds(extent: int, n: int, unit: int = 1) -> List[int]:
     """The ``n + 1`` bounds of the slabs of an axis of ``extent`` planes
-    over ``n`` model positions, in whole units of ``unit`` planes spread
-    as ``np.array_split`` spreads them (see the module docstring)."""
-    k = extent // unit
-    return [unit * (m * (k // n) + min(m, k % n)) for m in range(n + 1)]
+    over ``n`` model positions: ``ceil(extent / unit)`` units of ``unit``
+    planes (the last may be short) spread as ``np.array_split`` spreads
+    them, positions beyond the units empty (the module docstring)."""
+    k = -(-extent // unit)
+    return [min(extent, unit * (m * (k // n) + min(m, k % n)))
+            for m in range(n + 1)]
 
 
 def split_range(extent: int, mesh: Mesh, unit: int = 1) -> Tuple[int, int]:
-    """(first, end) of this position's slab of an axis of ``extent``."""
+    """(first, end) of this position's slab of an axis of ``extent``;
+    first == end on a position that holds no plane."""
     b = slab_bounds(extent, mesh.n_model, unit)
     return b[mesh.model_index], b[mesh.model_index + 1]
 
 
 def check_split(name: str, extent: int, mesh: Mesh, levels: int,
                 halo: int = 1) -> None:
-    """Raises unless ``extent`` splits over the model positions into
-    slabs that stay whole at every stride of an hourglass of ``levels``
-    stride-2 steps (whole units of ``2^levels`` planes), each with at
-    least one unit and no narrower than ``halo`` planes (the widest halo
-    the split convs read)."""
-    n, unit = mesh.n_model, 2 ** levels
-    if extent % unit:
-        raise ValueError(
-            f"{name} = {extent} is not a multiple of 2^levels = {unit}: "
-            "the model's hourglass would crop it, and a slab could not "
-            "start on a stride at every level")
-    if extent // unit < n:
-        raise ValueError(
-            f"{name} = {extent} holds {extent // unit} units of 2^levels = "
-            f"{unit} planes, fewer than the {n} model positions: a "
-            "position would hold no plane, and an exchange would cross an "
-            "empty neighbour")
-    b = slab_bounds(extent, n, unit)
-    narrow = min(b[m + 1] - b[m] for m in range(n))
+    """Raises if a slab of whole units of ``2^levels`` planes (any slab
+    but the last that holds planes) is narrower than ``halo``, the widest
+    halo the split convs read: a neighbour's halo would reach past it.
+    Every other split runs: a short last unit, positions with no plane
+    (the module docstring).  No model of the port reaches the refusal
+    (units of at least 4 planes, halos of at most 4)."""
+    b = slab_bounds(extent, mesh.n_model, 2 ** levels)
+    widths = [hi - lo for lo, hi in zip(b, b[1:]) if hi > lo]
+    narrow = min(widths[:-1], default=halo)
     if narrow < halo:
         raise ValueError(
-            f"{name} = {extent} over {n} model positions gives a slab of "
-            f"{narrow} planes, narrower than the {halo}-plane halo its "
-            "convs read")
+            f"{name} = {extent} over {mesh.n_model} model positions gives "
+            f"a slab of {narrow} planes, narrower than the {halo}-plane "
+            "halo its convs read")
+
+
+def slab_amax(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x.amax(axis, keepdim=True)``, ``-inf`` on a slab of no plane
+    (its part of a ``model_max``)."""
+    if x.shape[axis]:
+        return x.amax(axis, keepdim=True)
+    shape = list(x.shape)
+    shape[axis] = 1
+    return x.new_full(shape, float("-inf"))
 
 
 def shard(x: torch.Tensor, axis: int, mesh: Mesh,
@@ -143,14 +161,29 @@ def gather(x: torch.Tensor, axis: int, mesh: Mesh, extent: int,
                          slab_bounds(extent, mesh.n_model, unit))
 
 
+def _edge(x: torch.Tensor, axis: int, first: bool, n: int):
+    """The first (``first``) or last ``n`` planes of ``x`` along ``axis``,
+    zeros beyond the slab's planes when it holds fewer."""
+    L = x.shape[axis]
+    have = min(n, L)
+    part = x.narrow(axis, 0 if first else L - have, have)
+    if have == n:
+        return part
+    shape = list(x.shape)
+    shape[axis] = n - have
+    zeros = x.new_zeros(shape)
+    return torch.cat([part, zeros] if first else [zeros, part], dim=axis)
+
+
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, lo, hi, mesh):
         ctx.axis, ctx.lo, ctx.hi, ctx.mesh = axis, lo, hi, mesh
-        L, n, m = x.shape[axis], mesh.n_model, mesh.model_index
-        # each rank offers its first hi and last lo planes
-        edges = torch.cat([x.narrow(axis, 0, hi), x.narrow(axis, L - lo, lo)],
-                          dim=axis)
+        n, m = mesh.n_model, mesh.model_index
+        # each rank offers its first hi and last lo planes (zeros beyond a
+        # slab shorter than that)
+        edges = torch.cat([_edge(x, axis, True, hi),
+                           _edge(x, axis, False, lo)], dim=axis)
         parts = _all_gather(edges, mesh.model_group, n)
         zeros = x.new_zeros
         shape = list(x.shape)
@@ -174,24 +207,27 @@ class _HaloExchange(torch.autograd.Function):
                                        g.narrow(axis, lo + L, hi)], dim=axis),
                             mesh.model_group, n)
         dx = g.narrow(axis, lo, L).clone()
-        if m < n - 1:  # the next rank's lower halo is my last lo planes
-            dx.narrow(axis, L - lo, lo).add_(parts[m + 1].narrow(axis, 0, lo))
-        if m > 0:  # the previous rank's upper halo is my first hi planes
-            dx.narrow(axis, 0, hi).add_(parts[m - 1].narrow(axis, lo, hi))
+        a, b = min(lo, L), min(hi, L)  # the planes of mine in each halo
+        if m < n - 1:  # the next rank's lower halo ends with my last planes
+            dx.narrow(axis, L - a, a).add_(
+                parts[m + 1].narrow(axis, lo - a, a))
+        if m > 0:  # the previous rank's upper halo starts with my first
+            dx.narrow(axis, 0, b).add_(parts[m - 1].narrow(axis, lo, b))
         return dx, None, None, None, None
 
 
 def halo_exchange(x: torch.Tensor, axis: int, lo: int, hi: int,
                   mesh: Mesh) -> torch.Tensor:
     """``x``'s slab along ``axis`` widened by the ``lo`` last planes of the
-    previous model rank and the ``hi`` first planes of the next one, zeros
-    beyond the first and the last rank: [.., lo + L + hi, ..]."""
+    previous model position and the ``hi`` first planes of the next one:
+    [.., lo + L + hi, ..].  Zeros beyond the first and the last position,
+    and beyond the planes of a neighbour that holds fewer (a short or an
+    empty last slab: the volume's edge).  A one-process mesh checks at
+    the meeting that no halo reaches past a slab of whole units; a
+    process group relies on ``check_split``, which the models call before
+    their first collective."""
     if lo == hi == 0:
         return x
-    L = x.shape[axis]
-    if max(lo, hi) > L:
-        raise ValueError(f"a halo of ({lo}, {hi}) planes is wider than the "
-                         f"slab's {L}")
     if mesh.local is not None:
         return mesh.local.halo(x, axis, lo, hi, mesh.rank)
     return _HaloExchange.apply(x, axis, lo, hi, mesh)
@@ -205,7 +241,8 @@ def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def model_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The elementwise maximum of ``x`` over the model group, detached."""
+    """The elementwise maximum of ``x`` over the model group, detached
+    (a position of no plane offers ``-inf``: ``slab_amax``)."""
     if mesh.local is not None:
         return mesh.local.max(x, mesh.rank)
     y = x.detach().clone()

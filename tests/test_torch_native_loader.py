@@ -9,12 +9,28 @@ with g++) and against the port's plain reader ``data/png.py``.
   size, zero-padded, cropped, and as one batch on several threads (also
   with empty slots).
 * ``load_velodyne`` equals JAX's, truncation at ``max_points`` included.
+* Every PNG of the specification (``chip_smoke.PNG_KINDS``: grey at 1,
+  2, 4, 8 and 16 bits, 16-bit RGB, palette at 1, 2, 4 and 8 bits, grey +
+  alpha and RGBA at 8 and 16 bits, ``tRNS`` on grey, RGB and palette
+  images, Adam7 on a 3 x 2 image with empty passes and a 37 x 53 one;
+  seeded samples whose RGB is known) decodes one at a time, zero-padded,
+  and all kinds in one batch on 4 threads to cv2's pixels (JAX's
+  ``KittiScene.load_image``) bit for bit, and to ``png.decode_png``'s.
+  They equal JAX's libpng loader where it is right: on every kind but
+  those with a ``tRNS`` chunk (``png_set_tRNS_to_alpha`` adds an alpha
+  channel its colour-type test does not see, so it copies 4-byte pixels
+  as 3-byte ones, cpp/dataloader.cpp:63-68) and the Adam7 ones (it never
+  calls ``png_set_interlace_handling``, so it copies the passes' rows as
+  the image's), where it gives other pixels.
 * Where JAX returns None the port raises: a missing file
-  (FileNotFoundError), 16-bit / palette / grey / interlaced PNGs, a bad
-  CRC, a bad filter byte, image data of the wrong size and headers with
-  a zero side, a side over 1e6 or more pixels than the data could
-  inflate to (ValueError naming the path, no allocation), in a batch
-  too.
+  (FileNotFoundError), PNGs the specification does not allow (a 16-bit
+  palette, 3-bit grey, a palette image without PLTE, image data of the
+  wrong size for Adam7's passes), a bad CRC, a bad filter byte, image
+  data of the wrong size and headers with a zero side, a side over 1e6
+  or more pixels than the data could inflate to (ValueError naming the
+  path, no allocation), in a batch too; the files of the four kinds that
+  were refused before (16-bit, palette, grey, interlaced) decode to
+  cv2's pixels.
 * ``KittiScene.load_image_padded`` / ``load_image_scaled``, the stereo
   pipeline's ``load_views_scaled`` and the Vernier pipeline's
   ``make_batch`` (both views of two frames in one
@@ -25,15 +41,18 @@ with g++) and against the port's plain reader ``data/png.py``.
 import os
 import struct
 import zlib
+from types import SimpleNamespace
 
 import cv2
 import numpy as np
 import pytest
 
+from chip_smoke import PNG_KIND_SIZES, PNG_KINDS, write_png_kind
 from snvc_tpu import config as jconfig
 from snvc_tpu.data import instance_db as jdb
 from snvc_tpu.data import native_loader as jloader
 from snvc_tpu.data.kitti import KittiDataset as JDataset
+from snvc_tpu.data.kitti import KittiScene as JScene
 from snvc_tpu.data.pipeline import RefinementPipeline as JPipe
 from snvc_tpu.data.synthetic import make_synthetic_kitti, write_predictions
 from snvc_tpu_torch.data import instance_db as tdb
@@ -121,13 +140,13 @@ def _write_raw(path, ihdr_fields, raw_rows):
 
 def _bad_file(kind, d) -> str:
     path = os.path.join(d, f"{kind}.png")
-    if kind == "16bit":
-        assert cv2.imwrite(path, np.zeros((4, 5, 3), np.uint16))
-    elif kind == "palette":
+    if kind == "16bit":  # a 16-bit palette
+        _write_raw(path, (5, 4, 16, 3, 0, 0, 0), bytes(4 * 11))
+    elif kind == "palette":  # no PLTE
         _write_raw(path, (5, 4, 8, 3, 0, 0, 0), bytes(4 * 6))
-    elif kind == "grey":
-        assert cv2.imwrite(path, np.zeros((4, 5), np.uint8))
-    elif kind == "interlaced":
+    elif kind == "grey":  # 3-bit grey
+        _write_raw(path, (5, 4, 3, 0, 0, 0, 0), bytes(4 * 3))
+    elif kind == "interlaced":  # the rows' size, not the passes'
         _write_raw(path, (5, 4, 8, 2, 0, 0, 1), bytes(4 * 16))
     elif kind == "filter":
         _write_raw(path, (2, 2, 8, 2, 0, 0, 0), bytes([0] + [9] * 6 + [7] * 7))
@@ -159,9 +178,70 @@ def test_unread_png_raises_with_its_path(kind, tmp_path, images):
         native_loader.decode_png_padded(path, (8, 8))
     with pytest.raises(ValueError, match=path):
         native_loader.decode_batch_padded([images[0][0], path], (8, 8), 2)
-    if kind not in ("16bit", "palette", "grey"):  # libpng converts those
-        with pytest.raises(ValueError):
-            png.decode_png(path)
+    with pytest.raises(ValueError):
+        png.decode_png(path)
+    if kind in REFUSED_BEFORE:  # a valid file of the kind now decodes
+        good = os.path.join(str(tmp_path), f"good_{kind}.png")
+        REFUSED_BEFORE[kind](good)
+        np.testing.assert_array_equal(
+            native_loader.decode_png_padded(good, (4, 5)), _cv2_rgb(good))
+
+
+def _cv2_rgb(path):
+    """JAX's ``KittiScene.load_image`` of ``path`` (cv2.imread,
+    IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION, BGR -> RGB)."""
+    return JScene.load_image(SimpleNamespace(left_image_path=path), "left")
+
+
+# the kinds the loader refused before, each with a writer of a valid file
+REFUSED_BEFORE = {
+    "16bit": lambda p: cv2.imwrite(p, np.random.default_rng(1).integers(
+        0, 65536, (4, 5, 3)).astype(np.uint16)),
+    "palette": lambda p: write_png_kind(p, "palette8", (4, 5),
+                                        np.random.default_rng(2)),
+    "grey": lambda p: cv2.imwrite(p, np.random.default_rng(3).integers(
+        0, 256, (4, 5), np.uint8)),
+    "interlaced": lambda p: write_png_kind(p, "rgb8_adam7", (4, 5),
+                                           np.random.default_rng(4)),
+}
+# the kinds JAX's libpng loader decodes to other pixels (module docstring)
+JAX_WRONG = {k for k, (_, _, trns, adam7) in PNG_KINDS.items()
+             if trns or adam7}
+
+
+@pytest.fixture(scope="module")
+def kinds(tmp_path_factory):
+    """kind -> [(path, RGB)] of each size."""
+    d = tmp_path_factory.mktemp("kinds")
+    out = {}
+    for i, kind in enumerate(PNG_KINDS):
+        rng = np.random.default_rng(100 + i)
+        out[kind] = [(str(d / f"{kind}_{hw[0]}.png"), None)
+                     for hw in PNG_KIND_SIZES]
+        out[kind] = [(p, write_png_kind(p, kind, hw, rng))
+                     for (p, _), hw in zip(out[kind], PNG_KIND_SIZES)]
+    return out
+
+
+@pytest.mark.parametrize("kind", list(PNG_KINDS))
+def test_every_png_kind_decodes_to_cv2s_pixels(kinds, kind):
+    for path, rgb in kinds[kind]:
+        hw = rgb.shape[:2]
+        np.testing.assert_array_equal(_cv2_rgb(path), rgb, err_msg=path)
+        for out_hw in (hw, (40, 60), (2, 1)):
+            got = native_loader.decode_png_padded(path, out_hw)
+            np.testing.assert_array_equal(got, _place(rgb, out_hw))
+        np.testing.assert_array_equal(png.decode_png(path), rgb)
+        jax = jloader.decode_png_padded(path, hw)
+        assert np.array_equal(jax, rgb) != (kind in JAX_WRONG), path
+
+
+def test_every_png_kind_in_one_batch(kinds):
+    items = [item for kind in PNG_KINDS for item in kinds[kind]]
+    got = native_loader.decode_batch_padded([p for p, _ in items], (40, 60),
+                                            4)
+    for g, (_, rgb) in zip(got, items):
+        np.testing.assert_array_equal(g, _place(rgb, (40, 60)))
 
 
 def test_missing_file_raises(tmp_path, images):

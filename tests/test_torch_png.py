@@ -8,8 +8,18 @@ writes images with (snvc_tpu/data/kitti.py:89-146, data/synthetic.py).
   the filter bytes of those files cover all five types.
 * ``encode_png`` -> ``decode_png`` gives the array back for each filter;
   cv2 reads the port's files the same.
-* RGBA drops alpha, as ``IMREAD_COLOR`` does; 16-bit, palette, grey and
-  interlaced files, a bad filter byte and a bad CRC raise ``ValueError``.
+* RGBA drops alpha, as ``IMREAD_COLOR`` does.  Every other PNG of the
+  specification decodes to cv2's pixels bit for bit (JAX's
+  ``KittiScene.load_image``): grey at 1, 2, 4, 8 and 16 bits, 16-bit RGB,
+  palette at 1, 2, 4 and 8 bits, grey + alpha and RGBA at 8 and 16 bits,
+  ``tRNS`` on grey, RGB and palette images, Adam7 (a 3 x 2 image with
+  empty passes and a 37 x 53 one), each written by
+  ``chip_smoke.write_png_kind`` from seeded samples whose RGB it knows,
+  with seeded row filters, the image data in two IDAT chunks.  What the
+  specification does not allow still raises ``ValueError``: a 16-bit
+  palette, 3-bit grey, a palette image without PLTE, image data of the
+  wrong size for its passes, interlace method 2, a bad filter byte, a
+  bad CRC.
 * ``resize_area`` equals ``cv2.INTER_AREA`` bit for bit at 375x1242 ->
   96x320 and at other ratios that are not integers: it repeats OpenCV's
   float32 sums in their order, so no level of difference is allowed.
@@ -23,6 +33,7 @@ import cv2
 import numpy as np
 import pytest
 
+from chip_smoke import PNG_KIND_SIZES, PNG_KINDS, write_png_kind
 from snvc_tpu.data.synthetic import make_synthetic_kitti
 from snvc_tpu_torch.data import png
 
@@ -116,20 +127,45 @@ def _write_raw(path, ihdr_fields, raw_rows):
                  + png._chunk(b"IEND", b""))
 
 
+@pytest.mark.parametrize("kind", list(PNG_KINDS))
+def test_decodes_every_png_kind(kind, tmp_path):
+    rng = np.random.default_rng(sorted(PNG_KINDS).index(kind))
+    for hw in PNG_KIND_SIZES:
+        path = str(tmp_path / f"{kind}_{hw[0]}.png")
+        want = write_png_kind(path, kind, hw, rng)
+        np.testing.assert_array_equal(_cv2_rgb(path), want, err_msg=path)
+        np.testing.assert_array_equal(png.decode_png(path), want,
+                                      err_msg=path)
+
+
 @pytest.mark.parametrize("kind", ["16bit", "palette", "grey", "interlaced"])
 def test_refuses_other_formats(kind, tmp_path):
+    """Each kind that was refused decodes to cv2's pixels; a file of that
+    kind that the PNG specification does not allow raises."""
     path = str(tmp_path / f"{kind}.png")
+    bad = str(tmp_path / f"bad_{kind}.png")
+    rng = np.random.default_rng(5)
     if kind == "16bit":
-        img = np.zeros((4, 5, 3), np.uint16)
+        img = rng.integers(0, 65536, (4, 5, 3)).astype(np.uint16)
         assert cv2.imwrite(path, img)
+        _write_raw(bad, (5, 4, 16, 3, 0, 0, 0), bytes(4 * 11))
     elif kind == "palette":
-        _write_raw(path, (5, 4, 8, 3, 0, 0, 0), bytes(4 * 6))
+        write_png_kind(path, "palette8", (4, 5), rng)
+        _write_raw(bad, (5, 4, 8, 3, 0, 0, 0), bytes(4 * 6))  # no PLTE
     elif kind == "grey":
-        assert cv2.imwrite(path, np.zeros((4, 5), np.uint8))
+        assert cv2.imwrite(path, rng.integers(0, 256, (4, 5), np.uint8))
+        _write_raw(bad, (5, 4, 3, 0, 0, 0, 0), bytes(4 * 3))
     else:
-        _write_raw(path, (5, 4, 8, 2, 0, 0, 1), bytes(4 * 16))
+        write_png_kind(path, "rgb8_adam7", (4, 5), rng)
+        # image data of the rows' size, not the passes'
+        _write_raw(bad, (5, 4, 8, 2, 0, 0, 1), bytes(4 * 16))
+        unknown = str(tmp_path / "interlace2.png")
+        _write_raw(unknown, (5, 4, 8, 2, 0, 0, 2), bytes(4 * 16))
+        with pytest.raises(ValueError):
+            png.decode_png(unknown)
+    np.testing.assert_array_equal(png.decode_png(path), _cv2_rgb(path))
     with pytest.raises(ValueError):
-        png.decode_png(path)
+        png.decode_png(bad)
 
 
 def test_refuses_bad_filter_byte_and_crc(tmp_path):

@@ -15,13 +15,15 @@
   running statistics, within 1e-6 of scale (the large-tap convs' plain
   version sums its taps in float32: 3.6e-7 and 4.7e-7; the rest agree
   to 3.4e-12 or better, most to ~3e-16).
-* The slab rule (``slab_bounds``: whole units of 2^levels planes, spread
-  as ``np.array_split`` spreads them) and what is still refused: an
-  extent of no whole units, a position with no unit, a slab narrower
-  than a halo; a mesh larger than its devices, an ``n_model`` that does
-  not divide the world or would cross hosts, the runners given the
-  wrong mesh.  The one-process ``make_mesh(n_model=2)`` is built.
+* The slab rule (``slab_bounds``: units of 2^levels planes, the last
+  short, spread as ``np.array_split`` spreads them, positions beyond the
+  units empty) and what is still refused: a slab of whole units
+  narrower than a halo; a mesh larger than its devices, an ``n_model``
+  that does not divide the world or would cross hosts, the runners given
+  the wrong mesh.  The one-process ``make_mesh(n_model=2)`` is built.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +33,8 @@ import torch.nn.functional as F
 from snvc_tpu_torch.config import tiny_stereo_config, tiny_vernier_config
 from snvc_tpu_torch.inference.detect import DetectRunner
 from snvc_tpu_torch.inference.refine import RefineRunner
+from snvc_tpu_torch.models import stereonet
+from snvc_tpu_torch.models import vernier as vernier_module
 from snvc_tpu_torch.models.layers import tensor_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet
 from snvc_tpu_torch.models.vernier import VernierScale
@@ -170,35 +174,42 @@ def test_one_process_positions_fail_together():
 
 
 def test_uneven_slabs_are_refused():
-    """Uneven slabs run (whole units of 2^levels planes spread as
-    np.array_split spreads them); check_split refuses only an extent of
-    no whole units, a position with no unit and a slab narrower than a
-    halo, each with its reason, before any collective."""
+    """Uneven slabs run: ceil(extent / 2^levels) units, the last short,
+    spread as np.array_split spreads them, positions beyond the units
+    empty.  check_split refuses only a slab of whole units narrower than
+    a halo, with its reason, before any collective; a model runs an
+    extent that is not a multiple of its units, or with fewer units than
+    positions, as GSPMD pads it."""
     assert slab_bounds(64, 3, 4) == [0, 24, 44, 64]
     assert slab_bounds(192, 5, 16) == [0, 48, 96, 128, 160, 192]
     assert slab_bounds(12, 2, 4) == [0, 8, 12]
+    assert slab_bounds(14, 2, 4) == [0, 8, 14]  # a short last unit
+    assert slab_bounds(4, 2, 4) == [0, 4, 4]  # an empty position
     check_split("num_depths", 12, TP_MESH, 2)  # 8 / 4
     check_split("num_depths", 16, TP_MESH, 2)
-    with pytest.raises(ValueError, match="num_depths = 14 is not a "
-                       "multiple of 2\\^levels = 4"):
-        check_split("num_depths", 14, TP_MESH, 2)
-    with pytest.raises(ValueError, match="fewer than the 2 model "
-                       "positions: a position would hold no plane"):
-        check_split("num_depths", 4, TP_MESH, 2)
+    check_split("num_depths", 14, TP_MESH, 2)  # 8 / 6
+    check_split("num_depths", 4, TP_MESH, 2)  # 4 / 0
     check_split("nl", 8, TP_MESH, 1, halo=4)  # 4 / 4
+    check_split("nl", 9, TP_MESH, 2, halo=4)  # 8 / 1: the last is short
     with pytest.raises(ValueError, match="a slab of 4 planes, narrower "
                        "than the 5-plane halo"):
         check_split("nl", 8, TP_MESH, 1, halo=5)
-    # through the model: before any collective
-    cfg = tiny_stereo_config(num_depths=4)
+    # through the model (its check given a 9-plane halo): before any
+    # collective
+    cfg = tiny_stereo_config(num_depths=16)
     model = StereoNet(cfg, device="cpu")
     x = torch.zeros((1,) + tuple(cfg.input_size) + (3,))
     P = torch.tensor(np.array([[[700.0, 0, 64, 40], [0, 700, 32, 0],
                                 [0, 0, 1, 0]]], np.float32))
     Pr = P.clone()
     Pr[0, 0, 3] = -40.0
-    with tensor_parallel(model, TP_MESH), torch.no_grad():
-        with pytest.raises(ValueError, match="num_depths = 4 holds 1 units"):
+    with tensor_parallel(model, TP_MESH), torch.no_grad(), \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stereonet, "check_split",
+                   lambda *a: check_split(*a[:4], halo=9))
+        with pytest.raises(ValueError, match="num_depths = 16 over 2 "
+                           "model positions gives a slab of 8 planes, "
+                           "narrower than the 9-plane halo"):
             model(x, x, P, Pr)
 
 
@@ -232,8 +243,8 @@ def test_runners_take_the_model_axis_where_jax_does():
     """DetectRunner serves one data position split over a process group's
     model axis and every position of a one-process mesh; RefineRunner
     splits instances on "data" only (as JAX's), on the first device of
-    each data position; every Vernier head splits its lengths, and
-    refuses a split that leaves a position empty before any
+    each data position; every Vernier head splits its lengths, takes a
+    split that leaves positions empty, and checks its split before any
     collective."""
     scfg = tiny_stereo_config()
     four = api.Mesh((torch.device("cpu"),) * 4, rank=0, n_model=2)
@@ -253,6 +264,15 @@ def test_runners_take_the_model_axis_where_jax_does():
     bev = tiny_vernier_config(vernier_type="BEV")
     model = VernierScale(bev, device="cpu")
     eight = api.Mesh((torch.device("cpu"),) * 8, rank=0, n_model=8)
-    with tensor_parallel(model, eight), pytest.raises(
-            ValueError, match="grid length nl = 16 holds 4 units"):
-        model.head(torch.zeros(1, 8, 16, 2, 64))
+    with tensor_parallel(model, eight), pytest.MonkeyPatch.context() as mp:
+        # 4 units of 4 lengths over 8 positions, one each on positions
+        # 0-3, none on 4-7: with a 5-plane halo (the check's own is 1)
+        # the head refuses before its first collective
+        mp.setattr(vernier_module, "check_split",
+                   lambda *a: check_split(*a[:4], halo=5))
+        with pytest.raises(ValueError, match="grid length nl = 16 over 8 "
+                           "model positions gives a slab of 4 planes, "
+                           "narrower than the 5-plane halo"):
+            model.head(torch.zeros(1, 8, 16, 4, 64))
+    assert [check_split("grid length nl", 16, dataclasses.replace(
+        eight, rank=r), 2) for r in range(8)] == [None] * 8

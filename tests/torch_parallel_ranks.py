@@ -356,19 +356,20 @@ def large_tap_any_dtype():
 
 def _rel(a, b) -> float:
     a, b = a.detach(), b.detach()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    if not b.numel():  # a slab of no plane
+        return 0.0
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def _layer_errors(name, mesh) -> dict:
-    """The split module against the whole one, on this rank's slab: the
-    output, the input's gradient, the parameters' gradients summed over
-    the model group and (train mode) the running statistics, each as the
-    largest difference relative to the whole's scale."""
-    from snvc_tpu_torch.models.layers import Hourglass, init_weights, \
-        tensor_parallel
-    from snvc_tpu_torch.parallel.tensor import shard
+def layer_setup(name, shape=None):
+    """The whole and the split module of layer case ``name`` (equal
+    float64 weights, norm scales and biases away from 1, 0), its seeded
+    input (of ``shape``, the case's own by default), the seeded weights
+    of the output's sum and the case's split axis."""
+    from snvc_tpu_torch.models.layers import Hourglass, init_weights
 
-    make, axis, shape, train = _layer_cases()[name]
+    make, axis, case_shape, train = _layer_cases()[name]
     mods = []
     for _ in range(2):
         m = make().double().train(train)
@@ -382,7 +383,7 @@ def _layer_errors(name, mesh) -> dict:
         mods.append(m)
     whole, split = mods
     g = torch.Generator().manual_seed(3)
-    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    x = torch.randn(shape or case_shape, generator=g, dtype=torch.float64)
 
     def run(mod, inp):
         out = mod(inp)
@@ -392,21 +393,57 @@ def _layer_errors(name, mesh) -> dict:
     y = run(whole, xw)
     r = torch.randn(y.shape, generator=g, dtype=torch.float64)
     (y * r).sum().backward()
-    xs = shard(x, axis, mesh).clone().requires_grad_()
-    with tensor_parallel(split, mesh):
-        ys = run(split, xs)
-        (ys * shard(r, axis, mesh)).sum().backward()
-    errs = dict(out=_rel(ys, shard(y, axis, mesh)),
-                dx=_rel(xs.grad, shard(xw.grad, axis, mesh)),
-                extents=(xs.shape[axis], x.shape[axis], ys.shape[axis],
-                         y.shape[axis]))
-    for (n, p), q in zip(whole.named_parameters(), split.parameters()):
-        dq = q.grad.clone()
-        dist.all_reduce(dq, group=mesh.model_group)
-        errs[f"d{n}"] = _rel(dq, p.grad)
-    for (n, b), c in zip(whole.named_buffers(), split.buffers()):
+    return dict(whole=whole, split=split, x=x, xw=xw, y=y, r=r, axis=axis,
+                run=run)
+
+
+def slab_errors(case, dx, ys, split, unit, mesh) -> dict:
+    """The split run of ``layer_setup``'s ``case`` (the input slab's
+    gradient ``dx``, the output slab ``ys``, ``split``'s parameters with
+    their gradients summed over the model positions) against the whole,
+    each as the largest difference relative to the whole's scale; the
+    slabs' extents beside the whole's."""
+    from snvc_tpu_torch.parallel.tensor import shard
+
+    axis = case["axis"]
+    y = case["y"]
+    # the output's slab of its own extent: in the same units, halved at
+    # each stride
+    out_unit = max(1, unit * y.shape[axis] // case["x"].shape[axis])
+    errs = dict(out=_rel(ys, shard(y, axis, mesh, out_unit)),
+                dx=_rel(dx, shard(case["xw"].grad, axis, mesh, unit)),
+                extents=(dx.shape[axis], case["x"].shape[axis],
+                         ys.shape[axis], y.shape[axis]))
+    for (n, p), q in zip(case["whole"].named_parameters(),
+                         split.parameters()):
+        errs[f"d{n}"] = _rel(q.grad, p.grad)
+    for (n, b), c in zip(case["whole"].named_buffers(), split.buffers()):
         errs[n] = _rel(c, b)
     return errs
+
+
+def _layer_errors(name, mesh, shape=None, unit: int = 1) -> dict:
+    """The split module against the whole one, on this rank's slab (of
+    ``shape``, in units of ``unit`` planes): the output, the input's
+    gradient, the parameters' gradients summed over the model group and
+    (train mode) the running statistics, each as the largest difference
+    relative to the whole's scale."""
+    from snvc_tpu_torch.models.layers import tensor_parallel
+    from snvc_tpu_torch.parallel.tensor import shard
+
+    case = layer_setup(name, shape)
+    axis, split = case["axis"], case["split"]
+    xs = shard(case["x"], axis, mesh, unit).clone().requires_grad_()
+    with tensor_parallel(split, mesh):
+        ys = case["run"](split, xs)
+        out_unit = max(1, unit * case["y"].shape[axis]
+                       // case["x"].shape[axis])
+        (ys * shard(case["r"], axis, mesh, out_unit)).sum().backward()
+    for q in split.parameters():
+        if q.grad is None:  # a slab of no plane reaches no weight
+            q.grad = torch.zeros_like(q)
+        dist.all_reduce(q.grad, group=mesh.model_group)
+    return slab_errors(case, xs.grad, ys, split, unit, mesh)
 
 
 def tp_layers(rank, x, w_halo, w_gather) -> dict:
@@ -438,6 +475,56 @@ def tp_layers(rank, x, w_halo, w_gather) -> dict:
         layers = {name: _layer_errors(name, mesh) for name in LAYER_CASES}
     return dict(refusals=refusals, halo=halo.detach(), gather=whole.detach(),
                 dx=xs.grad, layers=layers)
+
+
+# name -> (layer case, input shape, unit, the two slabs of the split
+# axis): short last slabs (also of an odd length under a stride, and
+# shorter than the other slab's halo) and empty ones
+PADDED_LAYER_CASES = {
+    "conv3d_k3_stride2_odd": ("conv3d_k3_stride2", (2, 7, 6, 6, 4), 4,
+                              (4, 3)),
+    "conv3d_k3_empty": ("conv3d_k3", (2, 3, 5, 6, 4), 4, (3, 0)),
+    "conv3d_k5_d2_large_tap_short": ("conv3d_k5_d2_large_tap",
+                                     (1, 5, 4, 10, 4), 8, (8, 2)),
+    "conv3d_k7_large_tap_empty": ("conv3d_k7_large_tap", (1, 7, 4, 5, 4),
+                                  8, (5, 0)),
+    "deconv3d_short": ("deconv3d", (1, 3, 3, 5, 4), 2, (2, 1)),
+    "deconv2d_empty": ("deconv2d", (2, 3, 6, 4), 8, (6, 0)),
+    "convnorm2d_short": ("convnorm2d", (2, 5, 7, 4), 4, (4, 3)),
+    "groupnorm_empty": ("groupnorm", (2, 3, 3, 4, 8), 4, (3, 0)),
+    "batchnorm_empty": ("batchnorm", (2, 3, 3, 4, 8), 4, (3, 0)),
+    "hourglass3d_empty": ("hourglass3d", (1, 4, 8, 8, 4), 4, (4, 0)),
+    "hourglass_deep2d_short": ("hourglass_deep2d_batchnorm",
+                               (2, 16, 28, 4), 16, (16, 12)),
+    "hourglass_deep2d_empty": ("hourglass_deep2d_batchnorm",
+                               (2, 16, 12, 4), 16, (12, 0)),
+}
+
+
+def tp_layers_padded(rank, x, w_halo, w_gather, units) -> dict:
+    """On two ranks: for each unit of ``units``, ``halo_exchange`` (2
+    planes below, 3 above) and ``gather`` of the rank's slab of ``x``
+    (axis 1, in that unit: a short slab or an empty one), with the
+    gradient of sum(halo * w_halo[rank]) + sum(gather * w_gather[rank]);
+    and ``_layer_errors`` of every padded layer case (float64, GroupNorm's
+    moments too; the large-tap convs through the K2 wrapper)."""
+    from snvc_tpu_torch.parallel.tensor import gather, halo_exchange, shard
+
+    mesh = tp_mesh(rank, 2)
+    out = {}
+    for unit in units:
+        xs = shard(x, 1, mesh, unit).clone().requires_grad_()
+        halo = halo_exchange(xs, 1, 2, 3, mesh)
+        whole = gather(xs, 1, mesh, x.shape[1], unit)
+        ((halo * w_halo[rank][:, :halo.shape[1]]).sum()
+         + (whole * w_gather[rank]).sum()).backward()
+        out[unit] = dict(halo=halo.detach(), gather=whole.detach(),
+                         dx=xs.grad)
+    with float64_moments(True), large_tap_any_dtype():
+        layers = {name: _layer_errors(case, mesh, shape, unit)
+                  for name, (case, shape, unit, _) in
+                  PADDED_LAYER_CASES.items()}
+    return dict(exchanges=out, layers=layers)
 
 
 def tp_vernier(rank, n_model, cases, one_process) -> dict:
