@@ -426,6 +426,7 @@ from snvc_tpu_torch.ops.conv3d_fold import (
     conv3d_pertap,
     conv3d_weight_grad,
     conv3d_weight_grad_plain,
+    conv3d_work,
     flip_weight,
 )
 from snvc_tpu_torch.ops.assemble import assemble_instances, make_grid_local
@@ -433,6 +434,8 @@ from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3
 from snvc_tpu_torch.ops.cost_volume import (
     plane_sweep_shifted,
     plane_sweep_shifted_bwd,
+    k3_bwd_work,
+    k3_work,
     plane_sweep_volume_k3,
     plane_sweep_volume_k3_bwd,
 )
@@ -445,12 +448,17 @@ from snvc_tpu_torch.ops.frustum import (
     frustum_to_voxel_separable,
     frustum_to_voxel_separable_bwd,
     k4_bwd_plan,
+    k4_bwd_work,
+    k4_planes,
+    k4_work,
 )
 from snvc_tpu_torch.ops.grid_sample import (
     sample_stereo_voxel,
     sample_stereo_voxel_bwd,
 )
 from snvc_tpu_torch.ops.stereo_sample_cuda import (
+    k1_bwd_work,
+    k1_work,
     stereo_voxel_sample,
     stereo_voxel_sample_bwd,
 )
@@ -481,6 +489,7 @@ from snvc_tpu_torch.training.train_stereo import (
     make_stereo_train_step,
     stereo_batch_to_device,
 )
+from snvc_tpu_torch.utils.cost import count_cost
 from snvc_tpu_torch.utils.convert_torch import (
     convert_vernier_checkpoint,
     fabricate_vernier_state_dict,
@@ -570,16 +579,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def valid_taps(size: int, k: int, dil: int) -> int:
-    """(output, tap) pairs along one axis whose input lies inside the
-    volume (torch-symmetric padding): the taps a conv must multiply."""
-    pad = (k - 1) // 2 * dil
-    return sum(1 for o in range(size) for t in range(k)
-               if 0 <= o + t * dil - pad < size)
+def bound_of(work, peak_flops: float) -> float:
+    """The least ms for a kernel's declared work (``utils.cost.Work``, the
+    formula beside the kernel that ``count_cost`` reads too): the larger
+    of its bytes over PEAK_BYTES and its operations over ``peak_flops``."""
+    return max(work.bytes_accessed / PEAK_BYTES,
+               work.flops / peak_flops) * 1e3
 
 
 # ---------------------------------------------------------------- K1 ----
@@ -678,11 +683,9 @@ def k1_times(lf, rf, gl, gr, roi, grid) -> dict:
         return torch.cat([a, b], dim=1)
 
     library_ms = cuda_ms(library, 3)
-    # bytes: both feature maps and grids read, the voxel written; float32
-    # multiply-adds: 4 taps per output element
-    out = gl.shape[0] * gl.shape[1] * 2 * lf.shape[-1]
-    bound_ms = max((nbytes(lf, rf, gl, gr) + out * lf.element_size())
-                   / PEAK_BYTES, 8.0 * out / PEAK_F32_FLOPS) * 1e3
+    N, Hf, Wf, C = lf.shape
+    bound_ms = bound_of(k1_work(N, gl.shape[1], Hf, Wf, C,
+                                lf.element_size()), PEAK_F32_FLOPS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
 
@@ -741,18 +744,16 @@ def run_k2_case(gen, dev, name, shape, kernel, F_out, dil, timed):
     del got, ref, err, tol
     times = {}
     if timed:
-        N, D, H, W, C = shape
         # multiply-adds with padding zeros are not work the conv needs
-        flops = conv_flops(shape, kernel, F_out, dil)
-        out_bytes = N * D * H * W * F_out * 2
+        work = conv3d_work(shape, kernel, F_out, dil, x.element_size())
+        flops = work.flops
         ms = cuda_ms(lambda: conv3d_large_tap(x, w, dil), 3)
         plain_ms = cuda_ms(lambda: conv3d_pertap(x, w, dil), 2)
         xt = x.permute(0, 4, 1, 2, 3)
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         pad = tuple((k - 1) // 2 * dil for k in kernel)
         library_ms = cuda_ms(lambda: F.conv3d(xt, wt, None, 1, pad, dil), 2)
-        bound_ms = max(flops / PEAK_BF16_FLOPS,
-                       (nbytes(x, w) + out_bytes) / PEAK_BYTES) * 1e3
+        bound_ms = bound_of(work, PEAK_BF16_FLOPS)
         times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      library_ms=library_ms)
         fields.update(kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
@@ -880,10 +881,9 @@ def k3_times(lf, rf, shifts) -> dict:
     call = k3_library(lf, rf, shifts)
     library_ms = cuda_ms(lambda: call(lf, rf), 3)
     N, H, W, C = lf.shape
-    out = N * shifts.shape[-1] * H * W * 2 * C
-    # f32 lerp of the right half: 2 multiplies and an add per element
-    bound_ms = max((nbytes(lf, rf, shifts) + out * lf.element_size())
-                   / PEAK_BYTES, 1.5 * out / PEAK_F32_FLOPS) * 1e3
+    bound_ms = bound_of(k3_work(N, shifts.shape[-1], H, W, C,
+                                lf.element_size(), shifts.numel()),
+                        PEAK_F32_FLOPS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
 
@@ -956,13 +956,9 @@ def check_k4(gen, dev) -> dict:
     library_ms = cuda_ms(lambda: F.grid_sample(
         vt, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
         3)
-    # bytes: the output, and each depth plane the tables use, read once;
-    # f32 operations per output element: 4 (row, column) taps of a depth
-    # lerp (3) and a weighted add (2), then 2 weighted adds over u (4)
-    planes = len(set(tabs[0].tolist()) | {i + 1 for i in tabs[0].tolist()})
-    read = planes * Hf * Wf * C * vol.element_size()
-    bound_ms = max((read + nbytes(got)) / PEAK_BYTES,
-                   24.0 * got.numel() / PEAK_F32_FLOPS) * 1e3
+    planes = k4_planes(tabs[0])
+    bound_ms = bound_of(k4_work(tuple(vol.shape), tabs[0], tuple(got.shape),
+                                vol.element_size()), PEAK_F32_FLOPS)
     phase("K4", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", planes=planes)
@@ -1095,7 +1091,9 @@ def check_reference(dev) -> None:
     (the plain versions).  Random-weight GroupNorm stacks amplify bf16
     rounding (the CPU's own bf16 run drifts ~10 % of the NCF's scale from
     its float32 run), so the card must stay within three times the CPU
-    bf16 drift plus 1 % of the scale: a wrong kernel lands far outside."""
+    bf16 drift plus 1 % of the scale: a wrong kernel lands far outside.
+    Both bf16 steps are counted (``utils.cost``): the card's work must
+    equal the CPU's, in total and per kernel (phase ``cost``)."""
     t = time.perf_counter()
     small = tiny_vernier_config(grid_resolution=(8, 32, 32),
                                 image_size=(128, 256), max_instances=2)
@@ -1105,16 +1103,18 @@ def check_reference(dev) -> None:
     def run(cfg, device):
         model = VernierScale(cfg, device=device,
                              generator=torch.Generator().manual_seed(1))
-        return RefineRunner(model, cfg, device=device).step(
-            batch, host_outputs=keys)
+        runner = RefineRunner(model, cfg, device=device)
+        with count_cost() as c:
+            out = runner.step(batch, host_outputs=keys)
+        return out, c
 
     bf16 = small.replace(compute_dtype="bfloat16")
-    ref = run(small, "cpu")
-    cpu_bf16 = run(bf16, "cpu")
+    ref, _ = run(small, "cpu")
+    cpu_bf16, cpu_cost = run(bf16, "cpu")
     reset_counts()
-    got = run(bf16, dev)
+    got, card_cost = run(bf16, dev)
     assert (stereo_voxel_sample.launches, conv3d_large_tap.launches) == (1, 3)
-    fields = {}
+    fields = same_cost("reference", card_cost, cpu_cost, ("K1", "K2"))
     for k in keys:
         scale = max(float(np.abs(ref[k]).max()), 1e-6)
         err = float(np.abs(got[k] - ref[k]).max()) / scale
@@ -1125,6 +1125,119 @@ def check_reference(dev) -> None:
         fields[f"{k}_rel_err"] = f"{err:.4f}"
         fields[f"{k}_cpu_bf16_rel_err"] = f"{drift:.4f}"
     phase("reference", t, **fields)
+
+
+def same_cost(label, card, other, kernels) -> dict:
+    """Raises unless two ``utils.cost`` counts of one program, on the card
+    and on the CPU (or the meta device), are equal in total and per
+    kernel, each of ``kernels`` declared; the aten ops that part them are
+    named.  Returns the phase fields."""
+    diff = {k: (card.by_op.get(k), other.by_op.get(k))
+            for k in set(card.by_op) | set(other.by_op)
+            if card.by_op.get(k) != other.by_op.get(k)}
+    assert card.totals() == other.totals(), \
+        f"{label}: work {card.totals()} != {other.totals()}; ops {diff}"
+    assert card.by_kernel == other.by_kernel, \
+        f"{label}: per kernel {card.by_kernel} != {other.by_kernel}"
+    assert set(card.by_kernel) == set(kernels), \
+        f"{label}: kernels {sorted(card.by_kernel)}"
+    return dict(gflop=f"{card.flops / 1e9:.4f}",
+                gb=f"{card.bytes_accessed / 1e9:.4f}",
+                work_card_eq_cpu="yes")
+
+
+def cost_fields(label, c, times) -> dict:
+    """A count's GFLOP, GB and bound at the card's bf16 and memory
+    peaks, the share of the bound the median of ``times`` (ms) reaches;
+    one line a kernel."""
+    med = sorted(times)[len(times) // 2]
+    f_ms, b_ms = c.flops / PEAK_BF16_FLOPS * 1e3, \
+        c.bytes_accessed / PEAK_BYTES * 1e3
+    bound = max(f_ms, b_ms)
+    for k, v in sorted(c.by_kernel.items()):
+        print(f"  cost: {label} {k} calls={v['calls']} "
+              f"gflop={v['flops'] / 1e9:.4f} "
+              f"gb={v['bytes_accessed'] / 1e9:.4f}")
+    return {f"{label}_gflop": f"{c.flops / 1e9:.2f}",
+            f"{label}_gb": f"{c.bytes_accessed / 1e9:.3f}",
+            f"{label}_bound_ms": f"{bound:.3f}",
+            f"{label}_bound_by": "operations" if f_ms >= b_ms else "bytes",
+            f"{label}_flops_ms": f"{f_ms:.3f}",
+            f"{label}_bytes_ms": f"{b_ms:.3f}",
+            f"{label}_ms": ",".join(f"{v:.1f}" for v in times),
+            f"{label}_median_ms": f"{med:.1f}",
+            f"{label}_share_of_bound": f"{100 * bound / med:.1f}%"}
+
+
+def synced_ms(fn, args) -> list:
+    """Host ms of ``fn(a)`` for each ``a`` of ``args``, synchronized."""
+    times = []
+    for a in args:
+        t_req = time.perf_counter()
+        fn(a)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_req) * 1e3)
+    return times
+
+
+def meta_stereo_count(cfg, req):
+    """The StereoNet forward of ``cfg`` counted on the meta device: the
+    CPU code on shapes alone.  K4's plane table stays on the host, where
+    its declared work reads the planes it uses (tests/test_torch_cost.py
+    holds this count to the CPU's)."""
+    model = StereoNet(cfg, device="meta")
+    d0, _ = frustum_tables(depth_hypotheses(cfg), _bev_axes(cfg)[0])
+    model.head.bev_d0 = torch.from_numpy(d0)
+    args = stereo_inputs(req, "meta")
+    with count_cost() as c:
+        model(*args)
+    return c
+
+
+def check_cost(dev) -> dict:
+    """The work of one flagship refinement request and of one
+    ``StereoConfig()`` batch-1 detection forward, counted on the card
+    (``utils.cost``: the aten ops, K1-K4 by their declared work): GFLOP,
+    GB, the bound at the card's bf16 and memory peaks, and the share of it
+    that the median of three requests (a synchronized ``RefineRunner.step``
+    / model forward) reaches.  The refinement count is held equal, in
+    total and per kernel, to the plain path's on the meta device (the
+    CPU code on shapes alone: CPU forwards of 9.7 and 1.6 TFLOP are out
+    of reach), and so is the detection forward's (``meta_stereo_count``).
+    Phases ``reference`` and ``stereo_reference`` hold the card's counts
+    to the CPU's on real runs at their small shapes."""
+    t = time.perf_counter()
+    cfg = flagship_vernier_config()
+    model = VernierScale(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    runner = RefineRunner(model, cfg, device=dev)
+    batches = [synthetic_batch_arrays(cfg, seed=s) for s in (1, 2, 3)]
+    runner.step(batches[0])  # warm-up
+    card = runner.cost_counter(batches[0])
+    meta = RefineRunner(VernierScale(cfg, device="meta"), cfg,
+                        device="meta").cost_counter(batches[0])
+    same_cost("cost refine (card, meta)", card, meta, ("K1", "K2"))
+    assert card.by_kernel["K2"]["calls"] == 3, card.by_kernel
+    fields = cost_fields("refine", card, synced_ms(runner.step, batches))
+    del runner, model
+    torch.cuda.empty_cache()
+
+    scfg = StereoConfig()
+    smodel = StereoNet(scfg, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    reqs = [synthetic_stereo_request(scfg, seed=s) for s in (1, 2, 3)]
+    args = [stereo_inputs(r, dev) for r in reqs]
+    smodel(*args[0])  # warm-up
+    with count_cost() as c:
+        smodel(*args[0])
+    same_cost("cost detect (card, meta)", c,
+              meta_stereo_count(scfg, reqs[0]), ("K3", "K4"))
+    fields.update(cost_fields("detect", c,
+                              synced_ms(lambda a: smodel(*a), args)))
+    del smodel, args
+    torch.cuda.empty_cache()
+    phase("cost", t, **fields, nvidia_smi=repr(nvidia_smi()))
+    return fields
 
 
 # ------------------------------------------------------------ detect ----
@@ -1173,6 +1286,15 @@ def check_detect(dev, profile: bool = False) -> dict:
     return dict(counts=counts, request_ms=times)
 
 
+def stereo_inputs(req, device) -> tuple:
+    """The StereoNet forward's arguments from a stereo request: both
+    views normalized, both projections, on ``device``."""
+    b = {k: torch.from_numpy(req[k]).to(device)
+         for k in ("images_left", "images_right", "P_left", "P_right")}
+    return (normalize_images(b["images_left"]),
+            normalize_images(b["images_right"]), b["P_left"], b["P_right"])
+
+
 def check_stereo_reference(dev) -> None:
     """tiny_stereo_config in bf16 on the card (K3, K4) against the same
     weights in float32 on the CPU (their plain versions).  TF32 is off for
@@ -1192,22 +1314,19 @@ def check_stereo_reference(dev) -> None:
         model = StereoNet(cfg, device=device,
                           generator=torch.Generator().manual_seed(2))
         with torch.inference_mode():
-            b = {k: torch.from_numpy(req[k]).to(device)
-                 for k in ("images_left", "images_right", "P_left",
-                           "P_right")}
-            out = model(normalize_images(b["images_left"]),
-                        normalize_images(b["images_right"]),
-                        b["P_left"], b["P_right"])
-        return {k: out[k].float().cpu().numpy() for k in keys}
+            args = stereo_inputs(req, device)
+            with count_cost() as c:
+                out = model(*args)
+        return {k: out[k].float().cpu().numpy() for k in keys}, c
 
     bf16 = small.replace(compute_dtype="bfloat16")
-    ref = run(small, "cpu")
-    cpu_bf16 = run(bf16, "cpu")
+    ref, _ = run(small, "cpu")
+    cpu_bf16, cpu_cost = run(bf16, "cpu")
     reset_counts()
-    got = run(bf16, dev)
+    got, card_cost = run(bf16, dev)
     counts = read_counts()
     assert counts == counts_of(K3=1, K4=1), f"launch counts {counts}"
-    fields = {}
+    fields = same_cost("stereo_reference", card_cost, cpu_cost, ("K3", "K4"))
     for k in keys:
         scale = max(float(np.abs(ref[k]).max()), 1e-6)
         err = float(np.abs(got[k] - ref[k]).max()) / scale
@@ -1315,22 +1434,15 @@ def k1_bwd_times(lf, rf, gl, gr, g, roi) -> dict:
         gouts.append(half.reshape(N, 1, -1, C).permute(0, 3, 1, 2))
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         outs, leaves, gouts, retain_graph=True), 3)
-    # bytes: the gradient and both grids read, both feature gradients
-    # written; float32 work: 4 taps x (multiply + add) per gradient element
-    bound_ms = max(nbytes(g, gl, gr, lf, rf) / PEAK_BYTES,
-                   8.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    N, Hf, Wf, C = lf.shape
+    bound_ms = bound_of(k1_bwd_work(N, gl.shape[1], Hf, Wf, C,
+                                    lf.element_size(), need_grid=False),
+                        PEAK_F32_FLOPS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
 
 
 # ------------------------------------------------------------ K2 bwd ----
-def conv_flops(shape, kernel, F_out, dil) -> float:
-    """Useful multiply-adds x2 of a stride-1 SAME conv (valid taps only)."""
-    N, D, H, W, C = shape
-    return 2.0 * N * F_out * C * math.prod(
-        valid_taps(n, k, dil) for n, k in zip((D, H, W), kernel))
-
-
 def assert_conv(label, got, ref):
     """The K2 rule: 2^-7 relative plus 1e-3 of the output's scale."""
     err = (got.float() - ref).abs()
@@ -1394,7 +1506,9 @@ def run_k2_bwd_case(gen, dev, name, xs, kernel, F_out, dil, timed) -> dict:
     fields = {f"{k}_max_abs_err": f"{v['max_abs_err']:.3e}"
               for k, v in out.items()}
     if timed:
-        flops = conv_flops(xs, kernel, F_out, dil)
+        # dx and dw: the forward's taps; two of x, w, g read, one written
+        work = conv3d_work(xs, kernel, F_out, dil, x.element_size())
+        flops = work.flops
         pad = tuple((k - 1) // 2 * dil for k in kernel)
         xt, gt = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
@@ -1403,16 +1517,14 @@ def run_k2_bwd_case(gen, dev, name, xs, kernel, F_out, dil, timed) -> dict:
             dx=(cuda_ms(lambda: conv3d_input_grad(g, w, dil), 3),
                 cuda_ms(lambda: conv3d_pertap(g, wf, dil), 2),
                 cuda_ms(lambda: torch.nn.grad.conv3d_input(
-                    xt.shape, wt, gt, 1, pad, dil), 2),
-                nbytes(g, w, x)),
+                    xt.shape, wt, gt, 1, pad, dil), 2)),
             dw=(cuda_ms(lambda: conv3d_weight_grad(x, g, kernel, dil), 3),
                 cuda_ms(lambda: conv3d_weight_grad_plain(
                     x, g, kernel, dil), 1),
                 cuda_ms(lambda: torch.nn.grad.conv3d_weight(
-                    xt, wt.shape, gt, 1, pad, dil), 2),
-                nbytes(x, g, w)))
-        for k, (ms, plain_ms, library_ms, moved) in times.items():
-            bound_ms = max(flops / PEAK_BF16_FLOPS, moved / PEAK_BYTES) * 1e3
+                    xt, wt.shape, gt, 1, pad, dil), 2)))
+        bound_ms = bound_of(work, PEAK_BF16_FLOPS)
+        for k, (ms, plain_ms, library_ms) in times.items():
             out[k].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms)
             fields.update({f"{k}_ms": f"{ms:.3f}",
@@ -1453,7 +1565,8 @@ def check_k5(gen, dev) -> dict:
         assert_conv(f"K5 {name} dx", xr.grad, ref_dx)
         assert_conv(f"K5 {name} dw", wr.grad, ref_dw)
         del y, ref, ref_dx, ref_dw, xr, wr
-        flops = conv_flops(xs, (3, 3, 3), F_out, 1)
+        work = conv3d_work(xs, (3, 3, 3), F_out, 1, x.element_size())
+        flops = work.flops
         xt = x.permute(0, 4, 1, 2, 3)
         wt = w.permute(4, 3, 0, 1, 2).contiguous()
         ms = cuda_ms(lambda: conv3d_k3(x, w), 5)
@@ -1467,8 +1580,7 @@ def check_k5(gen, dev) -> dict:
         dw_library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
             xt, wt.shape, gt, 1, 1), 3)
         # forward, dx and dw each read two of x, w, g and write the third
-        bound_ms = max(flops / PEAK_BF16_FLOPS,
-                       (nbytes(x, w) + nbytes(g)) / PEAK_BYTES) * 1e3
+        bound_ms = bound_of(work, PEAK_BF16_FLOPS)
         phase(f"K5 {name}", tc, max_abs_err=f"{err:.3e}",
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
               cudnn_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
@@ -1738,11 +1850,9 @@ def k3_bwd_times(g, shifts, W: int) -> dict:
     gt = g.permute(0, 4, 1, 2, 3)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out, leaves, gt, retain_graph=True), 3)
-    # bytes: the gradient read once, both feature gradients written once;
-    # f32 work: an add per left element and a plane, two multiplies and
-    # two adds per right element and a plane
-    bound_ms = max((nbytes(g, shifts) + 2 * N * H * W * C * g.element_size())
-                   / PEAK_BYTES, 2.5 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    bound_ms = bound_of(k3_bwd_work(N, g.shape[1], H, W, C,
+                                    g.element_size(), shifts.numel()),
+                        PEAK_F32_FLOPS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms)
 
@@ -1848,10 +1958,8 @@ def check_k4_bwd(gen, dev) -> dict:
     gout = g.permute(0, 4, 1, 2, 3)
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaf, gout,
                                                      retain_graph=True), 3)
-    # bytes: the gradient read once, the volume's gradient written once;
-    # f32 operations per gradient element: its 8 taps' weights and adds
-    bound_ms = max(nbytes(g, got) / PEAK_BYTES,
-                   24.0 * g.numel() / PEAK_F32_FLOPS) * 1e3
+    bound_ms = bound_of(k4_bwd_work(tuple(g.shape), (D, Hf, Wf),
+                                    g.element_size()), PEAK_F32_FLOPS)
     phase("K4_bwd", t, max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", f32_max_abs_err=f"{err32:.3e}",
@@ -5180,6 +5288,7 @@ def main() -> int:
         check_reference(dev)
         detect = check_detect(dev, profile=profile)
         check_stereo_reference(dev)
+        check_cost(dev)
     # the backward phases build autograd graphs: outside inference mode
     k1_bwd = check_k1_bwd(gen, dev)
     k2_bwd = check_k2_bwd(gen, dev)

@@ -157,8 +157,16 @@ class VernierConfig:
     remat: bool = True
 
     @property
+    def n_sample_h(self) -> int:
+        return self.grid_resolution[0]
+
+    @property
     def n_sample_w(self) -> int:
         return self.grid_resolution[1]
+
+    @property
+    def n_sample_l(self) -> int:
+        return self.grid_resolution[2]
 
     @property
     def grid_range(self) -> Tuple[float, float, float]:
@@ -168,6 +176,15 @@ class VernierConfig:
             self.x_range[1] - self.x_range[0],
             self.z_range[1] - self.z_range[0],
         )
+
+    @property
+    def spacing(self) -> Tuple[float, float, float]:
+        """Voxel pitch (dy, dx, dz) of the linspace grid (n points
+        spanning the range: pitch = range / (n - 1); JAX config.py:
+        253-260, the reference's cfg.spacing)."""
+        nh, nw, nl = self.grid_resolution
+        gh, gw, gl = self.grid_range
+        return (gh / (nh - 1), gw / (nw - 1), gl / (nl - 1))
 
     def replace(self, **kw) -> "VernierConfig":
         return dataclasses.replace(self, **kw)

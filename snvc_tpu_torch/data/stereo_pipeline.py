@@ -99,6 +99,17 @@ class StereoPipeline:
     def __len__(self):
         return int(np.ceil(len(self.ds) / self.batch_size))
 
+    def index_groups(self) -> List[List[int]]:
+        """Sequential frame-index groups, one per batch, the last padded
+        by repeating its final frame (JAX stereo_pipeline.py:102-113): for
+        callers that build batches with explicit ``flips``, such as both
+        orientations of every frame for replayed training."""
+        groups = []
+        for s in range(0, len(self.ds), self.batch_size):
+            idxs = list(self.ds.indices[s:s + self.batch_size])
+            groups.append(idxs + [idxs[-1]] * (self.batch_size - len(idxs)))
+        return groups
+
     def batches(self, shuffle: bool = False, seed: int = 0) -> Iterator[StereoBatch]:
         order = np.arange(len(self.ds))
         if shuffle:

@@ -32,10 +32,15 @@ losses then have the one-device normalizers).  A mesh with a model axis
 its instances split over "data" only and the model replicated over
 "model", so the runner drives the first device of each data position.
 
+``cost_stats`` (JAX refine.py:226-251) gives the work of one step,
+{"flops", "bytes_accessed"}, as ``utils.cost`` counts it: the three
+parts on the runner's device over the whole batch, each kernel by the
+work it declares (``cost_counter`` keeps the per-kernel shares).
+
 The ``3D`` head's fields [N, P, nh, nw, nl] have no pose update: JAX's
 ``_finalize`` fails on them in ``hard_argmax_2d``'s 4-D unpack
-(snvc_tpu/ops/heatmaps.py:67).  ``step`` refuses such a model with a
-``ValueError`` before any device work.
+(snvc_tpu/ops/heatmaps.py:67).  ``step`` and ``cost_stats`` refuse such
+a model with a ``ValueError`` before any device work.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from snvc_tpu_torch.parallel.api import (
     runner_devices,
     shard_instance_batch,
 )
+from snvc_tpu_torch.utils.cost import CostCounter, count_cost
 from snvc_tpu_torch.utils.device import to_device
 
 _BATCH_KEYS = ("images_left", "images_right", "P_left", "P_right",
@@ -128,10 +134,7 @@ class RefineRunner:
         queued.  ``with_targets`` adds ``losses``, ``vernier_losses``
         against the batch's ``gt_boxes`` and LiDAR ``points`` (a dict of
         0-d values).  Raises ValueError for the ``3D`` head."""
-        if self.cfg.vernier_type == "3D":
-            raise ValueError("vernier_type '3D' gives 5-D NCF fields "
-                             "[N, P, nh, nw, nl], which have no pose update "
-                             "(ncf_to_update decodes [N, P, nl, nw] BEV maps)")
+        self._refuse_3d()
         with torch.inference_mode():
             arrays = self._to_device(batch, with_targets)
             outputs = (self.heads(self.encode(arrays)) if self.mesh is None
@@ -140,6 +143,39 @@ class RefineRunner:
                            with_targets)
         wanted = self.HOST_OUTPUTS if host_outputs is None else host_outputs
         return to_host(out, wanted)
+
+    def _refuse_3d(self):
+        if self.cfg.vernier_type == "3D":
+            raise ValueError("vernier_type '3D' gives 5-D NCF fields "
+                             "[N, P, nh, nw, nl], which have no pose update "
+                             "(ncf_to_update decodes [N, P, nl, nw] BEV maps)")
+
+    def cost_counter(self, batch: Union[InstanceBatch,
+                                        Mapping[str, np.ndarray]],
+                     with_targets: bool = False) -> CostCounter:
+        """One step's ``encode``, ``heads`` and ``finalize`` run under a
+        ``utils.cost`` counter, which is returned (its ``by_kernel`` holds
+        K1's and K2's declared shares).  The batch is moved to the device
+        first, outside the count, as JAX's programs take it as
+        arguments.  On a mesh the step runs on the first device over the
+        whole batch, so the count is the whole batch's work."""
+        self._refuse_3d()
+        with torch.inference_mode():
+            arrays = self._to_device(batch, with_targets)
+            with count_cost() as c:
+                outputs = self.heads(self.encode(arrays))
+                finalize(outputs, arrays, self.cfg, self.grid_local,
+                         with_targets)
+        return c
+
+    def cost_stats(self, batch: Union[InstanceBatch,
+                                      Mapping[str, np.ndarray]],
+                   with_targets: bool = False) -> Dict[str, float]:
+        """The work of one refinement step, {"flops", "bytes_accessed"}
+        (JAX refine.py:226-251, which sums XLA's cost analysis of its
+        three programs; ``utils.cost`` says how the port counts).  Never
+        None.  The step runs once."""
+        return self.cost_counter(batch, with_targets).totals()
 
     def run(self, pipeline, writer=None, with_targets: bool = False,
             progress: bool = True, max_batches: Optional[int] = None,

@@ -44,15 +44,20 @@ VJP of ``conv3d_pertap_xla`` through XLA, conv3d_fold_pallas.py:285-292):
 Each wrapper sends a CPU tensor to its plain version below and a CUDA
 tensor to its kernel, or raises.  An input of no element (the slab of a
 model position that holds no plane) gives the empty output or a zero
-weight gradient without a launch.
+weight gradient without a launch.  Both branches declare ``conv3d_work``
+(taps inside the volume only, as ``utils.cost`` counts an aten conv) to
+an open ``utils.cost`` counter, as K2, K2_dx or K2_dw.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from snvc_tpu_torch.utils.cost import Work, conv3d_same_flops, declare_kernel
 
 # a block's shared memory on an H100 (sm_90): 227 KB
 SMEM_LIMIT = 232448
@@ -66,6 +71,28 @@ def large_tap_eligible(kernel, stride, dtype, dilation: int = 1) -> bool:
     return (dtype == torch.bfloat16 and tuple(stride) == (1, 1, 1)
             and kd >= 5 and kd % 2 == 1 and kh % 2 == 1 and kw % 2 == 1
             and kh <= 7 and dilation in (1, 2))
+
+
+def conv3d_work(x_shape, kernel, F_out: int, dilation: int,
+                itemsize: int) -> Work:
+    """The work of a stride-1 SAME conv of x [N, D, H, W, C] with a
+    ``kernel`` tap and ``F_out`` features, and of its dx and dw: the
+    multiply-adds of the taps inside the volume (``conv3d_same_flops``),
+    and two of x, w and the output (or its gradient) read and the third
+    written, each once."""
+    C = x_shape[-1]
+    positions = math.prod(x_shape[:-1])
+    return Work(conv3d_same_flops(x_shape, kernel, F_out, dilation),
+                (positions * (C + F_out) + math.prod(kernel) * C * F_out)
+                * itemsize)
+
+
+def _declare_conv(name, x, w, dilation):
+    """The declared region of a conv entry on x with weights ``w``
+    [kd, kh, kw, C, F]."""
+    return declare_kernel(name, conv3d_work, tuple(x.shape),
+                          tuple(w.shape[:3]), w.shape[-1], dilation,
+                          x.element_size())
 
 
 def conv3d_pertap(x, w, dilation: int = 1):
@@ -327,35 +354,46 @@ def _empty_conv(x, w):
 
 
 def _large_tap_forward(x, w, dilation):
-    if not x.is_cuda:
-        return conv3d_pertap(x, w, dilation)
-    kd, kh, kw = w.shape[:3]
-    if kd < 5:
-        raise ValueError(f"kernel {(kd, kh, kw)} has kd < 5 (K5 takes k3)")
-    if x.numel() == 0:
-        return _empty_conv(x, w)
-    out = _launch_conv3d(x, w, dilation)
-    conv3d_large_tap.launches += 1
-    return out
+    with _declare_conv("K2", x, w, dilation):
+        if not x.is_cuda:
+            return conv3d_pertap(x, w, dilation)
+        kd, kh, kw = w.shape[:3]
+        if kd < 5:
+            raise ValueError(f"kernel {(kd, kh, kw)} has kd < 5 "
+                             f"(K5 takes k3)")
+        if x.numel() == 0:
+            return _empty_conv(x, w)
+        out = _launch_conv3d(x, w, dilation)
+        conv3d_large_tap.launches += 1
+        return out
 
 
 def conv3d_input_grad(g, w, dilation: int = 1):
     """dx of a stride-1 SAME conv: the conv of g with ``flip_weight(w)``,
     on the K2 kernel for a CUDA tensor (K2's and K5's backward)."""
-    wf = flip_weight(w)
-    if not g.is_cuda:
-        return conv3d_pertap(g, wf, dilation)
-    if g.numel() == 0:
-        return _empty_conv(g, wf)
-    out = _launch_conv3d(g.contiguous(), wf, dilation)
-    conv3d_input_grad.launches += 1
-    return out
+    with declare_kernel("K2_dx", conv3d_work, tuple(g.shape),
+                        tuple(w.shape[:3]), w.shape[-2], dilation,
+                        g.element_size()):
+        wf = flip_weight(w)
+        if not g.is_cuda:
+            return conv3d_pertap(g, wf, dilation)
+        if g.numel() == 0:
+            return _empty_conv(g, wf)
+        out = _launch_conv3d(g.contiguous(), wf, dilation)
+        conv3d_input_grad.launches += 1
+        return out
 
 
 def conv3d_weight_grad(x, g, kernel, dilation: int = 1):
     """dw of a stride-1 SAME conv, [kd, kh, kw, C, F] in x's dtype: the
     plain version for a CPU tensor, csrc/conv3d_weight_grad.cu (bf16, odd
     kernels with kh <= 7) for a CUDA tensor."""
+    with declare_kernel("K2_dw", conv3d_work, tuple(x.shape), tuple(kernel),
+                        g.shape[-1], dilation, x.element_size()):
+        return _weight_grad(x, g, kernel, dilation)
+
+
+def _weight_grad(x, g, kernel, dilation):
     if not x.is_cuda:
         return conv3d_weight_grad_plain(x, g, kernel, dilation)
     kd, kh, kw = kernel

@@ -14,7 +14,8 @@ are not carried over.
 
 On no path: ``Conv3d.pallas`` defaults to "never", as in JAX, so neither
 serving nor training launches K5.  A CPU tensor goes to the plain per-tap
-version; a CUDA tensor goes to the kernel or raises.
+version; a CUDA tensor goes to the kernel or raises.  Both declare
+``conv3d_work`` at the 3^3 tap, as K5, to an open ``utils.cost`` counter.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from snvc_tpu_torch.ops.conv3d_fold import (
     Conv3dTaps,
+    _declare_conv,
     _launch_conv3d,
     conv3d_pertap,
 )
@@ -36,14 +38,15 @@ def k3_eligible(kernel, stride, dilation: int, dtype) -> bool:
 
 
 def _k3_forward(x, w, dilation):
-    if not x.is_cuda:
-        return conv3d_pertap(x, w, dilation)
-    if tuple(w.shape[:3]) != (3, 3, 3) or dilation != 1:
-        raise ValueError(f"K5 takes a k3 kernel at dilation 1, got "
-                         f"{tuple(w.shape[:3])} at {dilation}")
-    out = _launch_conv3d(x, w, dilation)
-    conv3d_k3.launches += 1
-    return out
+    with _declare_conv("K5", x, w, dilation):
+        if not x.is_cuda:
+            return conv3d_pertap(x, w, dilation)
+        if tuple(w.shape[:3]) != (3, 3, 3) or dilation != 1:
+            raise ValueError(f"K5 takes a k3 kernel at dilation 1, got "
+                             f"{tuple(w.shape[:3])} at {dilation}")
+        out = _launch_conv3d(x, w, dilation)
+        conv3d_k3.launches += 1
+        return out
 
 
 def conv3d_k3(x, w):

@@ -47,6 +47,9 @@ feature row and loops over the planes, each thread summing one 16-byte
 channel group of one column in float32 registers, written once
 (``k3_bwd_tiling``).  Bound: bytes, the gradient read once (245.4 MB at
 the training shape, ~0.074 ms).
+
+Both branches of the forward and of the backward declare ``k3_work`` /
+``k3_bwd_work`` to an open ``utils.cost`` counter.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from snvc_tpu_torch.ops.stereo_sample_cuda import SMEM_LIMIT, SMEM_PER_SM
+from snvc_tpu_torch.utils.cost import Work, declare_kernel
 
 
 def plane_sweep_volume(left, right, shifts, downsample: int = 1):
@@ -92,6 +96,26 @@ def _plane_sweep_xla_any(left, right, shifts, downsample: int = 1):
                                downsample)
             for i in range(left.shape[0])])
     return plane_sweep_volume(left, right, shifts, downsample)
+
+
+def k3_work(N: int, D: int, H: int, W: int, C: int, itemsize: int,
+            n_shifts: int) -> Work:
+    """K3's work for [N, H, W, C] features of ``itemsize`` bytes and
+    ``n_shifts`` float32 shifts: both maps and the shifts read once, the
+    [N, D, H, W, 2C] volume written once; float32 operations: the lerp of
+    the right half, 2 multiplies and an add per element."""
+    out = N * D * H * W * 2 * C
+    return Work(1.5 * out, (2 * N * H * W * C + out) * itemsize
+                + 4 * n_shifts)
+
+
+def k3_bwd_work(N: int, D: int, H: int, W: int, C: int, itemsize: int,
+                n_shifts: int) -> Work:
+    """K3's backward: the [N, D, H, W, 2C] gradient and the shifts read
+    once, both feature gradients written once; an add per left element and
+    plane, two multiplies and two adds per right element and plane."""
+    g = N * D * H * W * 2 * C
+    return Work(2.5 * g, (g + 2 * N * H * W * C) * itemsize + 4 * n_shifts)
 
 
 def _shift_table(shifts, N: int):
@@ -288,6 +312,14 @@ def plane_sweep_volume_k3_bwd(grad, shifts, W: int):
     """Backward of K3: grad [N, D, H, W, 2C] and the forward's shifts ->
     (dleft, dright) [N, H, W, C] in grad's dtype.  A CPU tensor goes to
     ``plane_sweep_shifted_bwd``; a CUDA tensor to the kernel, or raises."""
+    N, D, H = grad.shape[:3]
+    with declare_kernel("K3_bwd", k3_bwd_work, N, D, H, W,
+                        grad.shape[-1] // 2, grad.element_size(),
+                        shifts.numel()):
+        return _k3_bwd(grad, shifts, W)
+
+
+def _k3_bwd(grad, shifts, W: int):
     if not grad.is_cuda:
         return plane_sweep_shifted_bwd(grad, shifts, W)
     dt = grad.dtype
@@ -360,9 +392,12 @@ def plane_sweep_volume_k3(left, right, shifts):
     host checks them (``data/stereo.check_stereo_projections``), and the
     kernel zeroes every tap outside [0, W), so a negative shift reads
     nothing out of bounds."""
-    if not shifts.is_cuda and bool((shifts < 0).any()):
-        raise ValueError("plane-sweep shifts must be >= 0")
-    return PlaneSweepK3.apply(left, right, shifts)
+    N, H, W, C = left.shape
+    with declare_kernel("K3", k3_work, N, shifts.shape[-1], H, W, C,
+                        left.element_size(), shifts.numel()):
+        if shifts.device.type == "cpu" and bool((shifts < 0).any()):
+            raise ValueError("plane-sweep shifts must be >= 0")
+        return PlaneSweepK3.apply(left, right, shifts)
 
 
 plane_sweep_volume_k3.launches = 0

@@ -62,16 +62,22 @@ before this one's last phases), finds each column's run of cells whose u
 hat reaches it, and adds the hats' weights times those sums into float32
 sums per column (``k4_bwd_tiling``).  Bound: bytes, the same in reverse
 (~0.070 ms at the training shape).
+
+Both branches of the forward and of the volume's backward declare
+``k4_work`` / ``k4_bwd_work`` to an open ``utils.cost`` counter
+(``frustum_to_voxel_dP`` is plain PyTorch and is counted as such).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from snvc_tpu_torch.ops.stereo_sample_cuda import SMEM_LIMIT
+from snvc_tpu_torch.utils.cost import Work, declare_kernel
 
 
 def depth_plane_coords(z, depths):
@@ -263,6 +269,35 @@ def k4_tiling(N: int, nz: int, nx: int, ny: int, C: int, dtype,
     smem = table + ncol * ny * C * 4
     return K4Tiling((G, ny, lanes), tile_x, ncol, smem,
                     N * nz * -(-nx // tile_x))
+
+
+def k4_planes(d0) -> int:
+    """The depth planes a K4 forward reads: each BEV row's d0 and
+    d0 + 1 (``d0`` read back to the host)."""
+    lo = set(torch.as_tensor(d0).tolist())
+    return len(lo | {i + 1 for i in lo})
+
+
+def k4_work(volume_shape, d0, out_shape, itemsize: int) -> Work:
+    """K4's work for a [N, D, Hf, Wf, C] volume of ``itemsize`` bytes and
+    the [N, nz, nx, ny, C] output: the planes the table ``d0`` uses
+    (``k4_planes``) read once, the output written once; float32
+    operations per output element: 4 (row, column) taps of a depth lerp
+    (3) and a weighted add (2), then 2 weighted adds over u (4)."""
+    N, _, Hf, Wf, C = volume_shape
+    out = math.prod(out_shape)
+    return Work(24.0 * out, (N * k4_planes(d0) * Hf * Wf * C + out)
+                * itemsize)
+
+
+def k4_bwd_work(grad_shape, depth_hw, itemsize: int) -> Work:
+    """K4's backward with respect to the volume: the [N, nz, nx, ny, C]
+    gradient read once, the [N, D, Hf, Wf, C] volume's written once;
+    float32 operations per gradient element: its 8 taps' weights and
+    adds."""
+    N, C = grad_shape[0], grad_shape[-1]
+    g = math.prod(grad_shape)
+    return Work(24.0 * g, (g + N * math.prod(depth_hw) * C) * itemsize)
 
 
 def _f2v_forward(volume, P_mat, d0, fd, zs, xs, ys, feature_stride):
@@ -503,6 +538,13 @@ def frustum_to_voxel_k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
     kernel, or raises.  The kernel inverts the affine map x -> u to bound
     the x cells a tile reads, so ``xs`` must be evenly spaced
     (``_bev_axes`` makes them so); P is rectified, as for the forward."""
+    with declare_kernel("K4_bwd", k4_bwd_work, tuple(grad.shape),
+                        tuple(depth_hw), grad.element_size()):
+        return _k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw,
+                       feature_stride)
+
+
+def _k4_bwd(grad, P_mat, d0, fd, zs, xs, ys, depth_hw, feature_stride):
     if not grad.is_cuda:
         return frustum_to_voxel_separable_bwd(grad, P_mat, d0, fd, zs, xs,
                                               ys, depth_hw, feature_stride)
@@ -595,7 +637,12 @@ def frustum_to_voxel_k4(volume, P_mat, d0, fd, zs, xs, ys,
     assumes P[:, 2, :2] == 0 and does not check it (that would read P
     back from the card): the caller checks its host copy
     (``data/stereo.check_stereo_projections``).  See module docstring."""
-    return FrustumK4.apply(volume, P_mat, d0, fd, zs, xs, ys, feature_stride)
+    N = volume.shape[0]
+    out_shape = (N, zs.shape[0], xs.shape[0], ys.shape[0], volume.shape[-1])
+    with declare_kernel("K4", k4_work, tuple(volume.shape), d0, out_shape,
+                        volume.element_size()):
+        return FrustumK4.apply(volume, P_mat, d0, fd, zs, xs, ys,
+                               feature_stride)
 
 
 frustum_to_voxel_k4.launches = 0

@@ -36,12 +36,14 @@ there.
 Each wrapper sends a CPU tensor to its plain version (ops/grid_sample.py)
 and a CUDA tensor to its kernel, or raises.  A grid of no point (the
 slab of a model position that holds no length) returns the empty voxel
-or zero gradients without a launch.
+or zero gradients without a launch.  Both branches declare the work of
+``k1_work`` / ``k1_bwd_work`` to an open ``utils.cost`` counter.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -51,6 +53,7 @@ from snvc_tpu_torch.ops.grid_sample import (
     sample_stereo_voxel,
     sample_stereo_voxel_bwd,
 )
+from snvc_tpu_torch.utils.cost import Work, declare_kernel
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -102,6 +105,32 @@ def k1_bwd_tiling(N: int, Hf: int, Wf: int, C: int,
     return K1BwdTiling(cs, splits, smem, units * splits)
 
 
+def k1_work(N: int, P: int, Hf: int, Wf: int, C: int,
+            itemsize: int) -> Work:
+    """K1's work for [N, Hf, Wf, C] feature maps of ``itemsize`` bytes and
+    [N, P, 2] float32 projections: both maps and both grids read once, the
+    [N, P, 2C] voxel written once; float32 operations: 4 taps x (multiply
+    + add) per voxel element."""
+    out = N * P * 2 * C
+    return Work(8.0 * out, (2 * N * Hf * Wf * C + out) * itemsize
+                + 2 * N * P * 2 * 4)
+
+
+def k1_bwd_work(N: int, P: int, Hf: int, Wf: int, C: int, itemsize: int,
+                need_grid: bool) -> Work:
+    """K1's backward: the voxel gradient and both grids read, both feature
+    gradients written; 4 taps x (multiply + add) per gradient element.
+    With ``need_grid`` also both feature maps read, each tap's value
+    dotted with the gradient (another 4 x 2 per element) and both grid
+    gradients written."""
+    g = N * P * 2 * C
+    feats = 2 * N * Hf * Wf * C * itemsize
+    grids = 2 * N * P * 2 * 4
+    if need_grid:
+        return Work(16.0 * g, g * itemsize + 2 * feats + 2 * grids)
+    return Work(8.0 * g, g * itemsize + feats + grids)
+
+
 def _check(t, name, dtype, ndim):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
@@ -140,6 +169,15 @@ def _check_all(left_feat, right_feat, grid_proj_left, grid_proj_right, P):
 
 def _forward(left_feat, right_feat, grid_proj_left, grid_proj_right, roi_hw,
              grid_resolution):
+    N, Hf, Wf, C = left_feat.shape
+    with declare_kernel("K1", k1_work, N, math.prod(grid_resolution), Hf,
+                        Wf, C, left_feat.element_size()):
+        return _k1_forward(left_feat, right_feat, grid_proj_left,
+                           grid_proj_right, roi_hw, grid_resolution)
+
+
+def _k1_forward(left_feat, right_feat, grid_proj_left, grid_proj_right,
+                roi_hw, grid_resolution):
     if not left_feat.is_cuda:
         return sample_stereo_voxel(left_feat, right_feat, grid_proj_left,
                                    grid_proj_right, roi_hw, grid_resolution)
@@ -176,6 +214,15 @@ def stereo_voxel_sample_bwd(left_feat, right_feat, grid_proj_left,
     """Backward of the sampler: gvox [N, nh, nw, nl, 2C] -> (dleft,
     dright) in the feature dtype and (dproj_left, dproj_right) float32
     [N, P, 2] or None when ``need_grid`` is false."""
+    N, Hf, Wf, C = left_feat.shape
+    with declare_kernel("K1_bwd", k1_bwd_work, N, grid_proj_left.shape[1],
+                        Hf, Wf, C, left_feat.element_size(), need_grid):
+        return _k1_bwd(left_feat, right_feat, grid_proj_left,
+                       grid_proj_right, gvox, roi_hw, need_grid)
+
+
+def _k1_bwd(left_feat, right_feat, grid_proj_left, grid_proj_right, gvox,
+            roi_hw, need_grid):
     if not left_feat.is_cuda:
         return sample_stereo_voxel_bwd(left_feat, right_feat, grid_proj_left,
                                        grid_proj_right, gvox, roi_hw,

@@ -129,11 +129,7 @@ def train_stereo_stage(args, train_root, log, device):
     # every batch built once and replayed each pass (uint8 images: ~3 MB a
     # frame); with --augment_flip the pool also holds each batch's exact
     # stereo flip
-    B = args.stereo_batch
-    groups = []
-    for s in range(0, len(ds), B):
-        g = list(ds.indices[s:s + B])
-        groups.append(g + [g[-1]] * (B - len(g)))
+    groups = pipe.index_groups()
     flips = [False] + ([True] if args.augment_flip else [])
     batches = []
     for flip in flips:

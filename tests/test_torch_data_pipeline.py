@@ -162,3 +162,31 @@ def test_stereo_batches_equal_jax(tree, training, flip, input_size):
             seen |= set(ga["P_left"][:, 0, 3].tolist())
     # a flipped frame's P_left is F @ P_right @ M, with another x offset
     assert len(seen) == (2 if flip else 1)
+
+
+@pytest.mark.parametrize("batch_size", [1, 3])
+def test_stereo_index_groups_equal_jax(tree, batch_size):
+    """``StereoPipeline.index_groups`` (JAX stereo_pipeline.py:102-113):
+    the frame groups of each batch, the last padded with its final
+    frame."""
+    root, _ = tree
+    jc, tc = _stereo_configs()
+    want = JStereoPipe(JDataset(root, "val"), jc, batch_size=batch_size)
+    got = StereoPipeline(KittiDataset(root, "val"), tc,
+                         batch_size=batch_size)
+    assert got.index_groups() == want.index_groups()
+    assert all(len(g) == batch_size for g in got.index_groups())
+
+
+@pytest.mark.parametrize("make", ["tiny", "tiny_8x16x16", "default"])
+def test_vernier_derived_quantities_equal_jax(make):
+    """``VernierConfig.n_sample_h / _w / _l``, ``grid_range`` and
+    ``spacing`` (JAX config.py:232-260)."""
+    jc = {"tiny": jconfig.tiny_vernier_config,
+          "tiny_8x16x16": lambda: jconfig.tiny_vernier_config(
+              grid_resolution=(8, 16, 16), x_range=(-1.5, 2.0)),
+          "default": jconfig.VernierConfig}[make]()
+    tc = torch_vernier_config(jc)
+    for k in ("n_sample_h", "n_sample_w", "n_sample_l", "grid_range",
+              "spacing"):
+        assert getattr(tc, k) == getattr(jc, k), k
