@@ -254,7 +254,22 @@ Phases, each printing one line with its elapsed seconds:
                figure"); the one-device float32 flagship-grid step run
                twice in this process, then twice with
                cudnn.deterministic: each pair's gap in grad_norm and in
-               the encoder's and the head's gradients.
+               the encoder's and the head's gradients.  The Vernier
+               step on make_mesh(1, [cuda:0, cuda:0], 2) rematerializes
+               its 3D hourglass (cfg.remat, as JAX on its mesh: the
+               recompute replays the forward's collectives); beside it
+               the same step without remat, 4 bf16 steps each: the
+               float32 step 0 with remat within train_reference's rule
+               of the one without, per position and bf16 step K1 1 and
+               K2 3 (K1 / K1 bwd 8, K2 / dx / dw 24 in all), each
+               position's 3D hourglass forward twice a step with remat
+               and once without, as many rendezvous meetings either way;
+               step ms (the warm steps' median) and peak memory of both.  Last, the flagship prelude's conv3_k5_d2 (K2, a
+               4-length halo) on 8 lengths over make_mesh(1, [cuda:0] *
+               4, 4): slabs of 2 lengths, each halo reaching two slabs,
+               the output, dx and dw against the whole layer's on the
+               card: float32 within 1e-4 of scale, bf16 the output under
+               K2's rule and the gradients under assert_split_sum.
  28. tensor_parallel_padded - the model axis at every extent JAX's mesh
                splits (a short last unit, positions that hold no plane),
                on the one-process mesh: K1 / K1 bwd on the trained
@@ -351,6 +366,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -4476,18 +4492,21 @@ def tp_collective_ms(mesh, dev) -> dict:
     return res
 
 
-def tp_paths(dev, mesh=None) -> dict:
+def tp_paths(dev, mesh=None, kinds=("stereo", "vernier")) -> dict:
     """Every path of the phase on this process: serving (``tp_detect``),
     the stereo step (StereoConfig(), batch 1) and the flagship-grid
     Vernier step (TP_VERNIER) in bf16 (2 steps, the second warm) and in
-    float32 (step 0); split over ``mesh``'s model axis with a mesh; the
-    K2 input widths of the bf16 Vernier steps and the collectives (calls,
-    MB) a bf16 step or request."""
+    float32 (step 0), the training paths those of ``kinds``; split over
+    ``mesh``'s model axis with a mesh; the K2 input widths of the bf16
+    Vernier steps and the collectives (calls, MB) a bf16 step or
+    request."""
     with counting_collectives() as seen:
         res = dict(detect=tp_detect(dev, mesh))
     res["detect"]["collectives"] = {k: (n // 4, b / 4e6)
                                     for k, (n, b) in seen.items()}
     for kind, cfg in (("stereo", StereoConfig()), ("vernier", TP_VERNIER)):
+        if kind not in kinds:
+            continue
         widths, restore = tp_k2_widths()
         try:
             with counting_collectives() as seen:
@@ -4637,7 +4656,7 @@ def check_tensor_parallel(gen, dev) -> dict:
 TPL_STEREO_N, TPL_VERNIER_N = 3, 5
 TPL_PLANES, TPL_LENGTHS = (24, 20, 20), (48, 48, 32, 32, 32)
 # the batch of the n_model 5 Vernier steps: every position runs the HRNet
-# on the whole batch, and nothing rematerializes in this form
+# on the whole batch and keeps its own activations
 TPL_VERNIER_BATCH = 4
 TPL_NOTE = "positions share one card: no scaling figure"
 
@@ -4674,6 +4693,178 @@ def position_launches():
     finally:
         for (mod, name, _), fn in zip(names, orig):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def remat_witness():
+    """Counts, while open, the meetings the one-process rendezvous holds
+    and the forwards of each 3D hourglass module (the Vernier head's
+    rematerialized block, by module): yields [meetings] and {id: n}."""
+    from snvc_tpu_torch.models import layers
+    from snvc_tpu_torch.parallel import local
+
+    lock, meetings, forwards = threading.Lock(), [0], {}
+    meet = local.Rendezvous.meet
+    fwd = {cls: cls.forward for cls in (layers.Hourglass,
+                                        layers.HourglassDeep)}
+
+    def counting_meet(self, *args, **kw):
+        with lock:
+            meetings[0] += 1
+        return meet(self, *args, **kw)
+
+    def counting(fn):
+        def forward(self, *args, **kw):
+            if isinstance(self._convs[0], layers.ConvNorm3d):
+                with lock:
+                    forwards[id(self)] = forwards.get(id(self), 0) + 1
+            return fn(self, *args, **kw)
+        return forward
+
+    local.Rendezvous.meet = counting_meet
+    for cls, fn in fwd.items():
+        cls.forward = counting(fn)
+    try:
+        yield meetings, forwards
+    finally:
+        local.Rendezvous.meet = meet
+        for cls, fn in fwd.items():
+            cls.forward = fn
+
+
+# bf16 steps of each Vernier step with and without remat on two
+# positions: the first steps warm the positions' threads
+TPL_REMAT_STEPS = 4
+
+
+def tpl_remat_steps(dev, mesh, failed: list) -> dict:
+    """The flagship-grid Vernier step (TP_VERNIER) on the one-process
+    ``mesh`` with ``cfg.remat`` (as it trains) and without:
+    TPL_REMAT_STEPS bf16 steps (launches a position, K2 widths,
+    hourglass forwards, meetings, ms, peak memory) and a float32 step 0
+    each; the float32 step with remat under train_reference's rule of
+    the one without.  Returns the fields, the run with remat (as
+    ``tp_paths`` gives a path) and the launches of the one without."""
+    res, fields = {}, {}
+    for remat in (True, False):
+        cfg = TP_VERNIER.replace(remat=remat)
+        with remat_witness() as (meetings, forwards), \
+                position_launches() as (seen, widths):
+            bf16 = dp_steps("vernier", dev, mesh, cfg=cfg, frames=1,
+                            steps=TPL_REMAT_STEPS)
+        res[remat] = dict(
+            bf16=bf16, meetings=meetings[0], k2_widths=sorted(widths),
+            forwards=sorted(forwards.values()),
+            by_pos=[seen.get(f"position-{p}", {}) for p in range(2)],
+            f32=dp_steps("vernier", dev, mesh, float32=True, steps=1,
+                         cfg=cfg, frames=1))
+    on, off = res[True], res[False]
+    fields["remat_f32_vs_no_remat"] = tpl_check_f32(
+        "remat vs no remat", on["f32"]["metrics"], off["f32"]["metrics"],
+        failed)
+    S = TPL_REMAT_STEPS
+    want = counts_of(K1=2 * S, K1_bwd=2 * S, K2=6 * S, K2_dx=6 * S,
+                     K2_dw=6 * S)
+    for remat, r in res.items():
+        label = "remat" if remat else "no_remat"
+        if r["bf16"]["counts"] != want:
+            failed.append(f"{label} launch counts {r['bf16']['counts']}")
+        if r["by_pos"] != [{"K1": S, "K2": 3 * S}] * 2:
+            failed.append(f"{label} launches a position {r['by_pos']}")
+        # each position's hourglass: a forward a step, and a recompute
+        if r["forwards"] != [(2 if remat else 1) * S] * 2:
+            failed.append(f"{label} hourglass forwards {r['forwards']}")
+        ms = r["bf16"]["step_ms"]
+        fields[f"{label}_hourglass_forwards"] = "/".join(
+            map(str, r["forwards"]))
+        fields[f"{label}_meetings"] = r["meetings"]
+        fields[f"{label}_step_ms"] = "/".join(f"{v:.1f}" for v in ms)
+        fields[f"{label}_warm_median_ms"] = f"{float(np.median(ms[1:])):.1f}"
+        fields[f"{label}_peak_gb"] = f"{r['bf16']['peak_gb']:.2f}"
+        fields[f"{label}_f32_peak_gb"] = f"{r['f32']['peak_gb']:.2f}"
+    if on["meetings"] != off["meetings"]:
+        failed.append(f"meetings {on['meetings']} with remat, "
+                      f"{off['meetings']} without")
+    return dict(fields=fields, vernier=dict(
+        bf16=on["bf16"], f32=on["f32"], k2_widths=on["k2_widths"]),
+        no_remat_counts=off["bf16"]["counts"])
+
+
+# the flagship prelude's conv3_k5_d2 input, 8 of its lengths
+TPL_WIDE_SHAPE = (4, 32, 192, 8, 32)
+
+
+def assert_split_sum(label, got, ref, parts: int) -> float:
+    """A bf16 gradient that the split adds from ``parts`` bf16 partials
+    (each rounded, then added in bf16) against the whole layer's (one
+    rounding): 2^-7 relative plus ``parts`` x 2^-8 of the scale."""
+    err = (got.float() - ref).abs()
+    tol = 2.0 ** -7 * ref.abs() + parts * 2.0 ** -8 * ref.abs().max()
+    assert bool((err <= tol).all()), f"{label}: max err {err.max().item()}"
+    return err.max().item()
+
+
+def tpl_wide_halo(gen, dev) -> dict:
+    """The flagship prelude's conv3_k5_d2 (32 channels, a 4-length halo)
+    on a TPL_WIDE_SHAPE volume split on its 8 lengths over
+    make_mesh(1, [dev] * 4, 4): slabs of 2 lengths, each halo reaching
+    two slabs; the output, dx and dw (one backward of every position's
+    weighted sum) against the whole layer's on the card, each largest
+    error of the whole's scale.  In float32 (cuDNN, TF32 off) within
+    1e-4 of scale (dw sums 2e5 products a weight, in another order on
+    slabs); in bf16 (K2, dx and dw on their kernels) the output under
+    K2's rule, and dx (a length adds the partials of up to 5 positions)
+    and dw (4) under ``assert_split_sum``."""
+    from snvc_tpu_torch.models.layers import Conv3d, tensor_parallel
+    from snvc_tpu_torch.parallel.local import replicas, run_positions
+    from snvc_tpu_torch.parallel.tensor import shard
+
+    torch.backends.cudnn.allow_tf32 = False
+    n, C = 4, TPL_WIDE_SHAPE[-1]
+    w0 = torch.randn((C, C, 5, 5, 5), generator=gen) / math.sqrt(125 * C)
+    x0 = torch.randn(TPL_WIDE_SHAPE, generator=gen)
+    r = torch.randn(TPL_WIDE_SHAPE, generator=gen).to(dev)
+    mesh = make_mesh(1, [dev] * n, n)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        whole = Conv3d(C, C, 5, dilation=2, split_axis=3)
+        with torch.no_grad():
+            whole.weight.copy_(w0)
+        whole.to(dev)
+        split = copy.deepcopy(whole)
+        x = x0.to(dev, dt)
+        xw = x.clone().requires_grad_()
+        y = whole(xw)
+        (y.float() * r).sum().backward()
+        reps = replicas(split, mesh)
+        xl = x.clone().requires_grad_()
+
+        def position(pos):
+            with tensor_parallel(reps[pos.rank], pos):
+                ys = reps[pos.rank](shard(xl, 3, pos))
+            return ys, (ys.float() * shard(r, 3, pos)).sum()
+
+        outs = run_positions(mesh, position)
+        sum(loss for _, loss in outs).backward()
+        assert [ys.shape[3] for ys, _ in outs] \
+            == [TPL_WIDE_SHAPE[3] // n] * n
+        got = dict(out=torch.cat([ys for ys, _ in outs], 3), dx=xl.grad,
+                   dw=split.weight.grad)
+        ref = dict(out=y, dx=xw.grad, dw=whole.weight.grad)
+        name = "f32" if dt == torch.float32 else "bf16"
+        for part, g in got.items():
+            g, want = g.detach(), ref[part].detach().float()
+            label = f"wide halo {name} {part}"
+            if dt == torch.float32:
+                err = float((g - want).abs().max())
+                assert err <= 1e-4 * float(want.abs().max()), (label, err)
+            elif part == "out":
+                err = assert_conv(label, g, want)
+            else:
+                err = assert_split_sum(label, g, want,
+                                       5 if part == "dx" else n)
+            errs[f"{name}_{part}"] = err / float(want.abs().max())
+    return errs
 
 
 def tp_uneven_kernels(gen, dev) -> dict:
@@ -4845,13 +5036,17 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
     (losses 1e-4, grad_norm 3e-3), the float32 detection scores within
     1e-3 of the largest; launches in all (detect K3 = K4 = 4 over 2 bf16
     requests, stereo K3 / K3_bwd / K4 / K4_bwd 4 over 2 bf16 steps,
-    Vernier K1 / K1_bwd 4, K2 / dx / dw 12) and a position (the forward
-    kernels by thread: alike on both), K2 widths 100 / 102 / 104; the
-    uneven meshes (StereoConfig() at n_model 3, the flagship grid at
-    n_model 5, K2 widths 54 / 52 / 56 and 38 / 36 / 40) and the 3D / BEV
-    heads at n_model 2, each float32 step under the same rule; the
-    one-device float32 flagship-grid step rerun in this process
-    (``f32_step_drift``), its gaps printed."""
+    Vernier K1 / K1_bwd 8, K2 / dx / dw 24 over TPL_REMAT_STEPS) and a
+    position (the forward kernels by thread: alike on both), K2 widths
+    100 / 102 / 104.  The Vernier path rematerializes its 3D hourglass
+    (TP_VERNIER's remat), beside the same step without
+    (``tpl_remat_steps``).  The uneven meshes (StereoConfig() at n_model
+    3, the flagship grid at n_model 5, K2 widths 54 / 52 / 56 and 38 / 36
+    / 40) and the 3D / BEV heads at n_model 2, each float32 step under
+    the same rule; the one-device float32 flagship-grid step rerun in
+    this process (``f32_step_drift``), its gaps printed; a conv whose
+    halo reaches two slabs against the whole layer
+    (``tpl_wide_halo``)."""
     t = time.perf_counter()
     torch.cuda.empty_cache()
     kern = tp_uneven_kernels(gen, dev)
@@ -4861,10 +5056,18 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
     total = counts_of()
     mesh = make_mesh(1, [dev, dev], 2)
     with position_launches() as (seen, widths):
-        two = tp_paths(dev, mesh)
+        two = tp_paths(dev, mesh, kinds=("stereo",))
+        # the Vernier path with remat, beside it without
+        remat = tpl_remat_steps(dev, mesh, failed)
+    two["vernier"] = remat["vernier"]
+    fields.update(remat["fields"])
+    for key, v in remat["no_remat_counts"].items():
+        total[key] += v
+    S = TPL_REMAT_STEPS
     want = dict(detect=counts_of(K3=4, K4=4),
                 stereo=counts_of(K3=4, K3_bwd=4, K4=4, K4_bwd=4),
-                vernier=counts_of(K1=4, K1_bwd=4, K2=12, K2_dx=12, K2_dw=12))
+                vernier=counts_of(K1=2 * S, K1_bwd=2 * S, K2=6 * S,
+                                  K2_dx=6 * S, K2_dw=6 * S))
     for kind in ("detect", "stereo", "vernier"):
         c = two[kind]["bf16"]["counts"]
         if c != want[kind]:
@@ -4947,11 +5150,15 @@ def check_tensor_parallel_local(gen, dev, tp: dict) -> dict:
             fields["vernier_n5_f32_peak_gb"] = f"{f32['peak_gb']:.2f}"
     t_heads = time.perf_counter()
     fields.update(tpl_head_steps(dev, failed))
+    t_wide = time.perf_counter()
+    for part, err in tpl_wide_halo(gen, dev).items():
+        fields[f"wide_halo_{part}_err"] = f"{err:.3e}"
     t_end = time.perf_counter()
-    phase("tensor_parallel_local", t, n_model="2,3,5", note=repr(TPL_NOTE),
+    phase("tensor_parallel_local", t, n_model="2,3,4,5", note=repr(TPL_NOTE),
           kernels_s=f"{t_paths - t:.1f}", paths_s=f"{t_uneven - t_paths:.1f}",
           uneven_s=f"{t_heads - t_uneven:.1f}",
-          heads_s=f"{t_end - t_heads:.1f}", **fields,
+          heads_s=f"{t_wide - t_heads:.1f}",
+          wide_halo_s=f"{t_end - t_wide:.1f}", **fields,
           nvidia_smi=repr(nvidia_smi()),
           launches=json.dumps(total).replace(" ", ""))
     assert not failed, f"tensor_parallel_local: {failed}"

@@ -45,6 +45,7 @@ from torch import nn
 from snvc_tpu_torch.ops.conv3d_fold import conv3d_large_tap, large_tap_eligible
 from snvc_tpu_torch.ops.conv3d_k3 import conv3d_k3, k3_eligible
 from snvc_tpu_torch.parallel.api import global_sum, world_sum
+from snvc_tpu_torch.parallel.local import collective_log
 from snvc_tpu_torch.parallel.tensor import halo_exchange, model_sum
 
 
@@ -144,7 +145,7 @@ def conv_halo(kernel: int, stride: int, dilation: int = 1
     """(lo, hi): the planes below and above a slab that its outputs read,
     for a conv with torch-symmetric padding ``(k-1)//2*dilation`` along
     the split axis.  The slab must start at a multiple of ``stride``
-    (``parallel.tensor.check_split``)."""
+    (``parallel.tensor.slab_bounds``)."""
     pad = (kernel - 1) // 2 * dilation
     return pad, max(0, (kernel - 1) * dilation - pad - stride + 1)
 
@@ -154,10 +155,12 @@ def tensor_parallel(module: nn.Module, mesh):
     """While this is open, the modules inside ``module`` built with a
     ``split_axis`` compute on this rank's slab of it, over ``mesh``'s
     model group (parallel/tensor.py).  Without a mesh, or with one model
-    rank, nothing changes.  Keep it open through the backward: a
-    rematerialized block recomputes its exchanges.  Under a one-process
-    mesh each position opens it on its own replica of the module
-    (parallel/local.py), with its position's mesh."""
+    rank, nothing changes.  Under a process group keep it open through
+    the backward: a rematerialized block recomputes its exchanges.
+    Under a one-process mesh each position opens it on its own replica
+    of the module (parallel/local.py), with its position's mesh, and a
+    rematerialized block reopens it for its recompute
+    (``remat_contexts``)."""
     if mesh is None or mesh.n_model == 1:
         yield
         return
@@ -227,6 +230,50 @@ def frozen_batch_stats(module: nn.Module):
     finally:
         for m, w in zip(norms, was):
             m.stats_frozen = w
+
+
+class _EachEntry:
+    """A context that opens ``make()``'s contexts anew at each entry
+    (``torch.utils.checkpoint`` enters its recompute context at every
+    recompute)."""
+
+    def __init__(self, make):
+        self.make = make
+        self._stacks: list = []
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        try:
+            for c in self.make():
+                stack.enter_context(c)
+        except BaseException:
+            stack.close()
+            raise
+        self._stacks.append(stack)
+        return self
+
+    def __exit__(self, *exc):
+        return self._stacks.pop().__exit__(*exc)
+
+
+def remat_contexts(module: nn.Module, mesh):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a rematerialized
+    ``module`` run on ``mesh``'s position (None: no mesh): the forward's
+    and the recompute's contexts.  The recompute keeps BatchNorm's
+    running statistics (``frozen_batch_stats``).  On a position of a
+    one-process mesh (parallel/local.py) it also replays what the
+    forward's collectives received (``local.collective_log``), with
+    ``module`` split on the position's mesh again: it runs after the
+    positions' threads have closed their ``data_parallel`` /
+    ``tensor_parallel``.  A process group's recompute meets the other
+    ranks' recomputes and runs inside the step's contexts."""
+    if mesh is None or mesh.local is None:
+        return contextlib.nullcontext(), _EachEntry(
+            lambda: [frozen_batch_stats(module)])
+    record, replay = collective_log()
+    return record, _EachEntry(lambda: [
+        replay, frozen_batch_stats(module), data_parallel(module, mesh),
+        tensor_parallel(module, mesh)])
 
 
 @contextlib.contextmanager

@@ -59,7 +59,6 @@ from snvc_tpu_torch.models.stereo_backbone import _VARIANTS, StereoFeatureNet
 from snvc_tpu_torch.ops.cost_volume import plane_sweep_volume_k3
 from snvc_tpu_torch.ops.frustum import _hat, frustum_tables, frustum_to_voxel_k4
 from snvc_tpu_torch.parallel.tensor import (
-    check_split,
     gather,
     model_max,
     model_sum,
@@ -225,7 +224,6 @@ class StereoHead(nn.Module):
         mesh = self.tp_mesh
         levels = None
         if mesh is not None:
-            check_split("num_depths", cfg.num_depths, mesh, Hourglass.levels)
             d0, d1 = split_range(cfg.num_depths, mesh, self.unit)
             shifts, levels = shifts[:, d0:d1].contiguous(), self.depths[d0:d1]
         vol = plane_sweep_volume_k3(lf.contiguous(), rf.contiguous(), shifts)

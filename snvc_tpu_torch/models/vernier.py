@@ -54,15 +54,16 @@ gather:
   stride-2 ``ConvNorm_2``: it and ``HRNet_0`` run whole.
 
 ``occupancy`` and ``offset`` come out as slabs (models/losses.py sums
-their losses over the model group).  Under a one-process mesh
-(parallel/local.py) nothing rematerializes: ``cfg.remat`` is ignored
-there, as a recompute in the backward could not meet the other
-positions.
+their losses over the model group).  ``cfg.remat`` holds on every mesh,
+as in JAX: under a process group the recompute's collectives meet the
+other ranks' recomputes; under a one-process mesh (parallel/local.py)
+the recompute replays what the forward's collectives received
+(``layers.remat_contexts``).
 """
 
 from __future__ import annotations
 
-import contextlib
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -81,12 +82,12 @@ from snvc_tpu_torch.models.layers import (
     HourglassDeep,
     avg_pool_height,
     conv2d_nhwc,
-    frozen_batch_stats,
     init_weights,
+    remat_contexts,
 )
 from snvc_tpu_torch.ops.grid_sample import cosine_gate
 from snvc_tpu_torch.ops.stereo_sample_cuda import stereo_voxel_sample
-from snvc_tpu_torch.parallel.tensor import check_split, gather, split_range
+from snvc_tpu_torch.parallel.tensor import gather, split_range
 from snvc_tpu_torch.utils.device import compute_dtype, resolve_device
 
 
@@ -135,20 +136,6 @@ def length_levels(cfg: VernierConfig) -> int:
     return Hourglass.levels
 
 
-def _length_halo(cfg: VernierConfig) -> int:
-    """The widest halo along the length that the head's convs read: the
-    BEV_type2 / BEV_type3 prelude's conv3_k5_d2 4, a k3 conv's 1."""
-    return 4 if cfg.vernier_type in ("BEV_type2", "BEV_type3") else 1
-
-
-def check_length_split(cfg: VernierConfig, mesh) -> None:
-    """``parallel.tensor.check_split`` of the grid's length nl: every
-    split runs (units of 4 or 16 lengths are never narrower than the
-    head's widest halo, 4)."""
-    check_split("grid length nl", cfg.grid_resolution[2], mesh,
-                length_levels(cfg), _length_halo(cfg))
-
-
 class VernierEncoder(nn.Module):
     """ROIs -> object-centric voxel: a shared HRNet over both views, then
     the stereo voxel sampler (JAX vernier.py:89).  With
@@ -177,7 +164,6 @@ class VernierEncoder(nn.Module):
         if self.tp_mesh is not None:
             # the points of this position's lengths (h-major ravel of the
             # grid)
-            check_length_split(self.cfg, self.tp_mesh)
             nh, nw, nl = grid
             a, b = split_range(nl, self.tp_mesh, 2 ** length_levels(self.cfg))
             gpl, gpr = (g.reshape(n, nh, nw, nl, 2)[:, :, :, a:b]
@@ -357,12 +343,14 @@ class VernierHead(nn.Module):
         else:
             def run_hg3(t):
                 return hg3(t, None, None)[0]
-        if (cfg.remat and self.training and torch.is_grad_enabled()
-                and (mesh is None or mesh.local is None)):
-            # the recompute must not move BatchNorm's running statistics
+        if cfg.remat and self.training and torch.is_grad_enabled():
+            # the hourglass draws no random number, so the recompute need
+            # not fork the global generators (a one-process mesh's
+            # positions recompute on their devices' autograd threads)
             x = checkpoint(run_hg3, x, use_reentrant=False,
-                           context_fn=lambda: (contextlib.nullcontext(),
-                                               frozen_batch_stats(hg3))) + x
+                           preserve_rng_state=False,
+                           context_fn=functools.partial(remat_contexts, hg3,
+                                                        mesh)) + x
         else:
             x = run_hg3(x) + x
 
@@ -417,8 +405,6 @@ class VernierHead(nn.Module):
         """``dropout_generator`` draws the bbox head's dropout masks in
         train mode (models/fc_model.py).  Outputs are float32."""
         vt = self.cfg.vernier_type
-        if self.tp_mesh is not None:
-            check_length_split(self.cfg, self.tp_mesh)
         if vt == "3D":
             out = self._head_3d(voxel)
         elif vt == "BEV":

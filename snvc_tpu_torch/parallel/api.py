@@ -55,9 +55,10 @@ comes in two forms:
   positions on one card).  ``DetectRunner``, ``make_train_step`` and
   ``make_stereo_train_step`` take it; ``RefineRunner`` splits its
   instances over the data axis only and serves on the first device of
-  each data position, as JAX replicates its model over "model".  Nothing
-  rematerializes in this form (``cfg.remat`` is off: a recompute in the
-  backward could not meet the other positions).
+  each data position, as JAX replicates its model over "model".
+  ``cfg.remat`` holds here too: a rematerialized block's recompute
+  replays what its forward's collectives received
+  (``local.collective_log``).
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ and ``local`` to the run's ``Rendezvous``, so the model code reads
 ``data_index`` / ``model_index`` and calls the collectives of
 parallel/api.py and parallel/tensor.py as a rank of a process group
 would.  Each collective meets at the rendezvous: the last position of
-the group to arrive computes every position's output from every
-position's input with plain differentiable ops (``.to`` a device,
-``narrow``, ``cat``, ``+``), and the others wake and take theirs.  The
+the group to arrive computes what every position receives from the
+others with plain differentiable ops (``.to`` a device, ``narrow``,
+``cat``, ``+``), and each position joins it to its own tensor.  The
 positions' autograd graphs thus join into one graph, whose backward is
 the adjoint of each collective by construction: the step calls
 ``backward`` once, from the caller, on the sum of the positions' losses,
@@ -19,18 +19,28 @@ and no backward ever waits on another thread.  (PyTorch's autograd
 engine runs every CUDA backward node of a device on one worker thread,
 and the CPU ones on the caller's, so a backward that blocks in a
 collective, as the rank form's do, would deadlock positions sharing a
-device.)  For the same reason nothing rematerializes under this form: a
-recompute inside the backward could not meet the other positions
-(models/vernier.py turns ``cfg.remat`` off here).
+device.)
+
+A rematerialized block (``torch.utils.checkpoint``, models/vernier.py's
+3D hourglass under ``cfg.remat``) recomputes inside that backward, on
+autograd's thread, after the positions' threads have ended: it cannot
+meet the other positions.  So each of its checkpointed calls keeps a
+``collective_log``: in the forward every collective of the position
+records what it received from the others (a halo's planes, a sum, a
+maximum; never the position's own tensor), and the recompute replays
+those records in the same order without meeting.  The recomputed
+tensors refill the saved-tensor slots of the graph the forward built,
+whose collective edges still join the positions, so the gradients cross
+positions as without remat.  The meetings' own ops save no tensor, and
+run under saved-tensor hooks of their own besides, so no position's
+tensor is packed into another position's checkpoint.
 
 The slabs follow parallel/tensor.py's rule: a position may hold a
 short last slab or no plane at all.  Such a position meets the others at
 every collective in the same order (its layers make 0-plane outputs
 that still depend on their inputs), adds nothing to a gather, zeros to
-a sum and -inf to a maximum; a halo that reaches past a short or an
-empty neighbour takes what it holds and zeros beyond, and the meeting
-refuses a halo that would reach past a slab that is not the last to hold
-planes.
+a sum and -inf to a maximum.  A halo takes its planes from as many
+neighbours as it reaches, and zeros only past the volume's ends.
 
 Each position runs its own module (``Replicas``): position 0 the module
 itself, the others copies of its module tree that use its parameters and
@@ -53,9 +63,50 @@ from typing import Any, Callable, Dict, List, Sequence
 import torch
 from torch import nn
 
+from snvc_tpu_torch.parallel.tensor import fill_planes, halo_sources
+
 
 class _Aborted(RuntimeError):
     """Raised in the positions still waiting when another one failed."""
+
+
+# this thread's (log, replaying, cursor) while a ``collective_log``
+# context is open on it
+_LOGGED = threading.local()
+
+
+class _Logged:
+    """While open on a thread, the collectives that thread calls at a
+    ``Rendezvous`` append what they receive to ``log`` (``replay``
+    False), or take it from ``log`` in order without meeting (``replay``
+    True).  Reentrant: a checkpoint enters its recompute context at
+    every recompute, and each replays from the first record."""
+
+    def __init__(self, log: list, replay: bool):
+        self.log, self.replay = log, replay
+        self._outer: list = []
+
+    def __enter__(self):
+        self._outer.append(getattr(_LOGGED, "state", None))
+        if not self.replay:
+            self.log.clear()
+        _LOGGED.state = (self.log, self.replay, [0])
+        return self
+
+    def __exit__(self, *exc):
+        _LOGGED.state = self._outer.pop()
+        return False
+
+
+def collective_log():
+    """(record, replay): the two contexts of one checkpointed call on a
+    position of a one-process mesh (``torch.utils.checkpoint``'s
+    ``context_fn``), sharing one log that lives as long as the
+    checkpoint's saved state.  ``record`` around the forward keeps what
+    each collective received from the other positions, detached;
+    ``replay`` around a recompute hands it back in the same order."""
+    log: list = []
+    return _Logged(log, False), _Logged(log, True)
 
 
 class _Meeting:
@@ -64,6 +115,10 @@ class _Meeting:
         self.arrived = set()
         self.outputs = None
         self.taken = 0
+
+
+def _identity(t):
+    return t
 
 
 class Rendezvous:
@@ -95,7 +150,9 @@ class Rendezvous:
     def meet(self, kind: str, rank: int, x, fn: Callable[[list], list]):
         """``fn(inputs)[i]``: ``inputs`` are the group's ``x`` in position
         order, ``i`` is ``rank``'s place among them.  The last position to
-        arrive calls ``fn``."""
+        arrive calls ``fn``, under saved-tensor hooks of its own (its
+        thread's checkpoint, if any, must not pack the other positions'
+        tensors)."""
         members = tuple(self.members(kind, rank))
         i = members.index(rank)
         with self._cv:
@@ -107,7 +164,9 @@ class Rendezvous:
             m.arrived.add(rank)
             if len(m.arrived) == len(members):
                 try:
-                    m.outputs = fn(m.inputs)
+                    with torch.autograd.graph.saved_tensors_hooks(
+                            _identity, _identity):
+                        m.outputs = fn(m.inputs)
                 except BaseException as e:
                     self._fail(e)
                     raise
@@ -126,6 +185,32 @@ class Rendezvous:
             if m.taken == len(members):
                 del self._meetings[key]
             return m.outputs[i]
+
+    def _receive(self, name: str, kind: str, rank: int, x,
+                fn: Callable[[list], list]) -> tuple:
+        """``meet``, where ``fn`` gives each position the tuple of tensors
+        it receives from the others (collective ``name``).  Under
+        ``collective_log``'s record context the tuple is also logged,
+        detached; under its replay context it comes from the log and no
+        meeting is held."""
+        state = getattr(_LOGGED, "state", None)
+        if state is None:
+            return self.meet(kind, rank, x, fn)
+        log, replay, cursor = state
+        if not replay:
+            got = self.meet(kind, rank, x, fn)
+            log.append((name, tuple((t.detach().clone(), t.requires_grad)
+                                    for t in got)))
+            return got
+        if cursor[0] == len(log) or log[cursor[0]][0] != name:
+            raise RuntimeError(
+                f"a recompute calls collective {name} at {cursor[0]}, which "
+                f"its forward did not ({[n for n, _ in log]})")
+        _, got = log[cursor[0]]
+        cursor[0] += 1
+        # as in the forward: a leaf that requires grad where the received
+        # tensor did, so the recompute saves the same tensors
+        return tuple(t.detach().requires_grad_(g) for t, g in got)
 
     def _fail(self, e: BaseException) -> None:
         self._failed = e
@@ -148,16 +233,16 @@ class Rendezvous:
             total = xs[0]
             for y in xs[1:]:
                 total = total + y.to(total.device)
-            return [total.to(y.device) for y in xs]
-        return self.meet(kind, rank, x, fn)
+            return [(total.to(y.device),) for y in xs]
+        return self._receive("sum", kind, rank, x, fn)[0]
 
     def max(self, x, rank: int):
         """The elementwise maximum over the model group, detached."""
         def fn(xs):
             dev = xs[0].device
             top = torch.stack([y.detach().to(dev) for y in xs]).amax(0)
-            return [top.to(y.device) for y in xs]
-        return self.meet("model", rank, x, fn)
+            return [(top.to(y.device),) for y in xs]
+        return self._receive("max", "model", rank, x, fn)[0]
 
     def gather(self, x, axis: int, rank: int):
         """The model group's slabs concatenated along ``axis`` (a position
@@ -165,50 +250,29 @@ class Rendezvous:
         def fn(xs):
             dev = xs[0].device
             whole = torch.cat([y.to(dev) for y in xs], dim=axis)
-            return [whole.to(y.device) for y in xs]
-        return self.meet("model", rank, x, fn)
+            return [(whole.to(y.device),) for y in xs]
+        return self._receive("gather", "model", rank, x, fn)[0]
 
     def halo(self, x, axis: int, lo: int, hi: int, rank: int):
-        """Each slab widened by the ``lo`` last planes of the previous
-        position and the ``hi`` first of the next, zeros beyond the outer
-        ones and beyond the planes of a neighbour that holds fewer (a
-        short or an empty last slab: the volume's edge).  Raises where a
-        halo would reach past a slab that is not the last to hold
-        planes."""
-        def edge(src, dst, n, first):
-            shape = list(dst.shape)
-            shape[axis] = n
-            if src is None:
-                return dst.new_zeros(shape)
-            have = min(n, src.shape[axis])
-            part = src.narrow(axis, 0 if first else src.shape[axis] - have,
-                              have).to(dst.device)
-            shape[axis] = n - have
-            pad = dst.new_zeros(shape)
-            return torch.cat([part, pad] if first else [pad, part],
-                             dim=axis)
-
+        """Each slab widened by the ``lo`` planes below it and the ``hi``
+        above it, taken from as many neighbours as they reach
+        (``tensor.halo_sources``), zeros past the volume's ends (before
+        the first plane, after the last slab that holds planes).  What a
+        position receives is the two halos alone; its own slab joins
+        them on its thread."""
         def fn(xs):
-            sizes = [y.shape[axis] for y in xs]
-            last = max((i for i, L in enumerate(sizes) if L), default=-1)
-            narrow = [L for L in sizes[:last]]
-            if narrow and min(narrow) < max(lo, hi):
-                raise ValueError(
-                    f"a halo of ({lo}, {hi}) planes reaches past a slab of "
-                    f"{min(narrow)} planes (slabs {sizes})")
-            n, out = len(xs), []
+            lengths = [y.shape[axis] for y in xs]
+            out = []
             for i, y in enumerate(xs):
-                parts = []
-                if lo:
-                    parts.append(edge(xs[i - 1] if i > 0 else None, y, lo,
-                                      False))
-                parts.append(y)
-                if hi:
-                    parts.append(edge(xs[i + 1] if i < n - 1 else None, y,
-                                      hi, True))
-                out.append(torch.cat(parts, dim=axis))
+                sides: tuple = ([], [])
+                for side, j, p, t, k in halo_sources(lengths, i, lo, hi):
+                    sides[side].append(
+                        (t, xs[j].narrow(axis, p, k).to(y.device)))
+                out.append((fill_planes(sides[0], lo, axis, y),
+                            fill_planes(sides[1], hi, axis, y)))
             return out
-        return self.meet("model", rank, x, fn)
+        below, above = self._receive("halo", "model", rank, x, fn)
+        return torch.cat([below, x, above], dim=axis)
 
 
 def run_positions(mesh, fn: Callable[[Any], Any]) -> list:

@@ -14,10 +14,10 @@ model group of a process-group mesh (parallel/api.py):
 * ``gather``: the slabs of every model rank, concatenated; its backward
   sums the incoming gradients over the model group and keeps this
   rank's slab (a reduce-scatter);
-* ``halo_exchange``: the slab widened by ``lo`` planes of the rank
-  before and ``hi`` of the rank after, zeros beyond the outer ranks (the
-  SAME padding); its backward returns each halo's gradient to the rank
-  that owns the planes, which adds it;
+* ``halo_exchange``: the slab widened by the ``lo`` planes below it and
+  the ``hi`` above it, from as many ranks as they reach, zeros past the
+  volume's ends (the SAME padding); its backward returns each halo
+  plane's gradient to the rank that owns the plane, which adds it;
 * ``model_sum``: the sum over the model group (``AllReduceSum``, whose
   backward is an all-reduce too); ``model_max``: the maximum, no
   gradient (the softmax's shift).
@@ -34,17 +34,14 @@ positions as ``np.array_split`` spreads them: contiguous slabs, the
 first ``k mod n`` positions one unit more, and the positions from ``k``
 on hold no plane when ``k < n``.  So every slab starts on a stride at
 every level, only the last slab that holds planes can be short, and
-beyond it lies the volume's edge: a halo that reaches past a short or an
-empty neighbour is zeros, as GSPMD's padded split (and the unsplit
-volume) has it.  At level ``l`` a short slab of ``r`` planes holds
-``ceil(r / 2^l)``, and the slabs' planes sum to the whole extent's
+beyond it lies the volume's edge: a halo that reaches past the last
+slab that holds planes is zeros, as GSPMD's padded split (and the
+unsplit volume) has it.  At level ``l`` a short slab of ``r`` planes
+holds ``ceil(r / 2^l)``, and the slabs' planes sum to the whole extent's
 ``ceil(extent / 2^l)``, so the crops of ``layers._crop_to`` fall on the
-last slab alone, as on the whole volume.  ``check_split`` refuses one
-split only: a slab of whole units narrower than a halo its convs read
-(a neighbour's halo would then reach past it into planes it does not
-hold).  No model of the port reaches it: every hourglass has at least 2
-levels, so units hold at least 4 planes, and the widest halo is 4
-(the BEV_type2 / BEV_type3 prelude's k5 d2 conv).
+last slab alone, as on the whole volume.  Every split runs: a halo wider
+than a neighbour's slab takes its planes from the slabs beyond it
+(``halo_sources``), as GSPMD's halo exchange would.
 
 An empty position takes part in every collective, forward and backward,
 in the same order as the others: its layers make 0-plane outputs that
@@ -52,18 +49,19 @@ still depend on their (halo-widened) inputs, launch no kernel, and add
 zeros to the sums (``model_sum``), ``-inf`` to the maxima (the caller's
 ``amax`` over no plane: ``slab_amax``) and nothing to a ``gather``.
 
-Both exchanges of the rank form go through ``all_gather`` of the edge
-planes in the model group (equal shapes whatever the slabs' lengths: a
-slab shorter than a halo offers what it has and zeros beyond; ``gather``
-pads the slabs to the widest and trims): gloo's ``send`` /
-``recv`` take CPU tensors only, and two ranks sharing one GPU can only
-use gloo, whose ``all_gather`` takes CUDA tensors (copied through the
-host).
+Both exchanges of the rank form go through ``all_gather`` in the model
+group, of equal shapes whatever the slabs' lengths: a rank offers its
+first ``hi`` and last ``lo`` planes (zeros beyond a slab shorter than
+that) and its length, which tells the others which planes are real
+(one host sync a halo exchange); ``gather`` pads the slabs to the widest
+and trims.  Gloo's ``send`` / ``recv`` take CPU tensors only, and two
+ranks sharing one GPU can only use gloo, whose ``all_gather`` takes CUDA
+tensors (copied through the host).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,24 +84,6 @@ def split_range(extent: int, mesh: Mesh, unit: int = 1) -> Tuple[int, int]:
     first == end on a position that holds no plane."""
     b = slab_bounds(extent, mesh.n_model, unit)
     return b[mesh.model_index], b[mesh.model_index + 1]
-
-
-def check_split(name: str, extent: int, mesh: Mesh, levels: int,
-                halo: int = 1) -> None:
-    """Raises if a slab of whole units of ``2^levels`` planes (any slab
-    but the last that holds planes) is narrower than ``halo``, the widest
-    halo the split convs read: a neighbour's halo would reach past it.
-    Every other split runs: a short last unit, positions with no plane
-    (the module docstring).  No model of the port reaches the refusal
-    (units of at least 4 planes, halos of at most 4)."""
-    b = slab_bounds(extent, mesh.n_model, 2 ** levels)
-    widths = [hi - lo for lo, hi in zip(b, b[1:]) if hi > lo]
-    narrow = min(widths[:-1], default=halo)
-    if narrow < halo:
-        raise ValueError(
-            f"{name} = {extent} over {mesh.n_model} model positions gives "
-            f"a slab of {narrow} planes, narrower than the {halo}-plane "
-            "halo its convs read")
 
 
 def slab_amax(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -175,57 +155,105 @@ def _edge(x: torch.Tensor, axis: int, first: bool, n: int):
     return torch.cat([part, zeros] if first else [zeros, part], dim=axis)
 
 
+def halo_sources(lengths: Sequence[int], m: int, lo: int, hi: int):
+    """Where slab ``m``'s halos come from, the axis cut into slabs of
+    ``lengths`` planes in position order: (side, j, p, t, k) for each run
+    of ``k`` planes from plane ``p`` of slab ``j`` to plane ``t`` of the
+    halo below (side 0, ``lo`` planes) or above (side 1, ``hi``), in
+    order of ``t``.  A halo wider than a neighbour's slab reaches on into
+    the next; the planes no slab holds (past the volume's ends) are
+    zeros, and appear in no run.  The runs below read the last ``lo``
+    planes of a slab, the runs above its first ``hi``."""
+    starts = [0]
+    for L in lengths:
+        starts.append(starts[-1] + L)
+    runs = []
+    for side, a in ((0, starts[m] - lo), (1, starts[m + 1])):
+        b = a + (hi if side else lo)
+        for j, L in enumerate(lengths):
+            s, e = max(a, starts[j]), min(b, starts[j] + L)
+            if j != m and s < e:
+                runs.append((side, j, s - starts[j], s - a, e - s))
+    return runs
+
+
+def fill_planes(parts, n: int, axis: int, like: torch.Tensor):
+    """``n`` planes along ``axis``: each (t, tensor) of ``parts`` (in order
+    of t) at plane t, zeros (of ``like``'s other dims, dtype and device)
+    in the planes between and beyond them."""
+    out, at = [], 0
+    shape = list(like.shape)
+    for t, part in parts:
+        if t > at:
+            shape[axis] = t - at
+            out.append(like.new_zeros(shape))
+        out.append(part)
+        at = t + part.shape[axis]
+    if n > at or not out:
+        shape[axis] = n - at
+        out.append(like.new_zeros(shape))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=axis)
+
+
+def _all_gather_sized(x: torch.Tensor, length: int, group, n: int):
+    """The model group's ``x`` (one shape on every rank) and each rank's
+    ``length``, in one ``all_gather`` of their bytes; the lengths read
+    on the host."""
+    size = torch.full((1,), length, dtype=torch.int64, device=x.device)
+    parts = _all_gather(torch.cat([size.view(torch.uint8),
+                                   x.contiguous().view(-1)
+                                   .view(torch.uint8)]), group, n)
+    lengths = torch.stack([p[:8] for p in parts]).view(torch.int64)
+    return ([p[8:].view(x.dtype).view(x.shape) for p in parts],
+            lengths.flatten().tolist())
+
+
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, lo, hi, mesh):
-        ctx.axis, ctx.lo, ctx.hi, ctx.mesh = axis, lo, hi, mesh
         n, m = mesh.n_model, mesh.model_index
         # each rank offers its first hi and last lo planes (zeros beyond a
-        # slab shorter than that)
+        # slab shorter than that) and its length
         edges = torch.cat([_edge(x, axis, True, hi),
                            _edge(x, axis, False, lo)], dim=axis)
-        parts = _all_gather(edges, mesh.model_group, n)
-        zeros = x.new_zeros
-        shape = list(x.shape)
-        if m > 0:
-            below = parts[m - 1].narrow(axis, hi, lo)
-        else:
-            below = zeros(shape[:axis] + [lo] + shape[axis + 1:])
-        if m < n - 1:
-            above = parts[m + 1].narrow(axis, 0, hi)
-        else:
-            above = zeros(shape[:axis] + [hi] + shape[axis + 1:])
-        return torch.cat([below, x, above], dim=axis)
+        parts, lengths = _all_gather_sized(edges, x.shape[axis],
+                                           mesh.model_group, n)
+        ctx.axis, ctx.lo, ctx.hi, ctx.mesh = axis, lo, hi, mesh
+        ctx.lengths = lengths
+        sides: tuple = ([], [])
+        for side, j, p, t, k in halo_sources(lengths, m, lo, hi):
+            # slab j's plane p: at p in its first hi planes, at
+            # hi + p - (L - lo) in its last lo
+            at = p if side else hi + p - (lengths[j] - lo)
+            sides[side].append((t, parts[j].narrow(axis, at, k)))
+        return torch.cat([fill_planes(sides[0], lo, axis, x), x,
+                          fill_planes(sides[1], hi, axis, x)], dim=axis)
 
     @staticmethod
     def backward(ctx, g):
         axis, lo, hi, mesh = ctx.axis, ctx.lo, ctx.hi, ctx.mesh
-        L = g.shape[axis] - lo - hi
         n, m = mesh.n_model, mesh.model_index
-        # the halos' gradients, each to the rank that owns the planes
+        L = ctx.lengths[m]
+        # every rank's halos' gradients; each adds those of its planes
         parts = _all_gather(torch.cat([g.narrow(axis, 0, lo),
                                        g.narrow(axis, lo + L, hi)], dim=axis),
                             mesh.model_group, n)
         dx = g.narrow(axis, lo, L).clone()
-        a, b = min(lo, L), min(hi, L)  # the planes of mine in each halo
-        if m < n - 1:  # the next rank's lower halo ends with my last planes
-            dx.narrow(axis, L - a, a).add_(
-                parts[m + 1].narrow(axis, lo - a, a))
-        if m > 0:  # the previous rank's upper halo starts with my first
-            dx.narrow(axis, 0, b).add_(parts[m - 1].narrow(axis, lo, b))
+        for i in range(n):
+            for side, j, p, t, k in halo_sources(ctx.lengths, i, lo, hi):
+                if j == m:
+                    dx.narrow(axis, p, k).add_(
+                        parts[i].narrow(axis, t + (lo if side else 0), k))
         return dx, None, None, None, None
 
 
 def halo_exchange(x: torch.Tensor, axis: int, lo: int, hi: int,
                   mesh: Mesh) -> torch.Tensor:
-    """``x``'s slab along ``axis`` widened by the ``lo`` last planes of the
-    previous model position and the ``hi`` first planes of the next one:
-    [.., lo + L + hi, ..].  Zeros beyond the first and the last position,
-    and beyond the planes of a neighbour that holds fewer (a short or an
-    empty last slab: the volume's edge).  A one-process mesh checks at
-    the meeting that no halo reaches past a slab of whole units; a
-    process group relies on ``check_split``, which the models call before
-    their first collective."""
+    """``x``'s slab along ``axis`` widened by the ``lo`` planes below it
+    and the ``hi`` planes above it: [.., lo + L + hi, ..].  A halo wider
+    than a neighbour's slab reaches on into the slabs beyond; zeros past
+    the volume's ends (before the first plane, after the last slab that
+    holds planes)."""
     if lo == hi == 0:
         return x
     if mesh.local is not None:

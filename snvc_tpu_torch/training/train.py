@@ -164,7 +164,8 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                               functools.partial(_losses, cfg=cfg, tc=tc),
                               tc, mesh, grid_local=grid_local)
     # open through the backward: the rematerialized hourglass's recompute
-    # runs its BatchNorms' reductions and its halo exchanges again
+    # runs its BatchNorms' reductions and its halo exchanges again, and
+    # meets the other ranks' recomputes
     with data_parallel(state.model, mesh), \
             tensor_parallel(state.model, mesh):
         losses, metrics = _losses(state.model, batch, state.step, mesh,
@@ -207,8 +208,10 @@ def position_steps(state: TrainState, batch: Mapping[str, torch.Tensor],
     metrics)`` on every position's replica in its thread, with the
     global batch and the tensors in ``kw`` on the position's device,
     then one backward of the positions' summed ``total`` losses over
-    ``n_model`` and the update.  Returns position 0's (global)
-    metrics."""
+    ``n_model`` and the update.  The positions' contexts close before
+    that backward: a rematerialized block's recompute in it reopens them
+    and replays its collectives (``layers.remat_contexts``).  Returns
+    position 0's (global) metrics."""
     reps = replicas(state.model, mesh)
 
     def position(pos):

@@ -17,13 +17,12 @@
   to 3.4e-12 or better, most to ~3e-16).
 * The slab rule (``slab_bounds``: units of 2^levels planes, the last
   short, spread as ``np.array_split`` spreads them, positions beyond the
-  units empty) and what is still refused: a slab of whole units
-  narrower than a halo; a mesh larger than its devices, an ``n_model``
-  that does not divide the world or would cross hosts, the runners given
-  the wrong mesh.  The one-process ``make_mesh(n_model=2)`` is built.
+  units empty), splits whose halos reach past a slab (equal to the whole
+  layer and model), and what is still refused: a mesh larger than its
+  devices, an ``n_model`` that does not divide the world or would cross
+  hosts, the runners given the wrong mesh.  The one-process
+  ``make_mesh(n_model=2)`` is built.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -31,17 +30,15 @@ import torch
 import torch.nn.functional as F
 
 from snvc_tpu_torch.config import tiny_stereo_config, tiny_vernier_config
+from snvc_tpu_torch.data.stereo import synthetic_stereo_request
 from snvc_tpu_torch.inference.detect import DetectRunner
 from snvc_tpu_torch.inference.refine import RefineRunner
-from snvc_tpu_torch.models import stereonet
-from snvc_tpu_torch.models import vernier as vernier_module
 from snvc_tpu_torch.models.layers import tensor_parallel
 from snvc_tpu_torch.models.stereonet import StereoNet
 from snvc_tpu_torch.models.vernier import VernierScale
 from snvc_tpu_torch.parallel import api
-from snvc_tpu_torch.parallel.local import run_positions
+from snvc_tpu_torch.parallel.local import replicas, run_positions
 from snvc_tpu_torch.parallel.tensor import (
-    check_split,
     gather,
     halo_exchange,
     model_max,
@@ -49,7 +46,13 @@ from snvc_tpu_torch.parallel.tensor import (
     shard,
     slab_bounds,
 )
-from tests.torch_parallel_ranks import LAYER_CASES, run_ranks, tp_layers
+from tests.torch_parallel_ranks import (
+    LAYER_CASES,
+    float64_moments,
+    one_process_layer_errors,
+    run_ranks,
+    tp_layers,
+)
 
 # a [2, 8, 3] tensor split on axis 1: slabs of 4
 X = torch.arange(48, dtype=torch.float64).reshape(2, 8, 3) / 7.0
@@ -173,44 +176,47 @@ def test_one_process_positions_fail_together():
         run_positions(mesh, leaving)
 
 
+def _layer_within(name, mesh, shape, unit, slabs):
+    """``name``'s layer case on the one-process ``mesh`` against the
+    whole module: every position's output, input gradient and the
+    parameters' gradients within 1e-6 of scale, on ``slabs``."""
+    with float64_moments(True):
+        errs = one_process_layer_errors(name, mesh, shape, unit)
+    assert [e["extents"][0] for e in errs] == list(slabs)
+    for e in errs:
+        bad = {k: v for k, v in e.items() if k != "extents" and v > 1e-6}
+        assert not bad, (name, bad)
+
+
 def test_uneven_slabs_are_refused():
     """Uneven slabs run: ceil(extent / 2^levels) units, the last short,
     spread as np.array_split spreads them, positions beyond the units
-    empty.  check_split refuses only a slab of whole units narrower than
-    a halo, with its reason, before any collective; a model runs an
-    extent that is not a multiple of its units, or with fewer units than
-    positions, as GSPMD pads it."""
+    empty; and no split is refused for its halo, as GSPMD refuses none.
+    num_depths = 16 over 2 model positions gives slabs of 8 planes: a
+    conv with a 9-plane halo on them (a k7 d3 conv: the halo reaches past
+    the neighbour's slab) equals the whole conv, and StereoNet on that
+    split (DetectRunner on make_mesh(1, 2)) equals the unsplit model:
+    the same valid slots and classes, boxes within 2e-5 m and scores
+    within 2e-6 (tests/test_torch_tensor_parallel_padded.py's rule)."""
     assert slab_bounds(64, 3, 4) == [0, 24, 44, 64]
     assert slab_bounds(192, 5, 16) == [0, 48, 96, 128, 160, 192]
     assert slab_bounds(12, 2, 4) == [0, 8, 12]
     assert slab_bounds(14, 2, 4) == [0, 8, 14]  # a short last unit
     assert slab_bounds(4, 2, 4) == [0, 4, 4]  # an empty position
-    check_split("num_depths", 12, TP_MESH, 2)  # 8 / 4
-    check_split("num_depths", 16, TP_MESH, 2)
-    check_split("num_depths", 14, TP_MESH, 2)  # 8 / 6
-    check_split("num_depths", 4, TP_MESH, 2)  # 4 / 0
-    check_split("nl", 8, TP_MESH, 1, halo=4)  # 4 / 4
-    check_split("nl", 9, TP_MESH, 2, halo=4)  # 8 / 1: the last is short
-    with pytest.raises(ValueError, match="a slab of 4 planes, narrower "
-                       "than the 5-plane halo"):
-        check_split("nl", 8, TP_MESH, 1, halo=5)
-    # through the model (its check given a 9-plane halo): before any
-    # collective
+    mesh = api.make_mesh(1, ["cpu"] * 2, 2)
+    _layer_within("conv3d_k7_d3", mesh, (1, 16, 3, 3, 4), 4, (8, 8))
     cfg = tiny_stereo_config(num_depths=16)
-    model = StereoNet(cfg, device="cpu")
-    x = torch.zeros((1,) + tuple(cfg.input_size) + (3,))
-    P = torch.tensor(np.array([[[700.0, 0, 64, 40], [0, 700, 32, 0],
-                                [0, 0, 1, 0]]], np.float32))
-    Pr = P.clone()
-    Pr[0, 0, 3] = -40.0
-    with tensor_parallel(model, TP_MESH), torch.no_grad(), \
-            pytest.MonkeyPatch.context() as mp:
-        mp.setattr(stereonet, "check_split",
-                   lambda *a: check_split(*a[:4], halo=9))
-        with pytest.raises(ValueError, match="num_depths = 16 over 2 "
-                           "model positions gives a slab of 8 planes, "
-                           "narrower than the 9-plane halo"):
-            model(x, x, P, Pr)
+    request = synthetic_stereo_request(cfg, seed=4, frames=1)
+    outs = [[t.numpy() for t in DetectRunner(
+        StereoNet(cfg, device="cpu"), cfg, device="cpu",
+        score_threshold=0.0, mesh=m).forward(request)]
+        for m in (None, mesh)]
+    (wb, ws, wc, wv), (boxes, scores, classes, valid) = outs
+    assert valid.any()
+    np.testing.assert_array_equal(valid, wv)
+    np.testing.assert_array_equal(classes, wc)
+    np.testing.assert_allclose(boxes[valid], wb[wv], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(scores, ws, rtol=0, atol=2e-6)
 
 
 def test_make_mesh_refuses_the_model_axis_naming_initialize_multihost(
@@ -243,9 +249,9 @@ def test_runners_take_the_model_axis_where_jax_does():
     """DetectRunner serves one data position split over a process group's
     model axis and every position of a one-process mesh; RefineRunner
     splits instances on "data" only (as JAX's), on the first device of
-    each data position; every Vernier head splits its lengths, takes a
-    split that leaves positions empty, and checks its split before any
-    collective."""
+    each data position; every Vernier head splits its lengths and takes
+    a split that leaves positions empty, equal to the unsplit head
+    (float32, 1e-5 of scale), even where a halo reaches past a slab."""
     scfg = tiny_stereo_config()
     four = api.Mesh((torch.device("cpu"),) * 4, rank=0, n_model=2)
     with pytest.raises(ValueError, match="one data position, not 2"):
@@ -263,16 +269,29 @@ def test_runners_take_the_model_axis_where_jax_does():
                ) == 2
     bev = tiny_vernier_config(vernier_type="BEV")
     model = VernierScale(bev, device="cpu")
-    eight = api.Mesh((torch.device("cpu"),) * 8, rank=0, n_model=8)
-    with tensor_parallel(model, eight), pytest.MonkeyPatch.context() as mp:
-        # 4 units of 4 lengths over 8 positions, one each on positions
-        # 0-3, none on 4-7: with a 5-plane halo (the check's own is 1)
-        # the head refuses before its first collective
-        mp.setattr(vernier_module, "check_split",
-                   lambda *a: check_split(*a[:4], halo=5))
-        with pytest.raises(ValueError, match="grid length nl = 16 over 8 "
-                           "model positions gives a slab of 4 planes, "
-                           "narrower than the 5-plane halo"):
-            model.head(torch.zeros(1, 8, 16, 4, 64))
-    assert [check_split("grid length nl", 16, dataclasses.replace(
-        eight, rank=r), 2) for r in range(8)] == [None] * 8
+    voxel = torch.randn((1, 8, 16, 16, 16),
+                        generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        whole = model.head(voxel)
+    # 4 units of 4 lengths over 8 positions, one each on positions 0-3,
+    # none on 4-7: the head runs its slabs (ncf gathered whole, the
+    # occupancy a slab), and a conv whose 5-plane halo reaches past the
+    # 4-length slabs equals the whole conv
+    eight = api.make_mesh(1, ["cpu"] * 8, 8)
+    reps = replicas(model.head, eight)
+
+    def position(pos):
+        with tensor_parallel(reps[pos.rank], pos), torch.no_grad():
+            return reps[pos.rank](shard(voxel, 3, pos, 4))
+
+    outs = run_positions(eight, position)
+    assert [o["occupancy"].shape[-1] for o in outs] == [4] * 4 + [0] * 4
+    scale = float(whole["ncf"].abs().max())
+    for o in outs:
+        torch.testing.assert_close(o["ncf"], whole["ncf"], rtol=0,
+                                   atol=1e-5 * scale)
+    torch.testing.assert_close(
+        torch.cat([o["occupancy"] for o in outs], -1), whole["occupancy"],
+        rtol=0, atol=1e-5)
+    _layer_within("conv3d_k11_length", eight, (1, 2, 3, 16, 4), 4,
+                  (4, 4, 4, 4, 0, 0, 0, 0))

@@ -52,8 +52,6 @@ stereo path on a mesh where GSPMD pads.
   volume.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,9 +69,8 @@ from snvc_tpu.training.train_stereo import make_stereo_train_step_split
 from snvc_tpu_torch.config import TrainConfig, tiny_stereo_config
 from snvc_tpu_torch.data.stereo import synthetic_stereo_request
 from snvc_tpu_torch.inference.detect import DetectRunner
-from snvc_tpu_torch.models.layers import tensor_parallel
 from snvc_tpu_torch.parallel.api import make_mesh
-from snvc_tpu_torch.parallel.local import replicas, run_positions
+from snvc_tpu_torch.parallel.local import run_positions
 from snvc_tpu_torch.parallel.tensor import (
     gather,
     halo_exchange,
@@ -90,8 +87,7 @@ from tests.torch_parallel_ranks import (
     float64_moments,
     input_shapes,
     large_tap_any_dtype,
-    layer_setup,
-    slab_errors,
+    one_process_layer_errors,
     spawn_ranks,
     stereo_model,
     stereo_record,
@@ -203,32 +199,13 @@ def test_padded_layer_matches_the_whole_module_in_one_process(name):
     """make_mesh(1, 2 CPUs, 2): each position's replica on its slab, one
     backward of both positions' sums."""
     case_name, shape, unit, slabs = PADDED_LAYER_CASES[name]
-    mesh = make_mesh(1, ["cpu"] * 2, 2)
     with float64_moments(True), large_tap_any_dtype():
-        case = layer_setup(case_name, shape)
-        axis, split = case["axis"], case["split"]
-        reps = replicas(split, mesh)
-        xl = case["x"].clone().requires_grad_()
-        out_unit = max(1, unit * case["y"].shape[axis]
-                       // case["x"].shape[axis])
-
-        def position(pos):
-            mod = reps[pos.rank]
-            xs = shard(xl, axis, pos, unit)
-            with tensor_parallel(mod, pos):
-                ys = case["run"](mod, xs)
-            return ys, (ys * shard(case["r"], axis, pos, out_unit)).sum()
-
-        outs = run_positions(mesh, position)
-        sum(loss for _, loss in outs).backward()
-    whole_out = case["y"].shape[axis]
-    assert sum(ys.shape[axis] for ys, _ in outs) == whole_out
-    for p, (ys, _) in enumerate(outs):
-        pos = dataclasses.replace(mesh, rank=p)
-        errs = slab_errors(case, shard(xl.grad, axis, pos, unit), ys, split,
-                           unit, pos)
-        assert errs["extents"][0] == slabs[p]
-        _assert_layer(errs, slabs, name)
+        errs = one_process_layer_errors(
+            case_name, make_mesh(1, ["cpu"] * 2, 2), shape, unit)
+    assert sum(e["extents"][2] for e in errs) == errs[0]["extents"][3]
+    for p, e in enumerate(errs):
+        assert e["extents"][0] == slabs[p]
+        _assert_layer(e, slabs, name)
 
 
 @pytest.mark.parametrize("unit", [6, 8])
@@ -272,14 +249,20 @@ def test_one_process_collectives_on_short_and_empty_slabs(unit):
 
 
 def test_one_process_halo_refuses_a_halo_past_a_whole_slab():
-    """A halo wider than a slab that is not the last to hold planes would
-    reach into planes its neighbour does not hold."""
-    def position(pos):
-        return halo_exchange(shard(torch.zeros(1, 6), 1, pos, 2), 1, 3, 0,
-                             pos)
+    """A halo wider than a slab that is not the last to hold planes
+    reaches on into the planes of the slab beyond it: 3 planes below
+    each of three 2-plane slabs, against the zero-padded whole tensor
+    (exact)."""
+    x = torch.arange(6, dtype=torch.float64).reshape(1, 6) + 1.0
 
-    with pytest.raises(ValueError, match="reaches past a slab of 2 planes"):
-        run_positions(make_mesh(1, ["cpu"] * 3, 3), position)
+    def position(pos):
+        return halo_exchange(shard(x, 1, pos, 2), 1, 3, 0, pos)
+
+    outs = run_positions(make_mesh(1, ["cpu"] * 3, 3), position)
+    xpad = F.pad(x, (3, 0))
+    for p, halo in enumerate(outs):
+        torch.testing.assert_close(halo, xpad[:, 2 * p:2 * p + 5], rtol=0,
+                                   atol=0)
 
 
 # --- the stereo step and runner on make_mesh(1, 3) --------------------

@@ -323,6 +323,16 @@ def _layer_cases():
                      (2, 3, 6, 4), False),
         "convnorm2d": (lambda: L.ConvNorm(4, 8, 3, groups=2, split_axis=2),
                        2, (2, 5, 8, 4), False),
+        "convnorm2d_k7": (lambda: L.ConvNorm(4, 8, 7, groups=2,
+                                             split_axis=2),
+                          2, (2, 5, 8, 4), False),
+        # halos of 9 and 5 planes (the split axis's kernel alone)
+        "conv3d_k7_d3": (lambda: L.Conv3d(4, 6, (7, 1, 1), dilation=3,
+                                          split_axis=1), 1,
+                         (1, 16, 3, 3, 4), False),
+        "conv3d_k11_length": (lambda: L.Conv3d(4, 6, (1, 1, 11),
+                                               split_axis=3), 3,
+                              (1, 2, 3, 16, 4), False),
         "groupnorm": (lambda: L.FastGroupNorm(8, 4, split_axis=1), 1,
                       (2, 6, 3, 4, 8), False),
         "batchnorm": (lambda: L.BatchNorm(8, split_axis=1), 1,
@@ -525,6 +535,72 @@ def tp_layers_padded(rank, x, w_halo, w_gather, units) -> dict:
                   for name, (case, shape, unit, _) in
                   PADDED_LAYER_CASES.items()}
     return dict(exchanges=out, layers=layers)
+
+
+# name -> (layer case, input shape, unit, the slabs of the split axis over
+# WIDE_N positions): halos wider than a neighbour's slab, reaching on
+# into the slabs beyond (and past a short or an empty last slab)
+WIDE_N = 4
+WIDE_LAYER_CASES = {
+    "conv3d_k5_d2_large_tap_slabs2": ("conv3d_k5_d2_large_tap",
+                                      (1, 5, 4, 8, 4), 1, (2, 2, 2, 2)),
+    "conv3d_k5_d2_large_tap_short": ("conv3d_k5_d2_large_tap",
+                                     (1, 5, 4, 7, 4), 2, (2, 2, 2, 1)),
+    "conv3d_k5_d2_large_tap_empty": ("conv3d_k5_d2_large_tap",
+                                     (1, 5, 4, 5, 4), 2, (2, 2, 1, 0)),
+    "conv3d_k7_large_tap_slabs2": ("conv3d_k7_large_tap", (1, 7, 4, 9, 4),
+                                   1, (3, 2, 2, 2)),
+    "conv3d_k7_d3_halo9": ("conv3d_k7_d3", (1, 16, 3, 3, 4), 4,
+                           (4, 4, 4, 4)),
+    "convnorm2d_k7_slabs2": ("convnorm2d_k7", (2, 5, 8, 4), 1,
+                             (2, 2, 2, 2)),
+    "deconv3d_slabs1": ("deconv3d", (1, 4, 3, 5, 4), 1, (1, 1, 1, 1)),
+    "deconv2d_slabs1": ("deconv2d", (2, 3, 4, 4), 1, (1, 1, 1, 1)),
+}
+
+
+def tp_layers_wide(rank) -> dict:
+    """On WIDE_N ranks: ``_layer_errors`` of every wide-halo layer case
+    (float64, GroupNorm's moments too; the large-tap convs through the
+    K2 wrapper)."""
+    mesh = tp_mesh(rank, WIDE_N)
+    with float64_moments(True), large_tap_any_dtype():
+        return {name: _layer_errors(case, mesh, shape, unit)
+                for name, (case, shape, unit, _) in
+                WIDE_LAYER_CASES.items()}
+
+
+def one_process_layer_errors(name, mesh, shape=None, unit: int = 1):
+    """``layer_setup``'s case ``name`` on the one-process ``mesh``
+    (parallel/local.py): each position's replica on its slab (of
+    ``shape``, in units of ``unit``), one backward of every position's
+    weighted sum.  ``slab_errors`` of each position, in position
+    order."""
+    import dataclasses
+
+    from snvc_tpu_torch.models.layers import tensor_parallel
+    from snvc_tpu_torch.parallel.local import replicas, run_positions
+    from snvc_tpu_torch.parallel.tensor import shard
+
+    case = layer_setup(name, shape)
+    axis, split = case["axis"], case["split"]
+    reps = replicas(split, mesh)
+    xl = case["x"].clone().requires_grad_()
+    out_unit = max(1, unit * case["y"].shape[axis] // case["x"].shape[axis])
+
+    def position(pos):
+        mod = reps[pos.rank]
+        xs = shard(xl, axis, pos, unit)
+        with tensor_parallel(mod, pos):
+            ys = case["run"](mod, xs)
+        return ys, (ys * shard(case["r"], axis, pos, out_unit)).sum()
+
+    outs = run_positions(mesh, position)
+    sum(loss for _, loss in outs).backward()
+    return [slab_errors(case, shard(xl.grad, axis, pos, unit), ys, split,
+                        unit, pos)
+            for ys, pos in ((ys, dataclasses.replace(mesh, rank=p))
+                            for p, (ys, _) in enumerate(outs))]
 
 
 def tp_vernier(rank, n_model, cases, one_process) -> dict:
